@@ -1,0 +1,209 @@
+#!/usr/bin/env python3
+"""Where the port's rollout spends its time on one CUDA card.
+
+    python3 tools/profile_port.py
+
+Builds the full-width pipeline (``MMDiTConfig()``, ``VAEConfig()``, bf16,
+random weights) and, at 384x512, measures the three pieces the rollout's
+phases are made of:
+
+  * ``denoise_b2``: one chunk-1 denoise unit (2 CFG rows, 3 stages x 5 steps);
+  * ``denoise_b3``: one chunk-2 denoise unit (3 rows, history tokens);
+  * ``decode``: one streamed decode window (rgb + disparity, cont mode).
+
+For each piece it prints the synchronised wall time without the profiler
+(median of 3, after one warm-up), then, from one run under
+``torch.profiler``: the device busy time (the union of kernel intervals),
+the idle share ``1 - busy / wall``, the number of kernels, the device time
+by kernel class (the attention kernel, GEMMs, convolutions, the rest) and,
+for the denoise units, the rate the GEMMs reach on the linear layers'
+operations counted from the shapes. Details go to
+``chiprun_out/profile_port.json``. Needs a CUDA card; exits non-zero without.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+HEIGHT, WIDTH = 384, 512
+UNIT = 5              # a unit index past the first-frame layout's padding
+
+
+def classify(name: str) -> str:
+    """Kernel class from a CUDA kernel's name."""
+    n = name.lower()
+    if "attn_fwd" in n:
+        return "attention_kernel"
+    if "conv" in n or "fprop" in n or "dgrad" in n or "cudnn" in n:
+        return "conv"
+    if "gemm" in n or "nvjet" in n or "cutlass" in n or "xmma" in n:
+        return "gemm"
+    if "memcpy" in n or "memset" in n:
+        return "copy"
+    return "other"
+
+
+def busy_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def unit_inputs(pipe, rows: int, device):
+    """Arguments of ``_generate_one_unit`` at the rollout's padded layout:
+    chunk 1 (first-frame mask, 2 rows) or chunk 2 (3 rows and history)."""
+    import torch
+    from deepv_tpu_torch.actions import action_vocabulary
+    from deepv_tpu_torch.pipeline import TorchNoise, _pyramid_list, padded_conditions
+
+    mcfg, pcfg = pipe.mcfg, pipe.cfg
+    ds = pcfg.vae_downsample
+    lh, lw = HEIGHT // ds, WIDTH // ds
+    fm = rows == 2
+    noise = TorchNoise(3, device)
+    gen = noise.normal("latents", (1, mcfg.in_channels, UNIT + int(fm), lh, lw), pipe.dtype)
+    conds = padded_conditions(pcfg, _pyramid_list(gen, len(pcfg.stages) - 1), UNIT, fm, rows)
+    s0 = 2 ** (len(pcfg.stages) - 1)
+    cur = noise.normal("latents", (1, mcfg.in_channels, 1, lh // s0, lw // s0), pipe.dtype)
+    hist = None
+    if rows == 3:
+        hist = noise.normal("latents", (1, mcfg.in_channels, 1, lh, lw), pipe.dtype)
+    pe, pm, pp = pipe._embeds_for(action_vocabulary()[1])
+    ne, nm, npo = pipe._embeds_for("empty")
+    text = torch.cat([ne] + [pe] * (rows - 1))
+    mask = torch.cat([nm] + [pm] * (rows - 1))
+    pooled = torch.cat([npo] + [pp] * (rows - 1))
+    return (noise, cur, hist, conds, text, mask, pooled, rows), conds, mask
+
+
+def linear_flops(pipe, conds, text_mask, rows: int, history: bool) -> float:
+    """Operations of the MMDiT's per-token linear layers for one unit: per
+    block 12 D^2 multiply-adds a token (q, k, v, out and the 4x
+    feed-forward), 3 D^2 for context tokens in the last block."""
+    mcfg, pcfg = pipe.mcfg, pipe.cfg
+    d, layers, p = mcfg.inner_dim, mcfg.num_layers, mcfg.patch_size
+    ctx = text_mask.shape[1]
+    if history:
+        lh, lw = HEIGHT // pcfg.vae_downsample, WIDTH // pcfg.vae_downsample
+        r = pcfg.history_downsample_ratio
+        ctx += (lh // r // p) * (lw // r // p)
+    total = 0.0
+    for clips, _, _ in conds:
+        shapes = [tuple(c.shape[2:]) for c in clips] + [tuple(clips[-1].shape[2:])]
+        video = sum(t * (h // p) * (w // p) for t, h, w in shapes)
+        macs = video * 12 * d * d * layers + ctx * (12 * d * d * (layers - 1) + 3 * d * d)
+        total += 2.0 * macs * rows * pcfg.num_inference_steps
+    return total
+
+
+def measure(name: str, fn, extra=None):
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_class, by_name = {}, {}
+    for e in kernels:
+        us = e.time_range.elapsed_us()
+        c = classify(e.name)
+        by_class[c] = by_class.get(c, 0.0) + us
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + us)
+    busy = busy_us((e.time_range.start, e.time_range.end) for e in kernels) / 1e6
+    row = dict(piece=name, wall_s=wall, walls_s=walls, kernels=len(kernels),
+               device_busy_s=busy if kernels else None,
+               idle_share=(1.0 - busy / wall) if kernels else None,
+               device_s_by_class={k: v / 1e6 for k, v in sorted(by_class.items())})
+    if extra:
+        row.update(extra(row))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:25]
+    row["top_kernels"] = [dict(name=k[:120], count=n, device_s=t / 1e6) for k, (n, t) in top]
+    summary = {k: v for k, v in row.items() if k != "top_kernels"}
+    print(f"piece {json.dumps(summary)}", flush=True)
+    for k in row["top_kernels"][:12]:
+        print(f"  {k['device_s'] * 1e3:9.3f} ms  x{k['count']:<6d} {k['name']}", flush=True)
+    return row
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_port: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from deepv_tpu_torch.config import create_model_config
+    from deepv_tpu_torch.run import load_pipeline
+
+    device = torch.device("cuda", 0)
+    print(f"card: {torch.cuda.get_device_name(0)}; torch {torch.__version__}", flush=True)
+    cfg = create_model_config("none", use_motion_prompt=True)
+    pipe = load_pipeline("none", cfg, random_weights=True, dtype=torch.bfloat16,
+                         device=device, seed=0)
+    rows_out = []
+    with torch.inference_mode():
+        for rows in (2, 3):
+            args, conds, mask = unit_inputs(pipe, rows, device)
+            flops = linear_flops(pipe, conds, mask, rows, history=rows == 3)
+
+            def unit(args=args):
+                return pipe._generate_one_unit(*args, guidance=3.5,
+                                               history_scale=pipe.cfg.history_guidance_scale)
+
+            def rates(row, flops=flops):
+                gemm = row["device_s_by_class"].get("gemm")
+                return dict(linear_flops=flops,
+                            gemm_tflops=flops / gemm / 1e12 if gemm else None)
+
+            rows_out.append(measure(f"denoise_b{rows}", unit, rates))
+
+        ds = pipe.cfg.vae_downsample
+        z = torch.randn((1, 16, 2, HEIGHT // ds, WIDTH // ds), device=device,
+                        dtype=pipe.dtype)
+        _, cache_rgb = pipe._stream_push(z[:, :, :1], None, True)
+        _, cache_disp = pipe._stream_push(z[:, :, :1], None, True)
+
+        def decode():
+            pipe._stream_push(z[:, :, 1:], cache_rgb, False)
+            pipe._stream_push(z[:, :, 1:], cache_disp, False)
+
+        rows_out.append(measure("decode", decode))
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "profile_port.json"), "w") as f:
+        json.dump(dict(card=smi.strip(), pieces=rows_out), f, indent=1)
+    print(smi.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
