@@ -6,33 +6,52 @@
 Phases, in order; any failure exits non-zero before the last line:
   1. device: requires CUDA; prints the card's name and power limit;
   2. build: compiles every kernel of the main path from deepv_tpu_torch/csrc
-     with nvcc for sm_90a and prints the build time and ptxas report;
-  3. kernels: the packed masked attention kernel against its plain PyTorch
-     version on the card, at the rollout's packed layouts of pyramid stages
-     0, 1 and 2 with 2 CFG rows (chunk 1) and 3 rows plus history (chunk 2);
-     f32 at atol 2e-5 / rtol 1e-4, bf16 at atol 3e-2 / rtol 3e-2 and within
-     2e-3 plus 2^-8 of the value of an f32 evaluation of the same inputs. Times
-     the kernel, the plain version and SDPA with the same boolean mask (a
-     yardstick the port never calls), beside the least time the card needs;
-  4. main path: run.load_pipeline with random weights at full width
+     with nvcc for sm_90a, one nvcc per source, all started together, and
+     prints the build times and ptxas reports;
+  3. attention kernel (K1) against its plain PyTorch version on the card, at
+     the rollout's packed layouts of pyramid stages 0, 1 and 2 with 2 CFG
+     rows (chunk 1) and 3 rows plus history (chunk 2); f32 at atol 2e-5 /
+     rtol 1e-4, bf16 at atol 3e-2 / rtol 3e-2 and within 2e-3 plus 2^-8 of
+     the value of an f32 evaluation of the same inputs. Times the kernel, the
+     plain version and SDPA with the same boolean mask (a yardstick the port
+     never calls), beside the least time the card needs;
+  4. igemm conv kernel (K2) against its plain PyTorch version at every
+     eligible 3x3x3 conv shape of the full-width VAE, in the causal mode the
+     rollout uses there, 1-2 output frames: f32 at atol 2e-4 / rtol 1e-4
+     (tests/test_conv_igemm.py:33), bf16 within one bf16 ulp of the larger
+     value plus that 2e-4 (the two sum the same exact products in f32 in
+     other orders, then round once). Times the wrapper (with its layout
+     copies), the copies alone, the plain version and F.conv3d (cuDNN, a
+     yardstick the igemm path never calls), beside the least time;
+  5. main path: run.load_pipeline with random weights at full width
      (MMDiTConfig(): 24 layers, d=1536; VAEConfig()) in bf16, and generate()
      on an 11-action prompt at 384x512 (2 chunks, 89 frames, 12 units:
-     history CFG, boundary priming, carry re-encode). The kernel's launch
-     count is set to 0 just before and read just after;
-  5. forward check: one full-width denoise forward at the stage-2, 3-row
-     layout in f32 with the kernel against the same forward with the plain
-     attention.
+     history CFG, boundary priming, carry re-encode). The kernels' launch
+     counts are set to 0 just before and read just after: K1 launches 4,320
+     times, K2 never (the default conv is F.conv3d);
+  6. forward check: one full-width denoise forward at the stage-2, 3-row
+     layout in f32 with K1 against the same forward with the plain attention;
+  7. igemm path: the same rollout through InferencePipeline with
+     VAEConfig(conv_impl="igemm") and the same weights, image, prompt and
+     seed; counts set to 0 just before and read just after: K1 4,320 and K2
+     exactly the count the phase counts imply;
+  8. decode check: one latent stream decoded at full width through an init
+     window, a cont window and a primed cont window, with "igemm" and with
+     "xla": f32 (TF32 off) within 1e-4 relative L2, bf16 within twice the
+     relative L2 between the bf16 and f32 "xla" decodes of the same latents.
 The line before the last is a JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}. Extra detail goes to chiprun_out/.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PROMPT = "(FN)(FN)(FN)(FN)(FN)(FN)(FN)(fRL)(SR)(BL)(FN)"
@@ -41,6 +60,33 @@ HEIGHT, WIDTH = 384, 512
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+SOURCES = ("attention.cu", "conv_igemm.cu")
+
+#: every eligible 3x3x3 conv class of the full-width rollout (VAEConfig() at
+#: 384x512): (layer, causal mode the rollout runs it in, ci, co, h, w,
+#: output frames of the check)
+CONV_CASES = (
+    ("decoder mid block, up block 0 resnets", "init", 512, 512, 48, 64, 1),
+    ("decoder mid block, up block 0 resnets", "cont", 512, 512, 48, 64, 1),
+    ("decoder up block 0 spatial up-sampler", "cont", 512, 2048, 48, 64, 1),
+    ("decoder up block 0 temporal up-sampler", "cont", 512, 1024, 96, 128, 1),
+    ("decoder up block 1 resnets", "cont", 512, 512, 96, 128, 2),
+    ("decoder up block 1 spatial up-sampler", "cont", 512, 2048, 96, 128, 2),
+    ("decoder up block 1 temporal up-sampler", "cont", 512, 1024, 192, 256, 2),
+    ("decoder up block 2 resnet 0 conv1", "cont", 512, 256, 192, 256, 2),
+    ("decoder up block 2 resnets", "cont", 256, 256, 192, 256, 2),
+    ("decoder up block 2 spatial up-sampler", "cont", 256, 1024, 192, 256, 2),
+    ("decoder up block 2 temporal up-sampler", "cont", 256, 512, 384, 512, 1),
+    ("decoder up block 3 resnet 0 conv1", "prime", 256, 128, 384, 512, 2),
+    ("decoder up block 3 resnets", "prime", 128, 128, 384, 512, 2),
+    ("decoder up block 3 resnets", "cont", 128, 128, 384, 512, 2),
+    ("encoder down block 0 resnets", "full", 128, 128, 384, 512, 1),
+    ("encoder down block 1 resnet 0 conv1", "full", 128, 256, 192, 256, 1),
+    ("encoder down block 1 resnets", "init", 256, 256, 192, 256, 2),
+    ("encoder down block 2 resnet 0 conv1", "cont", 256, 512, 96, 128, 1),
+    ("encoder down block 2 resnets", "full", 512, 512, 96, 128, 2),
+    ("encoder down block 3, mid block resnets", "cont", 512, 512, 48, 64, 1),
+)
 
 
 def log(*args):
@@ -175,39 +221,37 @@ def check_attention(device, results):
     return rows_out
 
 
-def run_main_path(device, results):
-    """Phase 4: the full-width rollout through the user's entry points."""
+def rollout_batch():
+    """The rollout's input: a smooth 384x512 test image with seeded noise and
+    the 11-action prompt."""
     import numpy as np
-    import torch
     from deepv_tpu_torch.actions import prepare_motion_prompts
-    from deepv_tpu_torch.config import create_model_config
-    from deepv_tpu_torch.ops import attention as att
-    from deepv_tpu_torch.run import load_pipeline
-
-    t0 = time.perf_counter()
-    cfg = create_model_config("none", use_motion_prompt=True)
-    pipe = load_pipeline("none", cfg, random_weights=True, dtype=torch.bfloat16,
-                         device=device, seed=0)
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in pipe.mmdit.parameters())
-    log(f"main path: pipeline with {n_params / 1e9:.3f} B MMDiT parameters ready in "
-        f"{setup_s:.1f} s")
 
     rng = np.random.default_rng(0)
     yy, xx = np.mgrid[0:HEIGHT, 0:WIDTH] / np.array([HEIGHT, WIDTH])[:, None, None]
     img = np.stack([np.sin(6 * xx + 2 * c) * np.cos(4 * yy - c) for c in range(3)])
     img = np.clip(img + 0.1 * rng.standard_normal(img.shape), -1, 1)[None].astype(np.float32)
-    batch = {"img": img, "prompt": np.array(prepare_motion_prompts("action", PROMPT)),
-             "prompt_type": "action"}
+    return {"img": img, "prompt": np.array(prepare_motion_prompts("action", PROMPT)),
+            "prompt_type": "action"}
+
+
+def drive_rollout(pipe, setup_s: float):
+    """generate() with every kernel count set to 0 just before and read just
+    after; checks the outputs and K1's count. Returns (summary, pred_img,
+    K2 launches)."""
+    import torch
+    from deepv_tpu_torch.ops import attention as att
+    from deepv_tpu_torch.ops import conv_igemm as cig
+
     pipe.timer.sync = True
     torch.cuda.reset_peak_memory_stats()
     att.launches = 0
+    cig.launches = 0
     t0 = time.perf_counter()
-    out = pipe.generate(batch, seed=666)
+    out = pipe.generate(rollout_batch(), seed=666)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = att.launches
+    launches, conv_launches = att.launches, cig.launches
 
     mcfg, pcfg = pipe.mcfg, pipe.cfg
     n_units = pcfg.max_temporal_length + (pcfg.max_temporal_length - pcfg.num_input_unit)
@@ -225,17 +269,37 @@ def run_main_path(device, results):
     assert torch.allclose(out["trans3d"][0, 0].cpu(), torch.eye(4), atol=1e-5)
     assert launches == expected, f"attention kernel launched {launches} times, expected {expected}"
     stats = pipe.timer.stats()
-    main = dict(wall_s=wall, frames=n_frames, fps=n_frames / wall, setup_s=setup_s,
-                attention_launches=launches, expected_launches=expected,
-                history_index=out["history_index"],
-                phases_s={k: v["total_s"] for k, v in stats.items()},
-                phase_counts={k: v["count"] for k, v in stats.items()},
-                max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-                pixel_mean=float(img_out.float().mean()), pixel_std=float(img_out.float().std()))
+    summary = dict(wall_s=wall, frames=n_frames, fps=n_frames / wall, setup_s=setup_s,
+                   attention_launches=launches, expected_attention_launches=expected,
+                   conv_igemm_launches=conv_launches, history_index=out["history_index"],
+                   phases_s={k: v["total_s"] for k, v in stats.items()},
+                   phase_counts={k: v["count"] for k, v in stats.items()},
+                   max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   pixel_mean=float(img_out.float().mean()),
+                   pixel_std=float(img_out.float().std()))
+    return summary, img_out, conv_launches
+
+
+def run_main_path(device, results):
+    """Phase 5: the full-width rollout through the user's entry points."""
+    import torch
+    from deepv_tpu_torch.config import create_model_config
+    from deepv_tpu_torch.run import load_pipeline
+
+    t0 = time.perf_counter()
+    cfg = create_model_config("none", use_motion_prompt=True)
+    pipe = load_pipeline("none", cfg, random_weights=True, dtype=torch.bfloat16,
+                         device=device, seed=0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in pipe.mmdit.parameters())
+    log(f"main path: pipeline with {n_params / 1e9:.3f} B MMDiT parameters ready in "
+        f"{setup_s:.1f} s")
+    main, frames, conv_launches = drive_rollout(pipe, setup_s)
+    assert conv_launches == 0, f"the default (xla) path launched K2 {conv_launches} times"
     log("main path:", json.dumps(main))
     results["main_path"] = main
-    del out, img_out, disp
-    return pipe, launches
+    return pipe, main["attention_launches"], frames
 
 
 def check_forward(pipe, device, results):
@@ -284,6 +348,232 @@ def check_forward(pipe, device, results):
     results["forward_check"] = dict(max_abs=err, rel_l2=rel)
 
 
+def bf16_ulp(v):
+    """Spacing of bfloat16 numbers at |v| (8 significant bits)."""
+    import torch
+    _, e = torch.frexp(v.float())
+    return torch.ldexp(torch.ones_like(v, dtype=torch.float32), e - 8)
+
+
+def conv_case_inputs(mode: str, ci: int, co: int, h: int, w: int, n: int, gen, device):
+    """Input, parameters and time_pad of one K2 case: ``full`` convolves n
+    frames with 2 causal zero frames; ``init`` is the same with the zero
+    frames already prepended; ``cont``/``prime`` convolve n frames after 2
+    context frames."""
+    import types
+    import torch
+    if mode == "full":
+        x = torch.randn((1, ci, n, h, w), generator=gen, device=device)
+    else:
+        x = torch.randn((1, ci, n + 2, h, w), generator=gen, device=device)
+        if mode == "init":
+            x[:, :, :2] = 0.0
+    weight = 0.02 * torch.randn((co, ci, 3, 3, 3), generator=gen, device=device)
+    bias = 0.1 * torch.randn((co,), generator=gen, device=device)
+    return x, types.SimpleNamespace(weight=weight, bias=bias), 2 if mode == "full" else 0
+
+
+def check_conv_igemm(device, results):
+    """Phase 4: K2 against its plain version at every eligible conv class."""
+    import torch
+    import torch.nn.functional as F
+    from deepv_tpu_torch.ops import conv_igemm as cig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False      # cuDNN f32 convs default to TF32
+    gen = torch.Generator(device=device)
+    gen.manual_seed(9)
+    rows_out = []
+    for layer, mode, ci, co, h, w, n in CONV_CASES:
+        x32, p32, tp = conv_case_inputs(mode, ci, co, h, w, n, gen, device)
+        for dtype in (torch.bfloat16, torch.float32):
+            x = x32.to(dtype)
+            p = p32 if dtype == torch.float32 else type(p32)(
+                weight=p32.weight.to(dtype), bias=p32.bias.to(dtype))
+            y = cig.conv3d_igemm(x, p, tp)
+            r = cig.conv3d_igemm_plain(x, p, tp)
+            torch.cuda.synchronize()
+            assert tuple(y.shape) == (1, co, n, h, w), tuple(y.shape)
+            err = (y.float() - r.float()).abs()
+            if dtype == torch.float32:
+                torch.testing.assert_close(y, r, atol=2e-4, rtol=1e-4)
+                excess = 0.0
+            else:
+                bound = bf16_ulp(torch.maximum(y.float().abs(), r.float().abs())) + 2e-4
+                excess = float((err - bound).max())
+                assert excess <= 0, f"{layer} {mode} bf16: kernel vs plain beyond one ulp"
+            # F.conv3d on the same input (full mode: the zero frames prepended
+            # outside the timed call); a yardstick the igemm path never calls
+            xl = F.pad(x, (0, 0, 0, 0, tp, 0)) if tp else x
+            lib = F.conv3d(xl, p.weight, p.bias, padding=(0, 1, 1))
+            lib_err = float((lib.float() - r.float()).abs().max())
+            del lib
+            big = 2 * 27 * ci * co * n * h * w > 1e12
+            iters = (2 if big else 5) if dtype == torch.bfloat16 else 1
+            ms = cuda_time_ms(lambda: cig.conv3d_igemm(x, p, tp), iters, 1)
+            copy_ms = cuda_time_ms(lambda: (x.permute(0, 2, 3, 4, 1).contiguous(),
+                                            p.weight.permute(2, 3, 4, 1, 0).reshape(
+                                                27 * ci, co).contiguous()), 5, 1)
+            plain_ms = cuda_time_ms(lambda: cig.conv3d_igemm_plain(x, p, tp), 1, 1)
+            library_ms = cuda_time_ms(
+                lambda: F.conv3d(xl, p.weight, p.bias, padding=(0, 1, 1)), iters, 1)
+            flops = 2 * 27 * ci * co * n * h * w
+            esize = x.element_size()
+            nbytes = (x.numel() + p.weight.numel() + co + y.numel()) * esize
+            peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+            t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+            row = dict(layer=layer, mode=mode, ci=ci, co=co, h=h, w=w, frames=n,
+                       dtype=str(dtype).split(".")[-1], time_pad=tp,
+                       max_abs_err=float(err.max()), ulp_excess=excess,
+                       cudnn_vs_plain_max_abs=lib_err, ms=ms, layout_copy_ms=copy_ms,
+                       plain_ms=plain_ms, library_ms=library_ms,
+                       bound_ms=1e3 * max(t_ops, t_bytes),
+                       bound_by="operations" if t_ops >= t_bytes else "bytes",
+                       flops=flops, bytes=nbytes, tflops=flops / (ms * 1e-3) / 1e12,
+                       library_tflops=flops / (library_ms * 1e-3) / 1e12)
+            rows_out.append(row)
+            log("conv_igemm", json.dumps(row))
+            del y, r, x, xl
+        del x32, p32
+        torch.cuda.empty_cache()
+    results["conv_igemm_shapes"] = rows_out
+    return rows_out
+
+
+def expected_conv_launches(pipe, stats, boundaries: int) -> int:
+    """K2 launches of one igemm rollout, from the code: every 3x3x3 conv of
+    the resnets, mid blocks and up-samplers has ci, co multiples of 128 at
+    full width (conv_in, conv_out, 1x1 shortcuts and strided down-samplers
+    are not eligible). Per call: a decoder window, a decoder_front window of
+    the priming warm, a priming tail and an encoder window."""
+    from deepv_tpu_torch.models.vae import _split_windows
+
+    vcfg, pcfg = pipe.vcfg, pipe.cfg
+    dec_layers, enc_layers = vcfg.decoder_layers_per_block, vcfg.encoder_layers_per_block
+    tail = 2 * dec_layers[-1]
+    front = 4 + sum(2 * n + int(up) + int(tup) for n, up, tup in zip(
+        dec_layers[:-1], vcfg.decoder_spatial_up_sample, vcfg.decoder_temporal_up_sample))
+    window = front + tail
+    encoder = 4 + sum(2 * n for n in enc_layers)
+    assert (window, front, tail, encoder) == (34, 28, 6, 20), (window, front, tail, encoder)
+    # streamed decode: one latent unit of rgb and one of disparity per phase
+    decoder_windows = 2 * stats["stream_decode"]["count"]
+    # priming: rgb and disparity, one front window per carried latent frame
+    t_down = 2 ** sum(vcfg.encoder_temporal_down_sample)
+    carried = 1 + (pcfg.num_input_image - 1) // t_down
+    primes = stats["prime"]["count"]
+    assert primes == boundaries, (primes, boundaries)
+    # encoder: the first image (1 frame, full), then per boundary the carried
+    # rgb and disparity clips (chunked into windows) and the history frame's
+    # rgb and disparity (1 frame each)
+    clip_windows = len(_split_windows(pcfg.num_input_image, pipe.encode_window))
+    encoder_windows = 1 + boundaries * (2 * clip_windows + 2)
+    return (window * decoder_windows + 2 * primes * (front * carried + tail)
+            + encoder * encoder_windows)
+
+
+def run_igemm_path(device, results, ref_frames):
+    """Phase 7: the full-width rollout with VAEConfig(conv_impl="igemm")."""
+    import torch
+    from deepv_tpu_torch.actions import action_vocabulary
+    from deepv_tpu_torch.config import MMDiTConfig, VAEConfig, create_model_config
+    from deepv_tpu_torch.io.text_embeds import random_text_embeds
+    from deepv_tpu_torch.io.weights import random_params
+    from deepv_tpu_torch.ops import causal_conv
+    from deepv_tpu_torch.pipeline import InferencePipeline
+
+    t0 = time.perf_counter()
+    cfg = create_model_config("none", use_motion_prompt=True)
+    mcfg, vcfg = MMDiTConfig(), VAEConfig(conv_impl="igemm")
+    embeds = random_text_embeds(0, action_vocabulary(), joint_dim=mcfg.joint_attention_dim,
+                                pooled_dim=mcfg.pooled_projection_dim)
+    pipe = InferencePipeline(cfg, mcfg, vcfg,
+                             random_params(mcfg, vcfg, dtype=torch.bfloat16, seed=0,
+                                           device=device),
+                             embeds, dtype=torch.bfloat16, device=device)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    # output frames per conv class, read from the calls (the kernel count
+    # itself stays the wrapper's)
+    frames_by_class = {}
+    orig = causal_conv.conv3d_igemm
+
+    def spy(x, p, time_pad=2):
+        key = (x.shape[1], p.weight.shape[0], x.shape[3], x.shape[4])
+        frames_by_class[key] = frames_by_class.get(key, 0) + (
+            x.shape[0] * (x.shape[2] + time_pad - 2))
+        return orig(x, p, time_pad)
+
+    causal_conv.conv3d_igemm = spy
+    try:
+        summary, frames, conv_launches = drive_rollout(pipe, setup_s)
+    finally:
+        causal_conv.conv3d_igemm = orig
+    stats = pipe.timer.stats()
+    expected = expected_conv_launches(pipe, stats, len(summary["history_index"]))
+    assert conv_launches == expected, f"K2 launched {conv_launches} times, expected {expected}"
+    summary["expected_conv_igemm_launches"] = expected
+    summary["conv_frames_by_class"] = {f"{ci}->{co} @{h}x{w}": n
+                                       for (ci, co, h, w), n in frames_by_class.items()}
+    summary["max_abs_diff_vs_main_path"] = float((frames.float() - ref_frames.float()).abs().max())
+    log("igemm path:", json.dumps(summary))
+    results["igemm_path"] = summary
+    return pipe, conv_launches, frames_by_class
+
+
+def check_decode(pipe, device, results):
+    """Phase 8: one full-width latent stream decoded with "igemm" and "xla"."""
+    import copy
+    import torch
+    from deepv_tpu_torch.config import VAEConfig
+    from deepv_tpu_torch.models.vae import _dec_prime_warm, _dec_window
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dec_bf16 = pipe.vae.decoder
+    dec_f32 = copy.deepcopy(dec_bf16).float()
+    g = torch.Generator(device=device)
+    g.manual_seed(13)
+    z = torch.randn((1, 16, 5, HEIGHT // 8, WIDTH // 8), generator=g, device=device)
+
+    def decode(dec, impl, dtype):
+        """init window, cont window, then caches primed on 3 latents and a
+        cont window through them"""
+        cfg = VAEConfig(conv_impl=impl)
+        zz = z.to(dtype)
+        with torch.inference_mode():
+            y0, cache = _dec_window(cfg, dec, zz[:, :, :1], None, "init")
+            y1, _ = _dec_window(cfg, dec, zz[:, :, 1:2], cache, "cont")
+            primed = _dec_prime_warm(cfg, dec, zz[:, :, 1:4])
+            y2, _ = _dec_window(cfg, dec, zz[:, :, 4:5], primed, "cont")
+            return torch.cat([y0, y1, y2], dim=2).float()
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    out = {}
+    for name, dec, dtype in (("f32", dec_f32, torch.float32), ("bf16", dec_bf16, torch.bfloat16)):
+        for impl in ("igemm", "xla"):
+            t0 = time.perf_counter()
+            out[impl, name] = decode(dec, impl, dtype)
+            torch.cuda.synchronize()
+            log(f"decode check: {impl} {name} {out[impl, name].shape[2]} frames in "
+                f"{time.perf_counter() - t0:.1f} s")
+    rel_f32 = rel(out["igemm", "f32"], out["xla", "f32"])
+    rel_bf16 = rel(out["igemm", "bf16"], out["xla", "bf16"])
+    gap = rel(out["xla", "bf16"], out["xla", "f32"])
+    row = dict(frames=out["xla", "f32"].shape[2], rel_l2_f32=rel_f32, rel_l2_bf16=rel_bf16,
+               rel_l2_bf16_vs_f32_xla=gap,
+               rel_l2_bf16_igemm_vs_f32_xla=rel(out["igemm", "bf16"], out["xla", "f32"]))
+    log("decode check:", json.dumps(row))
+    results["decode_check"] = row
+    assert all(bool(torch.isfinite(v).all()) for v in out.values()), "non-finite decode"
+    assert rel_f32 <= 1e-4, f"f32 decode: igemm vs xla relative L2 {rel_f32}"
+    assert rel_bf16 <= 2 * gap, f"bf16 decode: igemm vs xla {rel_bf16}, bf16 vs f32 {gap}"
+    del dec_f32, out
+
+
 def main() -> int:
     import torch
 
@@ -293,6 +583,7 @@ def main() -> int:
     sys.path.insert(0, HERE)
     try:
         from deepv_tpu_torch.ops import attention as att
+        from deepv_tpu_torch.ops import conv_igemm as cig
         from deepv_tpu_torch.utils import cuda_build
     except ImportError as e:
         print(f"chip_smoke: deepv_tpu_torch is not beside this script ({e})", file=sys.stderr)
@@ -310,19 +601,32 @@ def main() -> int:
     results["card"] = card
 
     t0 = time.perf_counter()
-    built = cuda_build.build("attention.cu")
+    with ThreadPoolExecutor(len(SOURCES)) as pool:    # one nvcc per source, all at once
+        builds = dict(zip(SOURCES, pool.map(cuda_build.build, SOURCES)))
     att.load_library()
+    cig.load_library()
     build_s = time.perf_counter() - t0
-    log(f"build: attention.cu -> {os.path.relpath(built.path, HERE)} in {build_s:.1f} s "
-        f"(nvcc {built.seconds:.1f} s)")
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log("  ptxas:", line.strip())
+    for src, built in builds.items():
+        log(f"build: {src} -> {os.path.relpath(built.path, HERE)} (nvcc {built.seconds:.1f} s)")
+        for line in built.log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log("  ptxas:", line.strip())
+    log(f"build: all kernels in {build_s:.1f} s")
     results["build_s"] = build_s
 
     rows = check_attention(device, results)
-    pipe, launches = run_main_path(device, results)
+    conv_rows = check_conv_igemm(device, results)
+    pipe, launches, ref_frames = run_main_path(device, results)
     check_forward(pipe, device, results)
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipe, conv_launches, frames_by_class = run_igemm_path(device, results, ref_frames)
+    del ref_frames
+    check_decode(pipe, device, results)
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
 
     head = next(r for r in rows if r["layout"] == "stage2_b2")
     kernels = [{
@@ -339,6 +643,34 @@ def main() -> int:
         "library_ms": head["library_ms"],
         "shape": f"stage 2, b={head['b']}, S={head['S']}, h={head['heads']}, d={head['head_dim']}, bf16",
     }]
+    # K2 at the conv class with the most device time in the igemm rollout:
+    # its output frames there times the kernel's ms per output frame
+    bf16 = [r for r in conv_rows if r["dtype"] == "bfloat16"]
+    per_frame = {}
+    for r in bf16:
+        per_frame.setdefault((r["ci"], r["co"], r["h"], r["w"]), r)
+    missing = set(frames_by_class) - set(per_frame)
+    assert not missing, f"rollout conv classes without a K2 check: {sorted(missing)}"
+    device_ms = {k: n * per_frame[k]["ms"] / per_frame[k]["frames"]
+                 for k, n in frames_by_class.items()}
+    results["conv_igemm_device_ms_by_class"] = {f"{ci}->{co} @{h}x{w}": v
+                                                for (ci, co, h, w), v in device_ms.items()}
+    top = per_frame[max(device_ms, key=device_ms.get)]
+    kernels.append({
+        "name": "conv3d_igemm",
+        "route": "cuda",
+        "source": "deepv_tpu_torch/csrc/conv_igemm.cu",
+        "replaces": "deepv_tpu/ops/conv_igemm.py:57",
+        "launches": conv_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in bf16),
+        "ms": top["ms"],
+        "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"],
+        "bound_by": top["bound_by"],
+        "library_ms": top["library_ms"],
+        "shape": (f"{top['ci']}->{top['co']} @{top['h']}x{top['w']}, {top['frames']} output "
+                  f"frames, {top['mode']} mode, bf16"),
+    })
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(dict(results, kernels=kernels), f, indent=1)
     log(card)

@@ -117,9 +117,9 @@ class VAEConfig:
 
     #: conv backend for eligible 3x3x3 stride-1 layers. The names are the
     #: JAX package's: "xla" is the library convolution (``F.conv3d`` here,
-    #: the default); "igemm" (the hand-written implicit-GEMM kernel) and
-    #: "int8" are not ported yet, and the pipeline raises
-    #: NotImplementedError for them. Runtime knob, not a checkpoint
+    #: the default); "igemm" is the hand-written implicit-GEMM kernel
+    #: (``ops/conv_igemm.py``); "int8" is not ported yet, and the pipeline
+    #: raises NotImplementedError for it. Runtime knob, not a checkpoint
     #: hyperparameter.
     conv_impl: str = "xla"
 

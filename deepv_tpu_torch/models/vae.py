@@ -146,12 +146,13 @@ def causal_group_norm(x: torch.Tensor, num_groups: int, p) -> torch.Tensor:
     return y.reshape(b, t, c, h, w).transpose(1, 2)
 
 
-def resnet_apply(p: _Resnet, x: torch.Tensor, cache, mode: str, groups: int):
-    """CausalResnetBlock3D."""
+def resnet_apply(p: _Resnet, x: torch.Tensor, cache, mode: str, groups: int,
+                 impl: str = "xla"):
+    """CausalResnetBlock3D; ``impl`` routes conv1/conv2, not the shortcut."""
     h = silu(causal_group_norm(x, groups, p.norm1))
-    h, c1 = causal_conv3d(h, p.conv1, _get(cache, "conv1"), mode=mode)
+    h, c1 = causal_conv3d(h, p.conv1, _get(cache, "conv1"), mode=mode, impl=impl)
     h = silu(causal_group_norm(h, groups, p.norm2))
-    h, c2 = causal_conv3d(h, p.conv2, _get(cache, "conv2"), mode=mode)
+    h, c2 = causal_conv3d(h, p.conv2, _get(cache, "conv2"), mode=mode, impl=impl)
     if hasattr(p, "conv_shortcut"):
         x, _ = causal_conv3d(x, p.conv_shortcut, None, mode=mode)
     if mode == "prime":
@@ -176,14 +177,15 @@ def attn2d_apply(p: _Attn2d, x: torch.Tensor, groups: int) -> torch.Tensor:
     return out.reshape(b, t, c, h, w).transpose(1, 2)
 
 
-def midblock_apply(p: _MidBlock, x: torch.Tensor, cache, mode: str, groups: int):
+def midblock_apply(p: _MidBlock, x: torch.Tensor, cache, mode: str, groups: int,
+                   impl: str = "xla"):
     """CausalUNetMidBlock2D: resnet, then (attn, resnet) pairs."""
     res_cache = _get(cache, "resnets")
-    x, c0 = resnet_apply(p.resnets[0], x, _idx(res_cache, 0), mode, groups)
+    x, c0 = resnet_apply(p.resnets[0], x, _idx(res_cache, 0), mode, groups, impl)
     caches = [c0]
     for i, attn in enumerate(p.attentions):
         x = attn2d_apply(attn, x, groups)
-        x, ci = resnet_apply(p.resnets[i + 1], x, _idx(res_cache, i + 1), mode, groups)
+        x, ci = resnet_apply(p.resnets[i + 1], x, _idx(res_cache, i + 1), mode, groups, impl)
         caches.append(ci)
     return x, {"resnets": caches}
 
@@ -198,18 +200,18 @@ def temporal_down_apply(p, x, cache, mode: str):
     return causal_conv3d(x, p, cache, mode=mode, stride=(2, 1, 1))
 
 
-def spatial_up_apply(p, x, cache, mode: str):
+def spatial_up_apply(p, x, cache, mode: str, impl: str = "xla"):
     """CausalUpsample2x: conv to 4c then a 2x2 pixel shuffle."""
-    y, c = causal_conv3d(x, p, cache, mode=mode)
+    y, c = causal_conv3d(x, p, cache, mode=mode, impl=impl)
     b, c4, t, h, w = y.shape
     y = y.reshape(b, c4 // 4, 2, 2, t, h, w).permute(0, 1, 4, 5, 2, 6, 3)
     return y.reshape(b, c4 // 4, t, h * 2, w * 2), c
 
 
-def temporal_up_apply(p, x, cache, mode: str):
+def temporal_up_apply(p, x, cache, mode: str, impl: str = "xla"):
     """CausalTemporalUpsample2x: conv to 2c, temporal unshuffle, and in
     full/init mode drop the duplicated first frame."""
-    y, c = causal_conv3d(x, p, cache, mode=mode)
+    y, c = causal_conv3d(x, p, cache, mode=mode, impl=impl)
     b, c2, t, h, w = y.shape
     y = y.reshape(b, c2 // 2, 2, t, h, w).transpose(2, 3).reshape(b, c2 // 2, t * 2, h, w)
     if mode in ("full", "init"):
@@ -224,15 +226,16 @@ def temporal_up_apply(p, x, cache, mode: str):
 def encoder_apply(cfg: VAEConfig, p: Encoder, x: torch.Tensor, cache=None,
                   mode: str = "full"):
     """Encoder + quant conv -> Gaussian moments, and the new caches."""
-    groups = cfg.encoder_norm_num_groups
+    groups, impl = cfg.encoder_norm_num_groups, cfg.conv_impl
     caches = {}
-    x, caches["conv_in"] = causal_conv3d(x, p.conv_in, _get(cache, "conv_in"), mode=mode)
+    x, caches["conv_in"] = causal_conv3d(x, p.conv_in, _get(cache, "conv_in"), mode=mode,
+                                         impl=impl)
     block_caches = []
     for i, bp in enumerate(p.down_blocks):
         bc = _idx(_get(cache, "down_blocks"), i)
         rcaches = []
         for j, rp in enumerate(bp.resnets):
-            x, rc = resnet_apply(rp, x, _idx(_get(bc, "resnets"), j), mode, groups)
+            x, rc = resnet_apply(rp, x, _idx(_get(bc, "resnets"), j), mode, groups, impl)
             rcaches.append(rc)
         out = {"resnets": rcaches}
         if cfg.encoder_spatial_down_sample[i]:
@@ -244,25 +247,27 @@ def encoder_apply(cfg: VAEConfig, p: Encoder, x: torch.Tensor, cache=None,
         block_caches.append(out)
     caches["down_blocks"] = block_caches
     x, caches["mid_block"] = midblock_apply(p.mid_block, x, _get(cache, "mid_block"),
-                                            mode, groups)
+                                            mode, groups, impl)
     x = silu(causal_group_norm(x, groups, p.conv_norm_out))
-    x, caches["conv_out"] = causal_conv3d(x, p.conv_out, _get(cache, "conv_out"), mode=mode)
+    x, caches["conv_out"] = causal_conv3d(x, p.conv_out, _get(cache, "conv_out"), mode=mode,
+                                          impl=impl)
     moments, _ = causal_conv3d(x, p.quant_conv, None, mode=mode)
     return moments, caches
 
 
 def _up_block(cfg: VAEConfig, i: int, bp: _Block, x: torch.Tensor, bc, mode: str):
-    groups = cfg.decoder_norm_num_groups
+    groups, impl = cfg.decoder_norm_num_groups, cfg.conv_impl
     rcaches = []
     for j, rp in enumerate(bp.resnets):
-        x, rc = resnet_apply(rp, x, _idx(_get(bc, "resnets"), j), mode, groups)
+        x, rc = resnet_apply(rp, x, _idx(_get(bc, "resnets"), j), mode, groups, impl)
         rcaches.append(rc)
     out = {"resnets": rcaches}
     if cfg.decoder_spatial_up_sample[i]:
-        x, out["upsampler"] = spatial_up_apply(bp.upsampler, x, _get(bc, "upsampler"), mode)
+        x, out["upsampler"] = spatial_up_apply(bp.upsampler, x, _get(bc, "upsampler"), mode,
+                                               impl)
     if cfg.decoder_temporal_up_sample[i]:
         x, out["temporal_upsampler"] = temporal_up_apply(
-            bp.temporal_upsampler, x, _get(bc, "temporal_upsampler"), mode)
+            bp.temporal_upsampler, x, _get(bc, "temporal_upsampler"), mode, impl)
     return x, out
 
 
@@ -270,12 +275,13 @@ def decoder_front(cfg: VAEConfig, p: Decoder, z: torch.Tensor, cache=None,
                   mode: str = "full"):
     """post-quant conv + conv_in + mid block + every up block but the last.
     Returns the last block's input stream and the partial caches."""
-    groups = cfg.decoder_norm_num_groups
+    groups, impl = cfg.decoder_norm_num_groups, cfg.conv_impl
     caches = {}
     z, _ = causal_conv3d(z, p.post_quant_conv, None, mode=mode)
-    x, caches["conv_in"] = causal_conv3d(z, p.conv_in, _get(cache, "conv_in"), mode=mode)
+    x, caches["conv_in"] = causal_conv3d(z, p.conv_in, _get(cache, "conv_in"), mode=mode,
+                                         impl=impl)
     x, caches["mid_block"] = midblock_apply(p.mid_block, x, _get(cache, "mid_block"),
-                                            mode, groups)
+                                            mode, groups, impl)
     block_caches = []
     for i in range(len(p.up_blocks) - 1):
         x, out = _up_block(cfg, i, p.up_blocks[i], x,
@@ -293,7 +299,8 @@ def decoder_tail(cfg: VAEConfig, p: Decoder, x: torch.Tensor, cache=None,
     x, out = _up_block(cfg, i, p.up_blocks[i], x, _idx(_get(cache, "up_blocks"), i), mode)
     caches = {"up_blocks_last": out}
     x = silu(causal_group_norm(x, cfg.decoder_norm_num_groups, p.conv_norm_out))
-    x, caches["conv_out"] = causal_conv3d(x, p.conv_out, _get(cache, "conv_out"), mode=mode)
+    x, caches["conv_out"] = causal_conv3d(x, p.conv_out, _get(cache, "conv_out"), mode=mode,
+                                          impl=cfg.conv_impl)
     return x, caches
 
 
@@ -328,7 +335,7 @@ def decoder_prime_tail(cfg: VAEConfig, p: Decoder, x: torch.Tensor):
         raise ValueError(f"prime tail needs {need} trailing frames, got {x.shape[2]}")
     rcaches = []
     for rp in p.up_blocks[-1].resnets:
-        x, rc = resnet_apply(rp, x, None, "prime", groups)
+        x, rc = resnet_apply(rp, x, None, "prime", groups, cfg.conv_impl)
         rcaches.append(rc)
     xn = causal_group_norm(x[:, :, -2:], groups, p.conv_norm_out)
     return {"up_blocks_last": {"resnets": rcaches}, "conv_out": silu(xn)}

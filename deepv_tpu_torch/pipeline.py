@@ -233,8 +233,6 @@ class InferencePipeline:
             _not_ported("carry_latents", "M13 boundary fast modes")
         if denoise_int8:
             _not_ported("denoise_int8", "M14 int8 paths")
-        if vae_cfg.conv_impl == "igemm":
-            _not_ported("conv_impl='igemm'", "K2 implicit-GEMM conv kernel")
         if vae_cfg.conv_impl == "int8":
             _not_ported("conv_impl='int8'", "M14 int8 paths")
         if text_encoder is not None:

@@ -9,13 +9,16 @@ phases are made of:
 
   * ``denoise_b2``: one chunk-1 denoise unit (2 CFG rows, 3 stages x 5 steps);
   * ``denoise_b3``: one chunk-2 denoise unit (3 rows, history tokens);
-  * ``decode``: one streamed decode window (rgb + disparity, cont mode).
+  * ``decode``: one streamed decode window (rgb + disparity, cont mode);
+  * ``decode_igemm``: the same window with ``VAEConfig(conv_impl="igemm")``,
+    the eligible convs on the implicit-GEMM kernel (K2).
 
 For each piece it prints the synchronised wall time without the profiler
 (median of 3, after one warm-up), then, from one run under
 ``torch.profiler``: the device busy time (the union of kernel intervals),
 the idle share ``1 - busy / wall``, the number of kernels, the device time
-by kernel class (the attention kernel, GEMMs, convolutions, the rest) and,
+by kernel class (the attention kernel, the igemm conv kernel, GEMMs, cuDNN
+convolutions, the rest) and,
 for the denoise units, the rate the GEMMs reach on the linear layers'
 operations counted from the shapes. Details go to
 ``chiprun_out/profile_port.json``. Needs a CUDA card; exits non-zero without.
@@ -40,6 +43,8 @@ def classify(name: str) -> str:
     n = name.lower()
     if "attn_fwd" in n:
         return "attention_kernel"
+    if "conv3d_igemm" in n:
+        return "conv_igemm_kernel"
     if "conv" in n or "fprop" in n or "dgrad" in n or "cudnn" in n:
         return "conv"
     if "gemm" in n or "nvjet" in n or "cutlass" in n or "xmma" in n:
@@ -152,6 +157,8 @@ def measure(name: str, fn, extra=None):
 
 
 def main() -> int:
+    import dataclasses
+
     import torch
 
     if not torch.cuda.is_available():
@@ -194,6 +201,9 @@ def main() -> int:
             pipe._stream_push(z[:, :, 1:], cache_disp, False)
 
         rows_out.append(measure("decode", decode))
+
+        pipe.vcfg = dataclasses.replace(pipe.vcfg, conv_impl="igemm")
+        rows_out.append(measure("decode_igemm", decode))
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout
