@@ -17,12 +17,16 @@ Phases, in order; any failure exits non-zero before the last line:
      never calls), beside the least time the card needs;
   4. igemm conv kernel (K2) against its plain PyTorch version at every
      eligible 3x3x3 conv shape of the full-width VAE, in the causal mode the
-     rollout uses there, 1-2 output frames: f32 at atol 2e-4 / rtol 1e-4
-     (tests/test_conv_igemm.py:33), bf16 within one bf16 ulp of the larger
-     value plus that 2e-4 (the two sum the same exact products in f32 in
-     other orders, then round once). Times the wrapper (with its layout
-     copies), the copies alone, the plain version and F.conv3d (cuDNN, a
-     yardstick the igemm path never calls), beside the least time;
+     rollout uses there, 1-2 output frames, at the channels-last input the
+     rollout hands the gather kernel, and at three edge shapes (w not a
+     multiple of 64; w % 8 != 0; batch 2 with 3 frames): f32 at atol 2e-4 /
+     rtol 1e-4 (tests/test_conv_igemm.py:33), bf16 within one bf16 ulp of
+     the larger value plus that 2e-4 (the two sum the same exact products
+     in f32 in other orders, then round once). Times the wrapper, its
+     layout work alone (the weight re-layout), the plain version and
+     F.conv3d (cuDNN, a yardstick the igemm path never calls), beside the
+     least time. After phase 7 it prints K2, cuDNN and the bound summed
+     over the igemm rollout's convs by class;
   5. main path: run.load_pipeline with random weights at full width
      (MMDiTConfig(): 24 layers, d=1536; VAEConfig()) in bf16, and generate()
      on an 11-action prompt at 384x512 (2 chunks, 89 frames, 12 units:
@@ -34,7 +38,8 @@ Phases, in order; any failure exits non-zero before the last line:
   7. igemm path: the same rollout through InferencePipeline with
      VAEConfig(conv_impl="igemm") and the same weights, image, prompt and
      seed; counts set to 0 just before and read just after: K1 4,320 and K2
-     exactly the count the phase counts imply;
+     (its wgmma and gather kernels together; the f32 kernel never) exactly
+     the count the phase counts imply;
   8. decode check: one latent stream decoded at full width through an init
      window, a cont window and a primed cont window, with "igemm" and with
      "xla": f32 (TF32 off) within 1e-4 relative L2, bf16 within twice the
@@ -87,6 +92,20 @@ CONV_CASES = (
     ("encoder down block 2 resnets", "full", 512, 512, 96, 128, 2),
     ("encoder down block 3, mid block resnets", "cont", 512, 512, 48, 64, 1),
 )
+#: K2 cases beyond CONV_CASES: (name, mode, ci, co, h, w, output frames,
+#: batch, x channels-last). The first is on the rollout's path: the
+#: encoder's mid-block resnet after its attention block gets x channels-last
+#: in full mode (the first image and the history frames), which TMA cannot
+#: read along w, so it runs the gather kernel. The rest are shapes the
+#: rollout does not run but K2 must take.
+CONV_EDGE_CASES = (
+    ("encoder mid block resnet after attention", "full", 512, 512, 48, 64, 1, 1, True),
+    ("edge: w not a multiple of 64", "cont", 128, 128, 48, 80, 2, 1, False),
+    ("edge: w % 8 != 0 (gather kernel)", "full", 128, 128, 6, 10, 1, 1, False),
+    ("edge: batch 2, 3 frames", "full", 256, 256, 96, 128, 3, 2, False),
+)
+#: K2's launch counters: the wgmma kernel, the gather kernel, the f32 kernel
+K2_COUNTERS = ("launches", "gather_launches", "f32_launches")
 
 
 def log(*args):
@@ -246,12 +265,15 @@ def drive_rollout(pipe, setup_s: float):
     pipe.timer.sync = True
     torch.cuda.reset_peak_memory_stats()
     att.launches = 0
-    cig.launches = 0
+    for name in K2_COUNTERS:
+        setattr(cig, name, 0)
     t0 = time.perf_counter()
     out = pipe.generate(rollout_batch(), seed=666)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, conv_launches = att.launches, cig.launches
+    launches = att.launches
+    conv_launches = {name: getattr(cig, name) for name in K2_COUNTERS}
+    assert conv_launches["f32_launches"] == 0, "the bf16 rollout launched the f32 kernel"
 
     mcfg, pcfg = pipe.mcfg, pipe.cfg
     n_units = pcfg.max_temporal_length + (pcfg.max_temporal_length - pcfg.num_input_unit)
@@ -296,7 +318,7 @@ def run_main_path(device, results):
     log(f"main path: pipeline with {n_params / 1e9:.3f} B MMDiT parameters ready in "
         f"{setup_s:.1f} s")
     main, frames, conv_launches = drive_rollout(pipe, setup_s)
-    assert conv_launches == 0, f"the default (xla) path launched K2 {conv_launches} times"
+    assert not any(conv_launches.values()), f"the default (xla) path launched K2: {conv_launches}"
     log("main path:", json.dumps(main))
     results["main_path"] = main
     return pipe, main["attention_launches"], frames
@@ -355,7 +377,8 @@ def bf16_ulp(v):
     return torch.ldexp(torch.ones_like(v, dtype=torch.float32), e - 8)
 
 
-def conv_case_inputs(mode: str, ci: int, co: int, h: int, w: int, n: int, gen, device):
+def conv_case_inputs(mode: str, ci: int, co: int, h: int, w: int, n: int, gen, device,
+                     b: int = 1):
     """Input, parameters and time_pad of one K2 case: ``full`` convolves n
     frames with 2 causal zero frames; ``init`` is the same with the zero
     frames already prepended; ``cont``/``prime`` convolve n frames after 2
@@ -363,9 +386,9 @@ def conv_case_inputs(mode: str, ci: int, co: int, h: int, w: int, n: int, gen, d
     import types
     import torch
     if mode == "full":
-        x = torch.randn((1, ci, n, h, w), generator=gen, device=device)
+        x = torch.randn((b, ci, n, h, w), generator=gen, device=device)
     else:
-        x = torch.randn((1, ci, n + 2, h, w), generator=gen, device=device)
+        x = torch.randn((b, ci, n + 2, h, w), generator=gen, device=device)
         if mode == "init":
             x[:, :, :2] = 0.0
     weight = 0.02 * torch.randn((co, ci, 3, 3, 3), generator=gen, device=device)
@@ -374,7 +397,8 @@ def conv_case_inputs(mode: str, ci: int, co: int, h: int, w: int, n: int, gen, d
 
 
 def check_conv_igemm(device, results):
-    """Phase 4: K2 against its plain version at every eligible conv class."""
+    """Phase 4: K2 against its plain version at every eligible conv class
+    and at the edge shapes."""
     import torch
     import torch.nn.functional as F
     from deepv_tpu_torch.ops import conv_igemm as cig
@@ -383,17 +407,26 @@ def check_conv_igemm(device, results):
     torch.backends.cudnn.allow_tf32 = False      # cuDNN f32 convs default to TF32
     gen = torch.Generator(device=device)
     gen.manual_seed(9)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     rows_out = []
-    for layer, mode, ci, co, h, w, n in CONV_CASES:
-        x32, p32, tp = conv_case_inputs(mode, ci, co, h, w, n, gen, device)
+    cases = [c + (1, False) for c in CONV_CASES] + list(CONV_EDGE_CASES)
+    for layer, mode, ci, co, h, w, n, b, channels_last in cases:
+        x32, p32, tp = conv_case_inputs(mode, ci, co, h, w, n, gen, device, b)
+        if channels_last:
+            x32 = x32.to(memory_format=torch.channels_last_3d)
         for dtype in (torch.bfloat16, torch.float32):
             x = x32.to(dtype)
             p = p32 if dtype == torch.float32 else type(p32)(
                 weight=p32.weight.to(dtype), bias=p32.bias.to(dtype))
+            kernel = cig.kernel_for(x)
+            before = [getattr(cig, name) for name in K2_COUNTERS]
             y = cig.conv3d_igemm(x, p, tp)
             r = cig.conv3d_igemm_plain(x, p, tp)
             torch.cuda.synchronize()
-            assert tuple(y.shape) == (1, co, n, h, w), tuple(y.shape)
+            ran = [k for k, name, c0 in zip(("wgmma", "gather", "fma_f32"), K2_COUNTERS, before)
+                   if getattr(cig, name) != c0]
+            assert ran == [kernel], f"{layer} {mode}: expected the {kernel} kernel, ran {ran}"
+            assert tuple(y.shape) == (b, co, n, h, w), tuple(y.shape)
             err = (y.float() - r.float()).abs()
             if dtype == torch.float32:
                 torch.testing.assert_close(y, r, atol=2e-4, rtol=1e-4)
@@ -411,21 +444,30 @@ def check_conv_igemm(device, results):
             big = 2 * 27 * ci * co * n * h * w > 1e12
             iters = (2 if big else 5) if dtype == torch.bfloat16 else 1
             ms = cuda_time_ms(lambda: cig.conv3d_igemm(x, p, tp), iters, 1)
-            copy_ms = cuda_time_ms(lambda: (x.permute(0, 2, 3, 4, 1).contiguous(),
-                                            p.weight.permute(2, 3, 4, 1, 0).reshape(
-                                                27 * ci, co).contiguous()), 5, 1)
+            if kernel == "wgmma":                # the K-major weight, no copy of x
+                layout = lambda: cig.relayout_weight(p.weight, x.dtype)
+            else:                                # a channels-last x and [(taps, ci), co]
+                layout = lambda: (x.permute(0, 2, 3, 4, 1).contiguous(),
+                                  p.weight.permute(2, 3, 4, 1, 0).reshape(27 * ci, co).contiguous())
+            layout_ms = cuda_time_ms(layout, 5, 1)
             plain_ms = cuda_time_ms(lambda: cig.conv3d_igemm_plain(x, p, tp), 1, 1)
             library_ms = cuda_time_ms(
                 lambda: F.conv3d(xl, p.weight, p.bias, padding=(0, 1, 1)), iters, 1)
-            flops = 2 * 27 * ci * co * n * h * w
+            # the taps this input needs: in full mode the first output frames'
+            # taps in the causal past read only padding, and K2 skips them
+            taps = sum(9 * (3 - max(0, tp - to)) for to in range(n))
+            flops = 2 * taps * ci * co * b * h * w
             esize = x.element_size()
             nbytes = (x.numel() + p.weight.numel() + co + y.numel()) * esize
             peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
             t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
-            row = dict(layer=layer, mode=mode, ci=ci, co=co, h=h, w=w, frames=n,
+            plan = cig.tile_plan(b, co, n, h, w, sms) if kernel == "wgmma" else None
+            row = dict(layer=layer, mode=mode, ci=ci, co=co, h=h, w=w, frames=n, batch=b,
+                       edge=layer.startswith("edge"), kernel=kernel,
+                       plan=None if plan is None else dict(bn=plan.bn, grid=plan.grid),
                        dtype=str(dtype).split(".")[-1], time_pad=tp,
                        max_abs_err=float(err.max()), ulp_excess=excess,
-                       cudnn_vs_plain_max_abs=lib_err, ms=ms, layout_copy_ms=copy_ms,
+                       cudnn_vs_plain_max_abs=lib_err, ms=ms, layout_ms=layout_ms,
                        plain_ms=plain_ms, library_ms=library_ms,
                        bound_ms=1e3 * max(t_ops, t_bytes),
                        bound_by="operations" if t_ops >= t_bytes else "bytes",
@@ -512,7 +554,8 @@ def run_igemm_path(device, results, ref_frames):
         causal_conv.conv3d_igemm = orig
     stats = pipe.timer.stats()
     expected = expected_conv_launches(pipe, stats, len(summary["history_index"]))
-    assert conv_launches == expected, f"K2 launched {conv_launches} times, expected {expected}"
+    k2 = conv_launches["launches"] + conv_launches["gather_launches"]
+    assert k2 == expected, f"K2 launched {k2} times ({conv_launches}), expected {expected}"
     summary["expected_conv_igemm_launches"] = expected
     summary["conv_frames_by_class"] = {f"{ci}->{co} @{h}x{w}": n
                                        for (ci, co, h, w), n in frames_by_class.items()}
@@ -609,7 +652,7 @@ def main() -> int:
     for src, built in builds.items():
         log(f"build: {src} -> {os.path.relpath(built.path, HERE)} (nvcc {built.seconds:.1f} s)")
         for line in built.log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(k in line for k in ("registers", "spill", "smem", "Function properties")):
                 log("  ptxas:", line.strip())
     log(f"build: all kernels in {build_s:.1f} s")
     results["build_s"] = build_s
@@ -648,29 +691,56 @@ def main() -> int:
     bf16 = [r for r in conv_rows if r["dtype"] == "bfloat16"]
     per_frame = {}
     for r in bf16:
-        per_frame.setdefault((r["ci"], r["co"], r["h"], r["w"]), r)
+        if r["kernel"] == "wgmma" and not r["edge"]:
+            per_frame.setdefault((r["ci"], r["co"], r["h"], r["w"]), r)
     missing = set(frames_by_class) - set(per_frame)
     assert not missing, f"rollout conv classes without a K2 check: {sorted(missing)}"
-    device_ms = {k: n * per_frame[k]["ms"] / per_frame[k]["frames"]
-                 for k, n in frames_by_class.items()}
-    results["conv_igemm_device_ms_by_class"] = {f"{ci}->{co} @{h}x{w}": v
-                                                for (ci, co, h, w), v in device_ms.items()}
-    top = per_frame[max(device_ms, key=device_ms.get)]
-    kernels.append({
-        "name": "conv3d_igemm",
-        "route": "cuda",
-        "source": "deepv_tpu_torch/csrc/conv_igemm.cu",
-        "replaces": "deepv_tpu/ops/conv_igemm.py:57",
-        "launches": conv_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in bf16),
-        "ms": top["ms"],
-        "plain_ms": top["plain_ms"],
-        "bound_ms": top["bound_ms"],
-        "bound_by": top["bound_by"],
-        "library_ms": top["library_ms"],
-        "shape": (f"{top['ci']}->{top['co']} @{top['h']}x{top['w']}, {top['frames']} output "
-                  f"frames, {top['mode']} mode, bf16"),
-    })
+    # K2, cuDNN and the bound summed over the igemm rollout: each class's
+    # output frames times its checked case's ms per output frame
+    by_class = {}
+    for k, n in frames_by_class.items():
+        r = per_frame[k]
+        per = n / r["frames"]
+        by_class[k] = dict(frames=n, k2_s=per * r["ms"] / 1e3, layout_s=per * r["layout_ms"] / 1e3,
+                           cudnn_s=per * r["library_ms"] / 1e3, bound_s=per * r["bound_ms"] / 1e3,
+                           tflops=r["tflops"], plan=r["plan"])
+    by_class = dict(sorted(by_class.items(), key=lambda kv: -kv[1]["k2_s"]))
+    sums = {key: sum(v[key] for v in by_class.values())
+            for key in ("k2_s", "layout_s", "cudnn_s", "bound_s")}
+    names = {k: f"{k[0]}->{k[1]} @{k[2]}x{k[3]}" for k in by_class}
+    results["conv_igemm_rollout_by_class"] = {names[k]: v for k, v in by_class.items()}
+    results["conv_igemm_rollout_sums"] = sums
+    log(f"K2 over the igemm rollout ({sum(frames_by_class.values())} output frames in "
+        f"{len(by_class)} classes): K2 {sums['k2_s']:.3f} s (layout work outside the kernel "
+        f"{sums['layout_s']:.3f} s), cuDNN {sums['cudnn_s']:.3f} s, bound {sums['bound_s']:.3f} s")
+    for k, v in by_class.items():
+        log(f"  {names[k]}: {v['frames']} frames, K2 {v['k2_s']:.3f} s, cuDNN {v['cudnn_s']:.3f} s, "
+            f"bound {v['bound_s']:.3f} s, {v['tflops']:.0f} TF/s, plan {v['plan']}")
+    top = per_frame[next(iter(by_class))]
+    # K2's two bf16 kernels: wgmma at the class with the most K2 time, gather
+    # at the channels-last encoder case, where the rollout runs it
+    on_path = next(r for r in bf16 if r["layer"] == CONV_EDGE_CASES[0][0])
+    for name, counter, row, rows in (
+            ("conv3d_igemm_wgmma", "launches", top,
+             [r for r in bf16 if r["kernel"] == "wgmma"]),
+            ("conv3d_igemm_gather", "gather_launches", on_path,
+             [r for r in bf16 if r["kernel"] == "gather"])):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "deepv_tpu_torch/csrc/conv_igemm.cu",
+            "replaces": "deepv_tpu/ops/conv_igemm.py:57",
+            "launches": conv_launches[counter],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "shape": (f"{row['ci']}->{row['co']} @{row['h']}x{row['w']}, {row['frames']} output "
+                      f"frames, {row['mode']} mode, bf16"
+                      + (", x channels-last" if row is on_path else "")),
+        })
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(dict(results, kernels=kernels), f, indent=1)
     log(card)

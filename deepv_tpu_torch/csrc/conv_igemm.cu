@@ -1,11 +1,11 @@
 // Implicit-GEMM 3x3x3 causal conv for Hopper (sm_90a), with a plain C interface.
 //
 // Replaces deepv_tpu/ops/conv_igemm.py::_kernel (the Pallas TPU kernel behind
-// conv3d_igemm). For a channels-last input x [b, t_in, h, w, ci], a weight
-// re-laid out to wr [(kt, kh, kw, ci), co] and a bias [co] in x's dtype:
+// conv3d_igemm). For x [b, ci, t_in, h, w], a weight w [co, ci, 3, 3, 3] and a
+// bias [co] in x's dtype:
 //
-//   y[b, co, t, h, w] = bias[co] + sum_{kt,kh,kw,ci} wr[(kt,kh,kw,ci), co]
-//                         * x[b, t + kt - time_pad, h + kh - 1, w + kw - 1, ci]
+//   y[b, co, t, h, w] = bias[co] + sum_{kt,kh,kw,ci} w[co, ci, kt, kh, kw]
+//                         * x[b, ci, t + kt - time_pad, h + kh - 1, w + kw - 1]
 //
 // with zeros outside the input (time_pad = 2: two causal zero frames in the
 // past; time_pad = 0: the context frames are already in x). f32 accumulation,
@@ -14,28 +14,51 @@
 // What bounds it on the H100: at the VAE's eligible layers (ci, co = 128..2048,
 // h x w = 48x64 .. 384x512) a call does 2*27*ci*co operations per output pixel
 // against 2*(ci + co) bytes, 1e3-1e4 operations per byte: the tensor cores
-// bound it, far above the bf16 ridge point (~295 operations per byte).
+// bound it, far above the bf16 ridge point (~295 operations per byte). Inside
+// the card the next limit is the bytes a tile pulls from L2 per operation.
 //
-// What the design does about that:
-//   * The GEMM view: M = output pixels of one frame (h*w flattened), N = co,
-//     K = 27 taps x ci. One CTA per (128 pixels, 128 channels, batch * output
-//     frame); blocks run in any order and carry nothing between them (the TPU
-//     kernel's input tile reused across Cout blocks relies on its sequential
-//     grid and has no counterpart here: each CTA loads the input it needs).
-//   * The K loop walks (tap, 32-channel chunk) steps through a 3-stage ring of
-//     cp.async 16-byte copies: the A tile is 128 pixels x 32 channels gathered
-//     at the tap's (dt, dh, dw) offset, the causal and spatial halo zero-filled
-//     by the copy itself (src-size 0), so no padded copy of x exists in memory.
-//   * bf16: WMMA 16x16x16 bf16 fragments with f32 accumulators kept in
-//     registers across the whole K loop (8 warps, 64x32 outputs each).
-//     f32 (the exactness check on the card): plain FMA, 64x64 tiles, 4x4 a thread.
-//   * Epilogue: the accumulators go through shared memory transposed to
-//     [co][pixel], so the store into y [b, co, t, h, w] is contiguous along the
-//     pixels (4 a thread); bias added in f32, one rounding.
-//   * Element offsets are 64-bit: a 17-frame, 512-channel activation at
-//     384x512 is within a factor of 5 of 2^31 elements.
-//   wgmma, TMA and a persistent schedule are left for later work.
+// Three kernels, chosen by the wrapper (ops/conv_igemm.py::kernel_for):
+//
+// conv3d_igemm_wgmma (bf16, w % 8 == 0; every conv of the rollout):
+//   * GEMM view: M = output pixels, N = co, K = 27 taps x ci. A is MN-major:
+//     a [64 ci][pixels] block is exactly x's [.., ci, t, h, w] layout read
+//     along w, so TMA loads it straight from x (5-D tensor map, w innermost).
+//     TMA zero-fills every element outside x, negative coordinates included:
+//     the spatial halo and the causal past cost nothing, no copy of x is made.
+//   * An M tile is two "runs" of 64 output pixels, each one row segment of
+//     one frame; wide frames put several runs in a row, 64-wide frames one.
+//     Runs past w or h compute on zeros or halo rows and are not stored.
+//   * A per (kt, kh, 64-channel chunk) "unit": one unswizzled [64 ci][88 px]
+//     box per run, columns w0 - 8 .. w0 + 79, which holds the three kw taps.
+//     A shift of one column breaks the 16-byte alignment a shared-memory
+//     wgmma descriptor needs, so instead of three boxes per unit (one per kw)
+//     the consumers read the shifted A operand into registers (the m16n8k16
+//     A fragment, 16-bit shared loads) and issue wgmma with A from registers.
+//     That loads A from L2 once per unit, not once per tap.
+//   * B is K-major: the wrapper re-lays the weight out to [27, co, ci], and a
+//     3-D tensor map loads one [BN co][64 ci] box per tap with the 128-byte
+//     swizzle that the wgmma descriptor reads.
+//   * Warp-specialised: warpgroup 0 gives up its registers and one thread
+//     keeps both rings (A units, B taps) full with TMA and mbarriers;
+//     warpgroups 1 and 2 each take one run, build its A fragments, and
+//     issue wgmma.m64nBNk16 (bf16 in, f32 accumulators in registers) on the
+//     stages that have arrived, releasing each stage to the producer by its
+//     mbarrier. No block-wide barrier in the K loop.
+//   * Tiles: 128 pixels x 256 channels (128 accumulators a thread) or
+//     128 x 128; the wrapper takes the narrower one where the wider would
+//     leave SMs idle (calls with few tiles, e.g. 512->512 @48x64).
+//   * Units whose input frame lies wholly in the causal past are skipped.
+//   * Epilogue: bias added in f32, one rounding, the tile transposed through
+//     shared memory to [co][pixel] and stored 16 bytes (8 pixels) a thread
+//     into y [b, co, t, h, w], clipped at w and h; 64-bit offsets.
+//
+// conv3d_igemm_gather (bf16 that TMA cannot read along w: w % 8 != 0, or x
+// channels-last, as the encoder's mid block hands it on after its
+// attention) and conv3d_igemm_f32 (the exactness check on the card):
+// cp.async kernels on a channels-last x (the wrapper's copy, free when x
+// already is channels-last), WMMA bf16 and plain FMA f32 respectively.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
@@ -72,7 +95,7 @@ __device__ __forceinline__ int64_t tap_offset(const Shape& s, int bi, int ti, in
 }
 
 // ---------------------------------------------------------------------------
-// bf16: WMMA tensor-core products
+// bf16 gather (w % 8 != 0): cp.async on a channels-last copy, WMMA products
 // ---------------------------------------------------------------------------
 
 constexpr int kBM = 128;          // output pixels per CTA
@@ -120,9 +143,9 @@ __device__ __forceinline__ void load_stage_bf16(
 }
 
 __global__ void __launch_bounds__(kThreads)
-conv3d_igemm_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wr,
-                  const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ y,
-                  Shape s) {
+conv3d_igemm_gather(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wr,
+                    const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ y,
+                    Shape s) {
   using namespace nvcuda;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __nv_bfloat16* sa = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -303,12 +326,436 @@ conv3d_igemm_f32(const float* __restrict__ x, const float* __restrict__ wr,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16: TMA-fed wgmma, read straight from x [b, ci, t, h, w]
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+constexpr int kRun = 64;                    // output pixels of a run: one row segment
+constexpr int kHalo = 8;                    // columns loaded left of a run: one 16-byte unit
+constexpr int kBoxW = 88;                   // columns of an A box, w0 - 8 .. w0 + 80 (176 bytes)
+constexpr int kBK = 64;                     // input channels per K step
+constexpr int kThreads = 384;               // warpgroup 0: producer; 1, 2: consumers
+constexpr int kConsumers = 256;
+constexpr int kBoxBytes = kBK * kBoxW * 2;  // one [64 ci][88 px] box, 11 KB
+constexpr int kRingBudget = 216 * 1024;    // of the 227 KB a block may use
+constexpr long long kSpinLimit = 1LL << 26; // ~seconds: a lost stage traps instead of hanging
+
+// An M tile is two runs, one per consumer warpgroup (64 output rows of
+// wgmma each); BN: output channels of the tile. B stages hold one tap's
+// [BN co][64 ci]; A stages one (kt, kh, 64-channel chunk)'s two boxes,
+// which serve the three kw taps.
+constexpr int kRuns = 2;
+constexpr int kBM = kRun * kRuns;
+
+template <int BN>
+struct Tile {
+  static constexpr int kBBytes = BN * kBK * 2;
+  static constexpr int kBStages = BN == 256 ? 4 : 8;             // 128 KB of taps
+  static constexpr int kABytes = kRuns * kBoxBytes;
+  static constexpr int kAFit = (kRingBudget - kBStages * kBBytes) / kABytes;
+  static constexpr int kAStages = kAFit > 4 ? 4 : kAFit;
+  static constexpr int kRingBytes = kBStages * kBBytes + kAStages * kABytes;
+  static constexpr int kAcc = BN / 2;                                  // f32 a thread per run
+  static constexpr int kLdC = kBM + 8;                                 // bf16 [co][px] row stride
+  static_assert(kAStages >= 2, "fewer than two A stages");
+  static_assert(BN * kLdC * 2 <= kRingBytes, "epilogue tile exceeds the ring");
+  static constexpr int kBarBytes = 2 * (kAStages + kBStages) * 8;
+  static constexpr int kSmemBytes = kRingBytes + kBarBytes + 1024;     // + alignment slack
+};
+
+struct Params {
+  int b, ci, co, t_out, h, w, time_pad;
+  int runs_per_row, m_tiles;
+  const __nv_bfloat16* bias;
+  __nv_bfloat16* y;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (long long spin = 0; !done; ++spin) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (spin > kSpinLimit) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4) : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+         "r"(c0), "r"(c1), "r"(c2) : "memory");
+}
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle. Offsets in bytes.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accumulator reads or writes across an
+// asynchronous wgmma.
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// D[64 x N] += A[64 x 16] * B[16 x N]: A from registers (the m16n8k16 A
+// fragment of each warp's 16 rows), B K-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64], const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n256k16(float (&d)[128], const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
+      "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, "
+      "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
+      "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "
+      "%124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]),
+        "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
+        "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
+        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
+        "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+template <int BN>
+__device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], const uint32_t (&a)[4],
+                                           uint64_t db) {
+  if constexpr (BN == 256) {
+    wgmma_rs_m64n256k16(d, a, db);
+  } else {
+    wgmma_rs_m64n128k16(d, a, db);
+  }
+}
+
+__device__ __forceinline__ void consumer_sync() {   // the two consumer warpgroups only
+  asm volatile("bar.sync 1, %0;\n" :: "n"(kConsumers) : "memory");
+}
+
+// Run `run` of the frame: its row and first column.
+__device__ __forceinline__ void run_origin(const Params& p, int run, int& hh, int& w0) {
+  hh = run / p.runs_per_row;
+  w0 = (run - hh * p.runs_per_row) * kRun;
+}
+
+__device__ __forceinline__ uint32_t pack2(uint16_t lo, uint16_t hi) {
+  return (uint32_t)lo | ((uint32_t)hi << 16);
+}
+
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+conv3d_igemm_wgmma(const __grid_constant__ CUtensorMap tmap_x,
+                   const __grid_constant__ CUtensorMap tmap_w, const Params p) {
+  using T = Tile<BN>;
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  // swizzled B tiles and wgmma descriptors want 1024-byte aligned stages
+  const uint32_t raw = smem_u32(wg_smem);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = wg_smem + (base - raw);
+  const uint32_t b_ring = base;                                  // kBStages x [BN][64] bf16
+  const uint32_t a_ring = base + T::kBStages * T::kBBytes;       // kAStages x two boxes
+  const uint32_t a_full = base + T::kRingBytes;                  // barriers, 8 bytes each
+  const uint32_t a_empty = a_full + T::kAStages * 8;
+  const uint32_t b_full = a_empty + T::kAStages * 8;
+  const uint32_t b_empty = b_full + T::kBStages * 8;
+
+  const int m_tile = blockIdx.x;
+  const int n0 = blockIdx.y * BN;
+  const int bi = blockIdx.z / p.t_out;
+  const int to = blockIdx.z - bi * p.t_out;
+  const int chunks = p.ci / kBK;
+  // K loop: units (kt, kh, 64-channel chunk), each three iterations kw = 0, 1, 2.
+  // Units whose input frame lies in the causal past read only zeros and are
+  // skipped.
+  const int u_begin = max(0, p.time_pad - to) * 3 * chunks;
+  const int u_end = 9 * chunks;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < T::kAStages; ++s) {
+      mbar_init(a_full + 8 * s, 1);                              // the producer's expect_tx
+      mbar_init(a_empty + 8 * s, kConsumers);                    // every consumer thread
+    }
+    for (int s = 0; s < T::kBStages; ++s) {
+      mbar_init(b_full + 8 * s, 1);
+      mbar_init(b_empty + 8 * s, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wgi = threadIdx.x / 128;
+  if (wgi == 0) {
+    // ---- producer: one thread keeps both rings full ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      int ib = 0;
+      for (int u = u_begin, ia = 0; u < u_end; ++u, ++ia) {
+        const int sa = ia % T::kAStages;
+        mbar_wait(a_empty + 8 * sa, ((ia / T::kAStages) & 1) ^ 1);
+        mbar_expect_tx(a_full + 8 * sa, T::kABytes);
+        const int g = u / chunks;
+        const int c0 = (u - g * chunks) * kBK;
+        const int kt = g / 3, kh = g - 3 * (g / 3);
+        for (int r = 0; r < kRuns; ++r) {
+          int hh, w0;
+          run_origin(p, m_tile * kRuns + r, hh, w0);
+          tma_load_5d(a_ring + sa * T::kABytes + r * kBoxBytes, &tmap_x, a_full + 8 * sa,
+                      w0 - kHalo, hh + kh - 1, to + kt - p.time_pad, c0, bi);
+        }
+        for (int kw = 0; kw < 3; ++kw, ++ib) {
+          const int sb = ib % T::kBStages;
+          mbar_wait(b_empty + 8 * sb, ((ib / T::kBStages) & 1) ^ 1);
+          mbar_expect_tx(b_full + 8 * sb, T::kBBytes);
+          tma_load_3d(b_ring + sb * T::kBBytes, &tmap_w, b_full + 8 * sb, c0, n0,
+                      kt * 9 + kh * 3 + kw);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup 1 takes run 0 of the tile, warpgroup 2 run 1 ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int ct = threadIdx.x - 128;                    // 0..255
+    const int run = wgi - 1;
+    const int warp = (ct & 127) >> 5, lane = ct & 31;
+    // this thread's A fragment elements: pixel m = 16 warp + lane / 4 (and
+    // m + 8), channels k = 2 (lane % 4) (+1, +8, +9) of each k16 step; the
+    // kw tap reads column m + kw - 1 of the run, box column m + kw + 7
+    const int a_off = 2 * (lane & 3) * kBoxW + warp * 16 + (lane >> 2) + kHalo - 1;
+    float acc[T::kAcc];
+#pragma unroll
+    for (int i = 0; i < T::kAcc; ++i) acc[i] = 0.f;
+
+    int ib = 0;
+    for (int u = u_begin, ia = 0; u < u_end; ++u, ++ia) {
+      const int sa = ia % T::kAStages;
+      mbar_wait(a_full + 8 * sa, (ia / T::kAStages) & 1);
+      const uint16_t* abox = reinterpret_cast<const uint16_t*>(
+          smem + (a_ring - base) + sa * T::kABytes + run * kBoxBytes) + a_off;
+#pragma unroll
+      for (int kw = 0; kw < 3; ++kw, ++ib) {
+        uint32_t frag[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint16_t* q = abox + kw + kk * 16 * kBoxW;
+          frag[kk][0] = pack2(q[0], q[kBoxW]);
+          frag[kk][1] = pack2(q[8], q[kBoxW + 8]);
+          frag[kk][2] = pack2(q[8 * kBoxW], q[9 * kBoxW]);
+          frag[kk][3] = pack2(q[8 * kBoxW + 8], q[9 * kBoxW + 8]);
+        }
+        if (kw == 2) mbar_arrive(a_empty + 8 * sa);      // the boxes are in registers
+        const int sb = ib % T::kBStages;
+        mbar_wait(b_full + 8 * sb, (ib / T::kBStages) & 1);
+        const uint32_t bs = b_ring + sb * T::kBBytes;
+        fence_acc(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk) {
+          // B [BN co][64 ci], K-major, 128-byte swizzle: k16 slices are 32
+          // bytes apart in each row, 8-row groups 1024 bytes apart
+          wgmma_tile<BN>(acc, frag[kk], smem_desc(bs + kk * 32, 16, 1024));
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(acc);
+        mbar_arrive(b_empty + 8 * sb);
+      }
+    }
+    consumer_sync();                                     // the rings are free from here on
+    // epilogue: bias in f32, one rounding, [co][pixel] tile in shared memory
+    __nv_bfloat16* st = reinterpret_cast<__nv_bfloat16*>(smem);
+    const int px = run * kRun + warp * 16 + (lane >> 2);
+#pragma unroll
+    for (int i8 = 0; i8 < BN / 8; ++i8) {
+      const int n = i8 * 8 + (lane & 3) * 2;
+      const float b0 = __bfloat162float(p.bias[n0 + n]);
+      const float b1 = __bfloat162float(p.bias[n0 + n + 1]);
+      st[n * T::kLdC + px] = __float2bfloat16_rn(acc[4 * i8 + 0] + b0);
+      st[(n + 1) * T::kLdC + px] = __float2bfloat16_rn(acc[4 * i8 + 1] + b1);
+      st[n * T::kLdC + px + 8] = __float2bfloat16_rn(acc[4 * i8 + 2] + b0);
+      st[(n + 1) * T::kLdC + px + 8] = __float2bfloat16_rn(acc[4 * i8 + 3] + b1);
+    }
+    consumer_sync();
+    const int64_t hw = (int64_t)p.h * p.w;
+    for (int idx = ct; idx < BN * kRuns * 8; idx += kConsumers) {
+      const int n = idx / (kRuns * 8);
+      const int c = idx - n * (kRuns * 8);
+      const int r = c >> 3, px8 = (c & 7) * 8;
+      int hh, w0;
+      run_origin(p, m_tile * kRuns + r, hh, w0);
+      if (hh >= p.h || w0 + px8 >= p.w) continue;        // w % 8 == 0: whole groups drop
+      const uint4 v = *reinterpret_cast<const uint4*>(st + n * T::kLdC + r * kRun + px8);
+      __nv_bfloat16* dst = p.y + (((int64_t)bi * p.co + n0 + n) * p.t_out + to) * hw +
+                           (int64_t)hh * p.w + w0 + px8;
+      *reinterpret_cast<uint4*>(dst) = v;
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up at run time by cudaGetDriverEntryPoint (no -lcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
+                                     &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+template <int BN>
+int launch(const void* x, const void* wk, const Params& p, int t_in, const int64_t* sx,
+           cudaStream_t stream) {
+  using T = Tile<BN>;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  // x: dims (w, h, t, c, b), w innermost; boxes of [64 c][1][1][1 h][88 w],
+  // unswizzled (the consumers read them with any one-column shift)
+  CUtensorMap tx, tw;
+  const cuuint64_t xdim[5] = {(cuuint64_t)p.w, (cuuint64_t)p.h, (cuuint64_t)t_in,
+                              (cuuint64_t)p.ci, (cuuint64_t)p.b};
+  const cuuint64_t xstride[4] = {(cuuint64_t)sx[3] * 2, (cuuint64_t)sx[2] * 2,
+                                 (cuuint64_t)sx[1] * 2, (cuuint64_t)sx[0] * 2};
+  const cuuint32_t xbox[5] = {kBoxW, 1, 1, kBK, 1};
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  CUresult r = encode(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(x), xdim,
+                      xstride, xbox, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return 1000 + (int)r;
+  // weight [27, co, ci]: boxes of [BN co][64 ci]
+  const cuuint64_t wdim[3] = {(cuuint64_t)p.ci, (cuuint64_t)p.co, 27};
+  const cuuint64_t wstride[2] = {(cuuint64_t)p.ci * 2, (cuuint64_t)p.ci * p.co * 2};
+  const cuuint32_t wbox[3] = {kBK, BN, 1};
+  r = encode(&tw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(wk), wdim, wstride,
+             wbox, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return 1000 + (int)r;
+
+  auto kernel = conv3d_igemm_wgmma<BN>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         T::kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)p.m_tiles, (unsigned)(p.co / BN), (unsigned)(p.b * p.t_out));
+  kernel<<<grid, kThreads, T::kSmemBytes, stream>>>(tx, tw, p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wg
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Pointers are device pointers of
-// contiguous tensors: x [b, t_in, h, w, ci] (channels-last), wr [27*ci, co]
-// ((kt, kh, kw, ci) rows), bias [co], y [b, co, t_out, h, w]; all in one
-// dtype. Requires ci, co multiples of 128, even h and w, time_pad 0 or 2 and
+// Kernels conv3d_igemm_gather (dtype 1 = bfloat16) and conv3d_igemm_f32
+// (dtype 0 = float32) on a channels-last copy. Pointers are device pointers
+// of contiguous tensors: x [b, t_in, h, w, ci], wr [27*ci, co] ((kt, kh, kw,
+// ci) rows), bias [co], y [b, co, t_out, h, w]; all in one dtype. Requires
+// ci, co multiples of 128, even h and w, time_pad 0 or 2 and
 // t_out = t_in + time_pad - 2 >= 1. Launches on `stream` and returns
 // cudaGetLastError().
 extern "C" int deepv_conv3d_igemm(const void* x, const void* wr, const void* bias, void* y,
@@ -323,12 +770,12 @@ extern "C" int deepv_conv3d_igemm(const void* x, const void* wr, const void* bia
   const int64_t hw = (int64_t)h * w;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    cudaError_t err = cudaFuncSetAttribute(conv3d_igemm_bf16,
+    cudaError_t err = cudaFuncSetAttribute(conv3d_igemm_gather,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)kSmemBf16);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((unsigned)((hw + kBM - 1) / kBM), co / kBN, b * t_out);
-    conv3d_igemm_bf16<<<grid, kThreads, kSmemBf16, st>>>(
+    conv3d_igemm_gather<<<grid, kThreads, kSmemBf16, st>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(wr),
         static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(y), s);
   } else {
@@ -338,4 +785,40 @@ extern "C" int deepv_conv3d_igemm(const void* x, const void* wr, const void* bia
         static_cast<const float*>(bias), static_cast<float*>(y), s);
   }
   return (int)cudaGetLastError();
+}
+
+// Kernel conv3d_igemm_wgmma, bfloat16 only. x [b, ci, t_in, h, w] with
+// element strides sx = (b, c, t, h) and unit stride along w; wk [27, co, ci]
+// contiguous (tap-major, ci innermost); bias [co]; y [b, co, t_out, h, w]
+// contiguous. The tile is 128 pixels x bn (128 or 256) channels. The grid
+// and the tile's runs follow ops/conv_igemm.py::make_plan: runs_per_row =
+// ceil(w / 64), m_tiles = ceil(h * runs_per_row / 2). Requires ci, co multiples of 128
+// (co of bn), even h, w % 8 == 0, 16-byte aligned x and y, x's strides
+// multiples of 8 elements, time_pad 0 or 2 and t_out = t_in + time_pad - 2
+// >= 1. Launches on `stream`; returns a cudaError_t, or 1000 + the CUresult
+// of a tensor map that could not be encoded.
+extern "C" int deepv_conv3d_igemm_wgmma(const void* x, const void* wk, const void* bias,
+                                        void* y, int b, int ci, int co, int t_in, int t_out,
+                                        int h, int w, int time_pad, int64_t sx_b,
+                                        int64_t sx_c, int64_t sx_t, int64_t sx_h, int bn,
+                                        void* stream) {
+  const int64_t sx[4] = {sx_b, sx_c, sx_t, sx_h};
+  bool strides_ok = true;
+  for (int i = 0; i < 4; ++i) strides_ok = strides_ok && sx[i] > 0 && sx[i] % 8 == 0;
+  if (b <= 0 || ci <= 0 || co <= 0 || h <= 0 || w <= 0 || ci % 128 || co % 128 || h % 2 ||
+      w % 8 || (time_pad != 0 && time_pad != 2) || t_out < 1 ||
+      t_out != t_in + time_pad - 2 || (int64_t)b * t_out > 65535 ||
+      (bn != 128 && bn != 256) || co % bn || !strides_ok ||
+      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(y) % 16 ||
+      reinterpret_cast<uintptr_t>(wk) % 16)
+    return (int)cudaErrorInvalidValue;
+  wg::Params p;
+  p.b = b; p.ci = ci; p.co = co; p.t_out = t_out; p.h = h; p.w = w; p.time_pad = time_pad;
+  p.runs_per_row = (w + wg::kRun - 1) / wg::kRun;
+  p.m_tiles = (int)(((int64_t)h * p.runs_per_row + wg::kRuns - 1) / wg::kRuns);
+  p.bias = static_cast<const __nv_bfloat16*>(bias);
+  p.y = static_cast<__nv_bfloat16*>(y);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (bn == 256) return wg::launch<256>(x, wk, p, t_in, sx, st);
+  return wg::launch<128>(x, wk, p, t_in, sx, st);
 }

@@ -1,4 +1,4 @@
-"""Implicit-GEMM causal conv: the hand-written Hopper kernel and its plain version.
+"""Implicit-GEMM causal conv: the hand-written Hopper kernels and their plain version.
 
 Counterpart of ``deepv_tpu/ops/conv_igemm.py``. A 3x3x3 stride-1 conv with a
 torch-layout weight ``[co, ci, 3, 3, 3]``:
@@ -13,25 +13,35 @@ accumulate in float32; the bias, cast to x's dtype, is added in float32
 after the sum, and the result is rounded once to x's dtype. Those are the
 TPU kernel's rounding points (``conv_igemm.py:77-85``, ``:115-116``).
 
-Kernel (``csrc/conv_igemm.cu``), replacing
-``deepv_tpu/ops/conv_igemm.py::_kernel``: at the VAE's eligible layers the
+Kernels (``csrc/conv_igemm.cu``), replacing
+``deepv_tpu/ops/conv_igemm.py::_kernel``; at the VAE's eligible layers the
 call does 1e3-1e4 operations per byte moved, far above the H100's bf16
-ridge point, so the products bound it. It runs one CTA per (128 output
-pixels of one frame, 128 output channels, batch * output frame); its K loop
-walks the 27 taps x ci in chunks of 32 with a 3-stage ``cp.async`` ring,
-zero-filling the causal and spatial halo at the load, on WMMA bf16 tensor
-cores with float32 accumulators (plain float32 FMA for float32 inputs). The
-wrapper makes one channels-last copy of x (contiguous 16-byte loads along
-ci) and re-lays the weight out to ``[(kt, kh, kw, ci), co]`` per call; the
-epilogue writes ``[b, co, t, h, w]`` directly.
+ridge point, so the products bound it. ``kernel_for`` picks one by dtype,
+width and strides:
+
+  * ``wgmma`` (bf16, w % 8 == 0, every conv of the rollout): TMA loads
+    ``[64 ci][88 pixel]`` halo boxes straight from x in its own ``[b, ci, t,
+    h, w]`` layout, one per (kt, kh, 64-channel chunk) and 64-pixel run
+    (TMA's zero fill supplies the causal and spatial halo), and ``[co, 64
+    ci]`` boxes of the weight, re-laid out to ``[27, co, ci]`` on every call
+    (``relayout_weight``). Two consumer warpgroups read the three
+    kw-shifted A operands of each box into registers and run ``wgmma`` on
+    them; one producer thread keeps both rings full. ``tile_plan`` picks
+    the tile width so that calls with few tiles fill the card. No copy of x.
+  * ``gather`` (bf16 that TMA cannot describe: w % 8 != 0, or a view whose
+    strides or start are not 16-byte multiples) and ``fma_f32``
+    (float32, the exactness check on the card): cp.async kernels on a
+    channels-last copy of x and a ``[(kt, kh, kw, ci), co]`` weight.
 
 ``conv3d_igemm`` takes the plain version only for tensors on the CPU; for
-CUDA tensors it launches the kernel or raises.
+CUDA tensors it launches a kernel or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
@@ -41,10 +51,23 @@ from .basic import compute_dtype
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-#: launches of the CUDA kernel since the count was last set to 0
+#: launches of the ``wgmma`` kernel since the count was last set to 0
 launches = 0
+#: launches of the ``gather`` and ``fma_f32`` kernels, counted apart
+gather_launches = 0
+f32_launches = 0
 
 _library: Optional[ctypes.CDLL] = None
+
+#: pixels of a run (one TMA row segment of x), runs of an M tile (one per
+#: consumer warpgroup) and input channels per K step
+RUN = 64
+RUNS = 2
+BK = 64
+#: the wgmma kernel's tile widths (output channels) and their rates relative
+#: to each other, fitted to tools/conv_igemm_plans.py on the H100: where
+#: both fill the card, the 128-wide tile ran 3-9% slower than the 256-wide one
+TILES = {256: 1.0, 128: 0.94}
 
 
 def supports_igemm(weight_shape: Tuple[int, ...], stride: Tuple[int, int, int],
@@ -57,6 +80,92 @@ def supports_igemm(weight_shape: Tuple[int, ...], stride: Tuple[int, int, int],
             and dtype in (torch.bfloat16, torch.float32)
             and ci % 128 == 0 and co % 128 == 0
             and h % 2 == 0 and w % 2 == 0)
+
+
+def kernel_for(x: torch.Tensor) -> str:
+    """The kernel a supported call on x runs: ``wgmma`` for bf16 when TMA
+    can describe x (w % 8 == 0 and ``_tma_strides``), ``gather`` for the
+    other bf16 inputs, ``fma_f32`` for float32."""
+    if x.dtype == torch.float32:
+        return "fma_f32"
+    return "wgmma" if x.shape[-1] % 8 == 0 and _tma_strides(x) is not None else "gather"
+
+
+@dataclass(frozen=True)
+class TilePlan:
+    """How the ``wgmma`` kernel covers one call. An M tile is ``RUNS``
+    runs of 64 pixels; run ``r`` of a frame is row ``r // runs_per_row``,
+    columns from ``(r % runs_per_row) * 64``. The grid is ``(m_tiles, co //
+    bn, b * t_out)``."""
+
+    bn: int
+    runs_per_row: int
+    m_tiles: int
+    co: int
+    frames: int
+
+    @property
+    def grid(self) -> Tuple[int, int, int]:
+        return (self.m_tiles, self.co // self.bn, self.frames)
+
+
+def make_plan(bn: int, co: int, frames: int, h: int, w: int) -> TilePlan:
+    """The plan of one tile width (the kernel's own arithmetic:
+    csrc/conv_igemm.cu, ``deepv_conv3d_igemm_wgmma``)."""
+    runs_per_row = -(-w // RUN)
+    return TilePlan(bn, runs_per_row, -(-h * runs_per_row // RUNS), co, frames)
+
+
+def tile_plan(b: int, co: int, t_out: int, h: int, w: int, sms: int) -> TilePlan:
+    """The tile width of the ``wgmma`` kernel for one call on a card with
+    ``sms`` SMs. Each CTA holds a whole SM, so a call takes ``ceil(CTAs /
+    sms)`` rounds of one tile's time, which grows with its width over its
+    rate. The cheapest plan wins; a tie goes to the wider tile."""
+    best, best_cost = None, math.inf
+    for bn, rate in TILES.items():
+        if co % bn:
+            continue
+        plan = make_plan(bn, co, b * t_out, h, w)
+        ctas = plan.grid[0] * plan.grid[1] * plan.grid[2]
+        cost = -(-ctas // sms) * bn / rate
+        if cost < best_cost:
+            best, best_cost = plan, cost
+    return best
+
+
+def tile_runs(plan: TilePlan, m_tile: int):
+    """(row, first column) of each run of M tile ``m_tile``; rows past h
+    load zeros and are not stored, as are columns past w."""
+    out = []
+    for r in range(RUNS):
+        run = m_tile * RUNS + r
+        out.append((run // plan.runs_per_row, (run % plan.runs_per_row) * RUN))
+    return out
+
+
+def k_iterations(ci: int, time_pad: int, to: int) -> range:
+    """K iterations for output frame ``to``. The K loop walks units (kt, kh,
+    64-channel chunk), kt-major, each one TMA box per run that serves the
+    three kw taps: iteration ``it`` is unit ``it // 3``, tap column ``kw =
+    it % 3`` (``iteration_tap``). Units whose input frame lies in the
+    causal past (kt < time_pad - to) are skipped."""
+    chunks = ci // BK
+    return range(3 * max(0, time_pad - to) * 3 * chunks, 27 * chunks)
+
+
+def iteration_tap(ci: int, it: int) -> Tuple[int, int, int, int]:
+    """(kt, kh, kw, first channel) of K iteration ``it``."""
+    chunks = ci // BK
+    unit, kw = divmod(it, 3)
+    g, c = divmod(unit, chunks)
+    return g // 3, g % 3, kw, c * BK
+
+
+def relayout_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``[co, ci, kt, kh, kw]`` -> the ``wgmma`` kernel's K-major ``[27, co,
+    ci]`` (tap-major, ci contiguous) in ``dtype``."""
+    co, ci = weight.shape[:2]
+    return weight.to(dtype).permute(2, 3, 4, 0, 1).reshape(27, co, ci).contiguous()
 
 
 def _bias(p, co: int, like: torch.Tensor) -> torch.Tensor:
@@ -103,6 +212,10 @@ def load_library() -> ctypes.CDLL:
         fn = lib.deepv_conv3d_igemm
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        fn = lib.deepv_conv3d_igemm_wgmma
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_int64] * 4
+                       + [ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
         _library = lib
     return _library
 
@@ -129,28 +242,72 @@ def _check_kernel_inputs(x: torch.Tensor, weight: torch.Tensor, bias, time_pad: 
             raise ValueError(f"{name} must lie on x's CUDA device, got {t.device}")
 
 
+def _tma_strides(x: torch.Tensor) -> Optional[Tuple[int, int, int, int]]:
+    """x's (b, c, t, h) element strides as a TMA tensor map takes them, or
+    None when the view cannot be described (w not unit-stride, a stride or
+    the address not a 16-byte multiple). A size-1 dimension is never
+    stepped, so it gets the stride a contiguous tensor would have."""
+    sizes, strides = x.shape, x.stride()
+    dense = [0] * 5
+    acc = 1
+    for d in range(4, -1, -1):
+        dense[d] = acc
+        acc *= sizes[d]
+    out = tuple(strides[d] if sizes[d] > 1 else dense[d] for d in range(4))
+    if strides[4] != 1 and sizes[4] > 1:
+        return None
+    if any(s % 8 for s in out) or x.data_ptr() % 16:
+        return None
+    return out
+
+
 def conv3d_igemm(x: torch.Tensor, p, time_pad: int = 2) -> torch.Tensor:
     """3x3x3 stride-1 causal conv; ``p`` holds ``weight`` [co, ci, 3, 3, 3]
     and an optional ``bias``. x [b, ci, t, h, w] -> [b, co, t + time_pad - 2,
     h, w] in x's dtype."""
     if x.device.type == "cpu":
         return conv3d_igemm_plain(x, p, time_pad)
-    bias = getattr(p, "bias", None)
-    _check_kernel_inputs(x, p.weight, bias, time_pad)
+    _check_kernel_inputs(x, p.weight, getattr(p, "bias", None), time_pad)
+    co, ci = p.weight.shape[:2]
+    b, _, t_in, h, w = x.shape
+    plan = None
+    if kernel_for(x) == "wgmma":
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        plan = tile_plan(b, co, t_in + time_pad - 2, h, w, sms)
+    return launch(x, p, time_pad, plan)
+
+
+def launch(x: torch.Tensor, p, time_pad: int, plan: Optional[TilePlan]) -> torch.Tensor:
+    """Launch the ``wgmma`` kernel with ``plan``, or (``plan`` None) the
+    ``gather``/``fma_f32`` kernel; ``conv3d_igemm`` checks the inputs."""
+    global launches, gather_launches, f32_launches
     lib = load_library()
     co, ci = p.weight.shape[:2]
     b, _, t_in, h, w = x.shape
     t_out = t_in + time_pad - 2
-    xcl = x.permute(0, 2, 3, 4, 1).contiguous()                                 # [b, t, h, w, ci]
-    wr = p.weight.to(x.dtype).permute(2, 3, 4, 1, 0).reshape(27 * ci, co).contiguous()
     bv = _bias(p, co, x).contiguous()
     out = torch.empty((b, co, t_out, h, w), dtype=x.dtype, device=x.device)
-    err = lib.deepv_conv3d_igemm(
-        xcl.data_ptr(), wr.data_ptr(), bv.data_ptr(), out.data_ptr(),
-        b, ci, co, t_in, t_out, h, w, time_pad, _DTYPE_CODE[x.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if plan is not None:
+        strides = _tma_strides(x)
+        if strides is None:
+            raise ValueError(f"the wgmma kernel cannot read x with strides {x.stride()}")
+        wk = relayout_weight(p.weight, x.dtype)
+        err = lib.deepv_conv3d_igemm_wgmma(
+            x.data_ptr(), wk.data_ptr(), bv.data_ptr(), out.data_ptr(),
+            b, ci, co, t_in, t_out, h, w, time_pad, *strides, plan.bn, stream)
+    else:
+        xcl = x.permute(0, 2, 3, 4, 1).contiguous()                             # [b, t, h, w, ci]
+        wr = p.weight.to(x.dtype).permute(2, 3, 4, 1, 0).reshape(27 * ci, co).contiguous()
+        err = lib.deepv_conv3d_igemm(
+            xcl.data_ptr(), wr.data_ptr(), bv.data_ptr(), out.data_ptr(),
+            b, ci, co, t_in, t_out, h, w, time_pad, _DTYPE_CODE[x.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"igemm conv kernel launch failed: cudaError {err}")
-    global launches
-    launches += 1
+        raise RuntimeError(f"igemm conv kernel launch failed: error {err}")
+    if plan is not None:
+        launches += 1
+    elif x.dtype == torch.float32:
+        f32_launches += 1
+    else:
+        gather_launches += 1
     return out

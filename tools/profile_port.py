@@ -4,17 +4,22 @@
     python3 tools/profile_port.py
 
 Builds the full-width pipeline (``MMDiTConfig()``, ``VAEConfig()``, bf16,
-random weights) and, at 384x512, measures the three pieces the rollout's
+random weights) and, at 384x512, measures the pieces the rollout's
 phases are made of:
 
   * ``denoise_b2``: one chunk-1 denoise unit (2 CFG rows, 3 stages x 5 steps);
   * ``denoise_b3``: one chunk-2 denoise unit (3 rows, history tokens);
   * ``decode``: one streamed decode window (rgb + disparity, cont mode);
   * ``decode_igemm``: the same window with ``VAEConfig(conv_impl="igemm")``,
-    the eligible convs on the implicit-GEMM kernel (K2).
+    the eligible convs on the implicit-GEMM kernel (K2);
+  * ``encode`` and ``encode_igemm``: one encoder window (17 frames, init
+    mode: the first window of a carried clip's encode at a chunk boundary)
+    with each conv backend.
 
 For each piece it prints the synchronised wall time without the profiler
-(median of 3, after one warm-up), then, from one run under
+(median of 3, after one warm-up whose own time is kept as the first call's:
+it pays cuDNN's plan building and new allocations for shapes not seen
+before), then, from one run under
 ``torch.profiler``: the device busy time (the union of kernel intervals),
 the idle share ``1 - busy / wall``, the number of kernels, the device time
 by kernel class (the attention kernel, the igemm conv kernel, GEMMs, cuDNN
@@ -119,8 +124,10 @@ def measure(name: str, fn, extra=None):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
+    first = time.perf_counter() - t0
     walls = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -141,7 +148,7 @@ def measure(name: str, fn, extra=None):
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + us)
     busy = busy_us((e.time_range.start, e.time_range.end) for e in kernels) / 1e6
-    row = dict(piece=name, wall_s=wall, walls_s=walls, kernels=len(kernels),
+    row = dict(piece=name, wall_s=wall, walls_s=walls, first_wall_s=first, kernels=len(kernels),
                device_busy_s=busy if kernels else None,
                idle_share=(1.0 - busy / wall) if kernels else None,
                device_s_by_class={k: v / 1e6 for k, v in sorted(by_class.items())})
@@ -166,6 +173,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     from deepv_tpu_torch.config import create_model_config
+    from deepv_tpu_torch.models.vae import _enc_window
     from deepv_tpu_torch.run import load_pipeline
 
     device = torch.device("cuda", 0)
@@ -200,10 +208,18 @@ def main() -> int:
             pipe._stream_push(z[:, :, 1:], cache_rgb, False)
             pipe._stream_push(z[:, :, 1:], cache_disp, False)
 
+        clip = torch.randn((1, 3, pipe.encode_window + 1, HEIGHT, WIDTH), device=device,
+                           dtype=pipe.dtype)
+
+        def encode():
+            _enc_window(pipe.vcfg, pipe.vae.encoder, clip, None, "init")
+
         rows_out.append(measure("decode", decode))
+        rows_out.append(measure("encode", encode))
 
         pipe.vcfg = dataclasses.replace(pipe.vcfg, conv_impl="igemm")
         rows_out.append(measure("decode_igemm", decode))
+        rows_out.append(measure("encode_igemm", encode))
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout
