@@ -8,13 +8,18 @@ Phases, in order; any failure exits non-zero before the last line:
   2. build: compiles every kernel of the main path from deepv_tpu_torch/csrc
      with nvcc for sm_90a, one nvcc per source, all started together, and
      prints the build times and ptxas reports;
-  3. attention kernel (K1) against its plain PyTorch version on the card, at
-     the rollout's packed layouts of pyramid stages 0, 1 and 2 with 2 CFG
-     rows (chunk 1) and 3 rows plus history (chunk 2); f32 at atol 2e-5 /
-     rtol 1e-4, bf16 at atol 3e-2 / rtol 3e-2 and within 2e-3 plus 2^-8 of
-     the value of an f32 evaluation of the same inputs. Times the kernel, the
+  3. attention kernel (K1) against its plain PyTorch version on the card:
+     first a one-hot P check (each token its own valid group, so the bf16
+     output must equal V exactly), then the rollout's packed layouts of
+     pyramid stages 0, 1 and 2 with 2 CFG rows (chunk 1) and 3 rows plus
+     history (chunk 2), then edge layouts that reach every branch of the
+     kernel's mask schedule (S < 64, mask-free, per-token valid, time-skipped
+     tiles mid-sequence); f32 at atol 2e-5 / rtol 1e-4, bf16 at atol 3e-2 /
+     rtol 3e-2 and within 2e-3 plus 2^-8 of the value of an f32 evaluation
+     of the same inputs. At the rollout's layouts it times the kernel, the
      plain version and SDPA with the same boolean mask (a yardstick the port
-     never calls), beside the least time the card needs;
+     never calls), beside the least time the card needs, counts the tile
+     classes, and sums K1, SDPA and the bound over the rollout's launches;
   4. igemm conv kernel (K2) against its plain PyTorch version at every
      eligible 3x3x3 conv shape of the full-width VAE, in the causal mode the
      rollout uses there, 1-2 output frames, at the channels-last input the
@@ -32,9 +37,11 @@ Phases, in order; any failure exits non-zero before the last line:
      on an 11-action prompt at 384x512 (2 chunks, 89 frames, 12 units:
      history CFG, boundary priming, carry re-encode). The kernels' launch
      counts are set to 0 just before and read just after: K1 launches 4,320
-     times, K2 never (the default conv is F.conv3d);
+     times (its bf16 kernel; the per-layout launches of phase 3 add up to
+     it), its f32 kernel and K2 never (the default conv is F.conv3d);
   6. forward check: one full-width denoise forward at the stage-2, 3-row
-     layout in f32 with K1 against the same forward with the plain attention;
+     layout in f32 with K1's f32 kernel against the same forward with the
+     plain attention;
   7. igemm path: the same rollout through InferencePipeline with
      VAEConfig(conv_impl="igemm") and the same weights, image, prompt and
      seed; counts set to 0 just before and read just after: K1 4,320 and K2
@@ -162,20 +169,105 @@ def rollout_layouts(device):
     return out
 
 
+def attention_edge_layouts(device, gen):
+    """(name, valid [2, S], times, what the tile classes must show) of K1's
+    edge layouts, which reach every branch of its mask schedule."""
+    import torch
+    b, out = 2, []
+    s = 37                                    # S < 64: one ragged key tile
+    out.append(("edge: S=37", torch.ones((b, s), dtype=torch.int32, device=device),
+                torch.zeros(s, device=device), "partial"))
+    s = 768                                   # mask-free: every tile full
+    out.append(("edge: mask-free S=768", torch.ones((b, s), dtype=torch.int32, device=device),
+                torch.zeros(s, device=device), "full"))
+    s = 1000                                  # per-token valid: most tiles partial
+    valid = torch.randint(0, 2, (b, s), generator=gen, device=device, dtype=torch.int32)
+    times = torch.arange(s, device=device).div(200, rounding_mode="floor").float()
+    out.append(("edge: per-token valid S=1000", valid, times, "partial"))
+    s = 1000                                  # time-skipped tiles in the middle of the keys
+    times = torch.zeros(s, device=device)
+    times[300:700] = 5.0
+    times[700:] = -1.0
+    out.append(("edge: middle skip S=1000", torch.ones((b, s), dtype=torch.int32, device=device),
+                times, "middle"))
+    return out
+
+
+def check_attention_bf16(name, q, k, v, valid, times, n_last=0):
+    """K1 in f32 and bf16 against the plain version, at the stated
+    tolerances; returns the errors."""
+    import torch
+    from deepv_tpu_torch.ops import attention as att
+
+    # f32: the kernel's arithmetic against the plain version, exactly
+    o32 = att.attention(q, k, v, valid, times, n_last=n_last)
+    r32 = att.attention_plain(q, k, v, valid, times)
+    torch.cuda.synchronize()
+    err32 = (o32 - r32).abs().max().item()
+    torch.testing.assert_close(o32, r32, atol=2e-5, rtol=1e-4)
+
+    qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+    ob = att.attention(qb, kb, vb, valid, times, n_last=n_last)
+    rb = att.attention_plain(qb, kb, vb, valid, times)
+    rf = att.attention_plain(qb.float(), kb.float(), vb.float(), valid, times)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(ob).all()), f"{name}: non-finite bf16 output"
+    torch.testing.assert_close(ob.float(), rb.float(), atol=3e-2, rtol=3e-2)
+    # bench.py's 2e-3 was set for an f32 kernel (the f32 check above meets
+    # it with room). A bf16 result also carries its own rounding: the
+    # output's (half an ulp) and the bf16 weights' (the TPU kernel rounds
+    # them too). On rows that attend few keys the outputs reach ~2, where
+    # half an ulp alone is 3.9e-3, and the plain bf16 version itself is
+    # ~7e-3 off the f32 evaluation. So the bound is 2e-3 plus 2^-8 of the
+    # value (between half and one bf16 ulp of it).
+    excess = ((ob.float() - rf).abs() - (2e-3 + rf.abs() * 2.0 ** -8)).max().item()
+    assert excess <= 0, f"{name}: bf16 kernel vs f32 reference (excess {excess})"
+    return (qb, kb, vb), dict(err_f32_kernel=err32,
+                              err_bf16_vs_plain=(ob.float() - rb.float()).abs().max().item(),
+                              err_bf16_vs_f32=(ob.float() - rf).abs().max().item(),
+                              plain_bf16_err_vs_f32=(rb.float() - rf).abs().max().item())
+
+
+def tile_counts(valid, times):
+    """K1's tile classes at its 128 x 64 tile, counted over the call."""
+    from deepv_tpu_torch.ops import attention as att
+    cls = att.tile_classes(valid, times)
+    return {name: int((cls == c).sum()) for name, c in
+            (("skip", att.SKIP), ("full", att.FULL), ("partial", att.PARTIAL))}
+
+
 def check_attention(device, results):
-    """Phase 3: the kernel against its plain version at every layout."""
+    """Phase 3: the kernel against its plain version: one-hot P first, then
+    every rollout layout (timed), then the edge layouts."""
     import torch
     import torch.nn.functional as F
-    from deepv_tpu_torch.config import MMDiTConfig
+    from deepv_tpu_torch.config import MMDiTConfig, PipelineConfig
     from deepv_tpu_torch.models.mmdit import PackedLayout, packed_mask
     from deepv_tpu_torch.ops import attention as att
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    mcfg = MMDiTConfig()
+    mcfg, pcfg = MMDiTConfig(), PipelineConfig()
     h, d = mcfg.num_attention_heads, mcfg.attention_head_dim
     gen = torch.Generator(device=device)
     gen.manual_seed(5)
+
+    # one-hot P: with every token in its own valid group each row attends
+    # only itself, so P is the identity and the bf16 output must be V's
+    # rows exactly (P.V reads V MN-major through the transpose-B bit)
+    for s in (37, 200, 2093):
+        qb, kb, vb = (torch.randn((2, s, h, d), generator=gen, device=device).to(torch.bfloat16)
+                      for _ in range(3))
+        valid = torch.arange(s, device=device, dtype=torch.int32).repeat(2, 1)
+        ob = att.attention(qb, kb, vb, valid, torch.zeros(s, device=device))
+        torch.cuda.synchronize()
+        diff = (ob.float() - vb.float()).abs().max().item()
+        log(f"attention one-hot P, S={s}: max |out - v| = {diff}")
+        assert diff == 0.0, f"one-hot P at S={s}: output differs from V by {diff}"
+
+    # launches per rollout of each layout: units of its chunk x steps x blocks
+    per_unit = pcfg.num_inference_steps * mcfg.num_layers
+    units = {2: pcfg.max_temporal_length, 3: pcfg.max_temporal_length - pcfg.num_input_unit}
     rows_out = []
     for name, b, shapes, ctx, ftimes, fvalid in rollout_layouts(device):
         layout = PackedLayout(mcfg, shapes, ctx.shape[1])
@@ -183,32 +275,7 @@ def check_attention(device, results):
         s = layout.seq_len
         n_last = layout.clip_tokens[-1]
         q, k, v = (torch.randn((b, s, h, d), generator=gen, device=device) for _ in range(3))
-
-        # f32: the kernel's arithmetic against the plain version, exactly
-        o32 = att.attention(q, k, v, valid, times, n_last=n_last)
-        r32 = att.attention_plain(q, k, v, valid, times)
-        torch.cuda.synchronize()
-        err32 = (o32 - r32).abs().max().item()
-        torch.testing.assert_close(o32, r32, atol=2e-5, rtol=1e-4)
-
-        qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
-        ob = att.attention(qb, kb, vb, valid, times, n_last=n_last)
-        rb = att.attention_plain(qb, kb, vb, valid, times)
-        rf = att.attention_plain(qb.float(), kb.float(), vb.float(), valid, times)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(ob.float(), rb.float(), atol=3e-2, rtol=3e-2)
-        err_plain = (ob.float() - rb.float()).abs().max().item()
-        err_f32 = (ob.float() - rf).abs().max().item()
-        plain_err_f32 = (rb.float() - rf).abs().max().item()
-        # bench.py's 2e-3 was set for an f32 kernel (the f32 check above meets
-        # it with room). A bf16 result also carries its own rounding: the
-        # output's (half an ulp) and the bf16 weights' (the TPU kernel rounds
-        # them too). On rows that attend few keys the outputs reach ~2, where
-        # half an ulp alone is 3.9e-3, and the plain bf16 version itself is
-        # ~7e-3 off the f32 evaluation. So the bound is 2e-3 plus 2^-8 of the
-        # value (between half and one bf16 ulp of it).
-        excess = ((ob.float() - rf).abs() - (2e-3 + rf.abs() * 2.0 ** -8)).max().item()
-        assert excess <= 0, f"{name}: bf16 kernel vs f32 reference {err_f32} (excess {excess})"
+        (qb, kb, vb), errs = check_attention_bf16(name, q, k, v, valid, times, n_last)
 
         # the least time for this work: the allowed pairs of these inputs
         allowed = ((valid[:, :, None] == valid[:, None, :])
@@ -228,16 +295,40 @@ def check_attention(device, results):
         del allowed, mask
         row = dict(layout=name, b=b, S=s, heads=h, head_dim=d, n_last=n_last,
                    allowed_pairs=pairs, split_pairs=split_pairs, flops=flops, bytes=nbytes,
-                   err_f32_kernel=err32, err_bf16_vs_plain=err_plain,
-                   err_bf16_vs_f32=err_f32, plain_bf16_err_vs_f32=plain_err_f32,
-                   ms=ms, plain_ms=plain_ms,
+                   **errs, ms=ms, plain_ms=plain_ms,
                    library_ms=library_ms, bound_ms=1e3 * max(t_ops, t_bytes),
                    bound_by="operations" if t_ops >= t_bytes else "bytes",
-                   tflops=flops / (ms * 1e-3) / 1e12)
+                   tflops=flops / (ms * 1e-3) / 1e12, tiles=tile_counts(valid, times),
+                   launches_per_rollout=units[b] * per_unit)
         rows_out.append(row)
         log("attention", json.dumps(row))
+
+    for name, valid, times, expect in attention_edge_layouts(device, gen):
+        b, s = valid.shape
+        q, k, v = (torch.randn((b, s, h, d), generator=gen, device=device) for _ in range(3))
+        _, errs = check_attention_bf16(name, q, k, v, valid, times)
+        tiles = tile_counts(valid, times)
+        cls = att.tile_classes(valid, times)
+        if expect == "full":
+            assert tiles["full"] == cls.numel(), (name, tiles)
+        elif expect == "partial":
+            assert tiles["partial"] > cls.numel() // 2, (name, tiles)
+        elif expect == "middle":    # rows at time 0 skip the time-5 keys, then attend again
+            first = cls[0, 0].tolist()
+            skipped = [i for i, c in enumerate(first) if c == att.SKIP]
+            assert skipped and min(skipped) > 0 and max(skipped) < len(first) - 1, first
+        row = dict(layout=name, b=b, S=s, tiles=tiles, **errs)
+        rows_out.append(row)
+        log("attention", json.dumps(row))
+
+    rollout = [r for r in rows_out if "ms" in r]
+    sums = {key: sum(r["launches_per_rollout"] * r[key] for r in rollout) / 1e3
+            for key in ("ms", "library_ms", "bound_ms", "plain_ms")}
+    results["attention_rollout_sums_s"] = sums
+    log(f"K1 over the rollout ({sum(r['launches_per_rollout'] for r in rollout)} launches): "
+        f"K1 {sums['ms']:.4f} s, SDPA {sums['library_ms']:.4f} s, bound {sums['bound_ms']:.4f} s")
     results["attention_layouts"] = rows_out
-    return rows_out
+    return rollout
 
 
 def rollout_batch():
@@ -264,7 +355,7 @@ def drive_rollout(pipe, setup_s: float):
 
     pipe.timer.sync = True
     torch.cuda.reset_peak_memory_stats()
-    att.launches = 0
+    att.launches = att.f32_launches = 0
     for name in K2_COUNTERS:
         setattr(cig, name, 0)
     t0 = time.perf_counter()
@@ -272,6 +363,7 @@ def drive_rollout(pipe, setup_s: float):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = att.launches
+    assert att.f32_launches == 0, "the bf16 rollout launched the f32 attention kernel"
     conv_launches = {name: getattr(cig, name) for name in K2_COUNTERS}
     assert conv_launches["f32_launches"] == 0, "the bf16 rollout launched the f32 kernel"
 
@@ -351,7 +443,9 @@ def check_forward(pipe, device, results):
     kw = dict(history=hist, history_mask=hmask, frame_times=list(ftimes),
               frame_valid=list(fvalid), split_last_attn=True)
     with torch.inference_mode():
+        before = att.f32_launches
         v_kernel = mm.mmdit_forward(model, *args, **kw)
+        assert att.f32_launches - before == mcfg.num_layers, "f32 forward missed the f32 kernel"
         orig = mm.attention
         mm.attention = lambda q, k, v, valid, times, n_last=0: att.attention_plain(
             q, k, v, valid, times)
@@ -671,14 +765,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    assert launches == sum(r["launches_per_rollout"] for r in rows), (
+        "K1's launches per layout do not add up to the rollout's")
     head = next(r for r in rows if r["layout"] == "stage2_b2")
     kernels = [{
-        "name": "packed_masked_attention",
+        "name": "attn_fwd_wgmma",
         "route": "cuda",
         "source": "deepv_tpu_torch/csrc/attention.cu",
         "replaces": "deepv_tpu/ops/attention.py:73",
         "launches": launches,
-        "max_abs_err": max(r["err_bf16_vs_plain"] for r in rows),
+        "max_abs_err": max(r["err_bf16_vs_plain"] for r in results["attention_layouts"]),
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"],

@@ -3,9 +3,9 @@
 Each kernel is compiled by ``nvcc`` for ``sm_90a`` into a ``.so`` with a
 plain C interface and loaded with ``ctypes``; nothing includes PyTorch's
 headers, so a build takes seconds. Libraries go to ``deepv_tpu_torch/_build``
-(git-ignored), named by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one is reused. Builds happen at first use,
-never at import.
+(git-ignored), named by a hash of the source, every header of ``csrc/``
+and the flags, so an edited source or header rebuilds and an unchanged one
+is reused. Builds happen at first use, never at import.
 """
 
 from __future__ import annotations
@@ -49,11 +49,21 @@ def find_nvcc() -> Optional[str]:
     return str(cand) if cand.is_file() else None
 
 
+def source_digest(src: Path, flags: Sequence[str] = NVCC_FLAGS) -> str:
+    """Hash of what a build of ``src`` depends on: its bytes, the bytes of
+    every header (``*.cuh``, ``*.h``) in its directory, and the flags."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(p for p in src.parent.iterdir() if p.suffix in (".cuh", ".h")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(flags).encode())
+    return h.hexdigest()[:16]
+
+
 def build(source: str, flags: Sequence[str] = NVCC_FLAGS) -> Built:
     """Compile ``csrc/<source>`` (or reuse the cached build) and load it.
     Raises RuntimeError when no ``nvcc`` is found or the build fails."""
     src = CSRC_DIR / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    digest = source_digest(src, flags)
     out = BUILD_DIR / f"{src.stem}-{digest}.so"
     if out.is_file():
         return Built(ctypes.CDLL(str(out)), out, 0.0, "")

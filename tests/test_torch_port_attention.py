@@ -135,9 +135,12 @@ def test_cuda_tensor_without_nvcc_raises(monkeypatch):
         attention(*_as_cuda([q, k, v, valid, times]))
 
 
-@pytest.mark.parametrize("bad", ["dtype", "head_dim", "valid_dtype", "contiguous"])
+@pytest.mark.parametrize("bad", ["dtype", "head_dim", "valid_dtype", "contiguous", "too_long",
+                                 "misaligned"])
 def test_kernel_path_rejects_what_the_kernel_does_not_take(bad):
-    q, k, v, valid, times = make(d=64 if bad != "head_dim" else 16)
+    s = port_attention.MAX_SEQ + 1 if bad == "too_long" else 70
+    q, k, v, valid, times = make(s=s, h=1 if bad == "too_long" else 3,
+                                 d=64 if bad != "head_dim" else 16)
     if bad == "dtype":
         q, k, v = (a.astype(np.float64) for a in (q, k, v))
     if bad == "valid_dtype":
@@ -145,5 +148,8 @@ def test_kernel_path_rejects_what_the_kernel_does_not_take(bad):
     qt, kt, vt, vat, tt = _as_cuda([q, k, v, valid, times])
     if bad == "contiguous":
         qt = qt.transpose(1, 2).contiguous().transpose(1, 2)
+    if bad == "misaligned":       # a contiguous view 4 bytes into its storage: TMA needs 16
+        flat = torch.from_numpy(np.concatenate([[0.0], q.ravel()]).astype(np.float32))
+        qt = flat[1:].reshape(q.shape).as_subclass(_CudaTensor)
     with pytest.raises((TypeError, ValueError)):
         attention(qt, kt, vt, vat, tt)

@@ -22,8 +22,9 @@ it pays cuDNN's plan building and new allocations for shapes not seen
 before), then, from one run under
 ``torch.profiler``: the device busy time (the union of kernel intervals),
 the idle share ``1 - busy / wall``, the number of kernels, the device time
-by kernel class (the attention kernel, the igemm conv kernel, GEMMs, cuDNN
-convolutions, the rest) and,
+and launches by kernel class (the attention kernel K1, the igemm conv
+kernel, GEMMs, cuDNN convolutions, the rest; a line per denoise unit gives
+K1's seconds and launches beside the device-busy seconds) and,
 for the denoise units, the rate the GEMMs reach on the linear layers'
 operations counted from the shapes. Details go to
 ``chiprun_out/profile_port.json``. Needs a CUDA card; exits non-zero without.
@@ -140,18 +141,20 @@ def measure(name: str, fn, extra=None):
         fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    by_class, by_name = {}, {}
+    by_class, count_by_class, by_name = {}, {}, {}
     for e in kernels:
         us = e.time_range.elapsed_us()
         c = classify(e.name)
         by_class[c] = by_class.get(c, 0.0) + us
+        count_by_class[c] = count_by_class.get(c, 0) + 1
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + us)
     busy = busy_us((e.time_range.start, e.time_range.end) for e in kernels) / 1e6
     row = dict(piece=name, wall_s=wall, walls_s=walls, first_wall_s=first, kernels=len(kernels),
                device_busy_s=busy if kernels else None,
                idle_share=(1.0 - busy / wall) if kernels else None,
-               device_s_by_class={k: v / 1e6 for k, v in sorted(by_class.items())})
+               device_s_by_class={k: v / 1e6 for k, v in sorted(by_class.items())},
+               kernels_by_class=dict(sorted(count_by_class.items())))
     if extra:
         row.update(extra(row))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:25]
@@ -196,7 +199,13 @@ def main() -> int:
                 return dict(linear_flops=flops,
                             gemm_tflops=flops / gemm / 1e12 if gemm else None)
 
-            rows_out.append(measure(f"denoise_b{rows}", unit, rates))
+            row = measure(f"denoise_b{rows}", unit, rates)
+            rows_out.append(row)
+            print(f"denoise unit, {rows} rows: K1 "
+                  f"{row['device_s_by_class'].get('attention_kernel', 0.0):.4f} s in "
+                  f"{row['kernels_by_class'].get('attention_kernel', 0)} launches; device busy "
+                  f"{row['device_busy_s']:.4f} s of {row['wall_s']:.4f} s wall "
+                  f"(idle {100 * row['idle_share']:.1f}%)", flush=True)
 
         ds = pipe.cfg.vae_downsample
         z = torch.randn((1, 16, 2, HEIGHT // ds, WIDTH // ds), device=device,
