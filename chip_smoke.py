@@ -50,7 +50,28 @@ Phases, in order; any failure exits non-zero before the last line:
   8. decode check: one latent stream decoded at full width through an init
      window, a cont window and a primed cont window, with "igemm" and with
      "xla": f32 (TF32 off) within 1e-4 relative L2, bf16 within twice the
-     relative L2 between the bf16 and f32 "xla" decodes of the same latents.
+     relative L2 between the bf16 and f32 "xla" decodes of the same latents;
+  9. int8 conv kernel (K3) against its plain version at every int8-eligible
+     conv class of the fast rollout (the 384x512 level: 3->128, 128->128,
+     256->128, 256->512, 128->3), in each causal mode the rollout runs it
+     in, and at an edge case (batch 2, w = 80): the int32 accumulators exactly equal
+     (the sum is exact), the bf16 output within one bf16 ulp of the plain
+     version's. Times the wrapper, its quantise and channels-last work alone,
+     the plain version and F.conv3d in bf16 (cuDNN, a yardstick: torch has no
+     int8 3D conv), beside the least time at the int8 peak;
+ 10. int8 linear: torch._int_mm at the stage-2 shapes exact against an f64
+     product, and the W8A8 call, its quantise, product and dequant parts
+     timed beside bf16 F.linear;
+ 11. fast path: run.load_pipeline(fast=True) (flow caching "skip_odd", the
+     int8 block linears, VAEConfig(conv_impl="int8")) on phase 5's image,
+     prompt, seed and weights; counts set to 0 just before and read just
+     after: K1 2,592 (108 forwards x 24 blocks), K2 0, K3 once per dispatch
+     to the int8 conv (a spy counts them), _int_mm once per quantised linear
+     of every forward; 89 finite frames, and the gap to phase 5's frames in
+     8-bit units (printed, not gated: random weights amplify deviations);
+ 12. adaptive + boundary path: InferencePipeline(flow_cache="adaptive:0.5",
+     reuse_decoder_cache=True, carry_latents=True), same inputs; K1 24 x the
+     forwards the pipeline records as run, no priming, 89 finite frames.
 The line before the last is a JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}. Extra detail goes to chiprun_out/.
 """
@@ -72,7 +93,7 @@ HEIGHT, WIDTH = 384, 512
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
-SOURCES = ("attention.cu", "conv_igemm.cu")
+SOURCES = ("attention.cu", "conv_igemm.cu", "conv_int8.cu")
 
 #: every eligible 3x3x3 conv class of the full-width rollout (VAEConfig() at
 #: 384x512): (layer, causal mode the rollout runs it in, ci, co, h, w,
@@ -113,6 +134,44 @@ CONV_EDGE_CASES = (
 )
 #: K2's launch counters: the wgmma kernel, the gather kernel, the f32 kernel
 K2_COUNTERS = ("launches", "gather_launches", "f32_launches")
+#: denoise forwards of the exact rollout: 12 units x 3 stages x 5 steps
+FORWARDS = 180
+#: every int8-eligible conv class of the full-width fast rollout
+#: (VAEConfig(conv_impl="int8") at 384x512; MIN_H = 256 leaves the top
+#: spatial level only): (layer, causal mode the rollout runs it in, ci, co,
+#: h, w, output frames of the check). The encoder runs full (the first image,
+#: the history frames) and init/cont (a carried clip's 17- and 8-frame
+#: windows); the decoder init (the first window), cont (the streamed
+#: windows) and prime (the boundary's cache rebuild, which skips conv_out
+#: and everything before the last up block). Up block 2's temporal
+#: up-sampler runs at 384x512 after its spatial one, so it is eligible too.
+K3_CASES = (
+    ("decoder up block 3 resnets", "cont", 128, 128, 384, 512, 2),
+    ("decoder up block 3 resnets", "prime", 128, 128, 384, 512, 2),
+    ("decoder up block 2 temporal up-sampler", "cont", 256, 512, 384, 512, 1),
+    ("decoder up block 2 temporal up-sampler", "init", 256, 512, 384, 512, 1),
+    ("decoder up block 3 resnets", "init", 128, 128, 384, 512, 1),
+    ("decoder up block 3 resnet 0 conv1", "cont", 256, 128, 384, 512, 2),
+    ("decoder up block 3 resnet 0 conv1", "prime", 256, 128, 384, 512, 2),
+    ("decoder up block 3 resnet 0 conv1", "init", 256, 128, 384, 512, 1),
+    ("decoder conv_out", "cont", 128, 3, 384, 512, 2),
+    ("decoder conv_out", "init", 128, 3, 384, 512, 1),
+    ("encoder conv_in", "init", 3, 128, 384, 512, 2),
+    ("encoder conv_in", "cont", 3, 128, 384, 512, 2),
+    ("encoder conv_in", "full", 3, 128, 384, 512, 1),
+    ("encoder down block 0 resnets", "init", 128, 128, 384, 512, 2),
+    ("encoder down block 0 resnets", "cont", 128, 128, 384, 512, 2),
+    ("encoder down block 0 resnets", "full", 128, 128, 384, 512, 1),
+)
+#: K3 beyond K3_CASES: (name, mode, ci, co, h, w, output frames, batch)
+K3_EDGE_CASES = (("edge: batch 2, w not a multiple of 64", "full", 128, 128, 256, 80, 2, 2),)
+#: dense int8 peak of one H100 SXM (NVIDIA data sheet) at its 700 W limit
+PEAK_INT8_OPS = 1979e12
+#: the int8 linears of one stage-2 forward, 2 CFG rows (S = 2093, 77 text
+#: tokens): (name, rows, in, out)
+LINEAR_CASES = (("D->D (q, k, v, out)", 2 * 2016, 1536, 1536),
+                ("D->4D (ff proj)", 2 * 2016, 1536, 6144),
+                ("4D->D (ff out)", 2 * 2016, 6144, 1536))
 
 
 def log(*args):
@@ -347,17 +406,23 @@ def rollout_batch():
 
 def drive_rollout(pipe, setup_s: float):
     """generate() with every kernel count set to 0 just before and read just
-    after; checks the outputs and K1's count. Returns (summary, pred_img,
-    K2 launches)."""
+    after; checks the outputs and K1's count: one launch per block of every
+    forward the pipeline records as run (all of them without flow caching).
+    Returns (summary, pred_img, K2 launches)."""
     import torch
     from deepv_tpu_torch.ops import attention as att
     from deepv_tpu_torch.ops import conv_igemm as cig
+    from deepv_tpu_torch.ops import conv_int8 as ci8
+    from deepv_tpu_torch.ops import linear_int8 as li8
 
     pipe.timer.sync = True
+    pipe.recompute_log = []
+    resident = torch.cuda.memory_allocated() / 2 ** 30      # weights and buffers
     torch.cuda.reset_peak_memory_stats()
     att.launches = att.f32_launches = 0
     for name in K2_COUNTERS:
         setattr(cig, name, 0)
+    ci8.launches = li8.calls = 0
     t0 = time.perf_counter()
     out = pipe.generate(rollout_batch(), seed=666)
     torch.cuda.synchronize()
@@ -366,10 +431,13 @@ def drive_rollout(pipe, setup_s: float):
     assert att.f32_launches == 0, "the bf16 rollout launched the f32 attention kernel"
     conv_launches = {name: getattr(cig, name) for name in K2_COUNTERS}
     assert conv_launches["f32_launches"] == 0, "the bf16 rollout launched the f32 kernel"
+    int8_counts = dict(conv_int8_launches=ci8.launches, int_mm_calls=li8.calls)
 
     mcfg, pcfg = pipe.mcfg, pipe.cfg
     n_units = pcfg.max_temporal_length + (pcfg.max_temporal_length - pcfg.num_input_unit)
-    expected = (n_units * len(pcfg.stages) * pcfg.num_inference_steps * mcfg.num_layers)
+    assert len(pipe.recompute_log) == n_units * len(pcfg.stages), len(pipe.recompute_log)
+    forwards = sum(map(sum, pipe.recompute_log))
+    expected = forwards * mcfg.num_layers
     img_out, disp = out["pred_img"], out["pred_disparity"]
     n_frames = img_out.shape[2]
     assert tuple(img_out.shape) == (1, 3, 89, HEIGHT, WIDTH), tuple(img_out.shape)
@@ -384,10 +452,12 @@ def drive_rollout(pipe, setup_s: float):
     assert launches == expected, f"attention kernel launched {launches} times, expected {expected}"
     stats = pipe.timer.stats()
     summary = dict(wall_s=wall, frames=n_frames, fps=n_frames / wall, setup_s=setup_s,
-                   attention_launches=launches, expected_attention_launches=expected,
-                   conv_igemm_launches=conv_launches, history_index=out["history_index"],
+                   forwards=forwards, attention_launches=launches,
+                   expected_attention_launches=expected, conv_igemm_launches=conv_launches,
+                   **int8_counts, history_index=out["history_index"],
                    phases_s={k: v["total_s"] for k, v in stats.items()},
                    phase_counts={k: v["count"] for k, v in stats.items()},
+                   resident_gib=resident,
                    max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                    pixel_mean=float(img_out.float().mean()),
                    pixel_std=float(img_out.float().std()))
@@ -411,6 +481,8 @@ def run_main_path(device, results):
         f"{setup_s:.1f} s")
     main, frames, conv_launches = drive_rollout(pipe, setup_s)
     assert not any(conv_launches.values()), f"the default (xla) path launched K2: {conv_launches}"
+    assert main["forwards"] == FORWARDS, f"the exact rollout ran {main['forwards']} forwards"
+    assert main["conv_int8_launches"] == main["int_mm_calls"] == 0, main
     log("main path:", json.dumps(main))
     results["main_path"] = main
     return pipe, main["attention_launches"], frames
@@ -646,6 +718,7 @@ def run_igemm_path(device, results, ref_frames):
         summary, frames, conv_launches = drive_rollout(pipe, setup_s)
     finally:
         causal_conv.conv3d_igemm = orig
+    assert summary["forwards"] == FORWARDS, summary["forwards"]
     stats = pipe.timer.stats()
     expected = expected_conv_launches(pipe, stats, len(summary["history_index"]))
     k2 = conv_launches["launches"] + conv_launches["gather_launches"]
@@ -711,6 +784,231 @@ def check_decode(pipe, device, results):
     del dec_f32, out
 
 
+def taps_needed(mode: str, n: int) -> int:
+    """Taps of n output frames that read real input: in full mode the first
+    two frames' taps in the causal past read only the zero frames, which K2
+    and K3 skip."""
+    tp = 2 if mode == "full" else 0
+    return sum(9 * (3 - max(0, tp - to)) for to in range(n))
+
+
+def check_conv_int8(device, results):
+    """Phase 9: K3 against its plain version at every int8-eligible conv
+    class of the fast rollout and at the edge case: int32 accumulators
+    exactly equal, bf16 output within one bf16 ulp."""
+    import torch
+    import torch.nn.functional as F
+    from deepv_tpu_torch.ops import conv_int8 as ci8
+
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=device)
+    gen.manual_seed(21)
+    rows_out = []
+    cases = [c + (1,) for c in K3_CASES] + list(K3_EDGE_CASES)
+    for layer, mode, ci, co, h, w, n, b in cases:
+        x32, p32, tp = conv_case_inputs(mode, ci, co, h, w, n, gen, device, b)
+        x = x32.to(torch.bfloat16)
+        del x32
+        conv = torch.nn.Conv3d(ci, co, 3, device=device, dtype=torch.bfloat16)
+        conv.requires_grad_(False)
+        conv.weight.copy_(p32.weight)
+        conv.bias.copy_(p32.bias)
+        ci8.quantize_conv_weights(conv)
+        before = ci8.launches
+        acc = ci8.conv3d_int8_accumulators(x, conv, tp)
+        y = ci8.conv3d_int8(x, conv, tp)
+        assert ci8.launches - before == 2, "K3 did not launch once per call"
+        x8, _ = ci8.quantize_input(x)
+        ref_acc = ci8.accumulate_plain(x8, conv.weight_int8, tp)
+        del x8
+        r = ci8.conv3d_int8_plain(x, conv, tp)
+        torch.cuda.synchronize()
+        assert tuple(y.shape) == (b, co, n, h, w), tuple(y.shape)
+        n_bad = int((acc != ref_acc).sum())
+        assert n_bad == 0, f"{layer} {mode}: {n_bad} int32 accumulators differ"
+        del acc, ref_acc
+        err = (y.float() - r.float()).abs()
+        excess = float((err - bf16_ulp(torch.maximum(y.float().abs(), r.float().abs()))).max())
+        assert excess <= 0, f"{layer} {mode}: K3 vs plain beyond one bf16 ulp"
+        xl = F.pad(x, (0, 0, 0, 0, tp, 0)) if tp else x
+        lib_err = float((F.conv3d(xl, conv.weight, conv.bias, padding=(0, 1, 1)).float()
+                         - r.float()).abs().max())
+        ms = cuda_time_ms(lambda: ci8.conv3d_int8(x, conv, tp), 5, 1)
+        layout_ms = cuda_time_ms(lambda: ci8.quantize_input_k3(x), 5, 1)
+        plain_ms = cuda_time_ms(lambda: ci8.conv3d_int8_plain(x, conv, tp), 1, 0)
+        library_ms = cuda_time_ms(
+            lambda: F.conv3d(xl, conv.weight, conv.bias, padding=(0, 1, 1)), 5, 1)
+        ops = 2 * taps_needed(mode, n) * ci * co * b * h * w
+        nbytes = x.numel() * 2 + conv.weight_int8.numel() + 8 * co + y.numel() * 2
+        t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES
+        row = dict(layer=layer, mode=mode, ci=ci, co=co, h=h, w=w, frames=n, batch=b,
+                   edge=layer.startswith("edge"), time_pad=tp, acc_mismatches=n_bad,
+                   max_abs_err=float(err.max()), ulp_excess=excess,
+                   cudnn_bf16_vs_plain_max_abs=lib_err, ms=ms, layout_ms=layout_ms,
+                   kernel_ms=ms - layout_ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=1e3 * max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   ops=ops, bytes=nbytes, tops=ops / (ms * 1e-3) / 1e12)
+        rows_out.append(row)
+        log("conv_int8", json.dumps(row))
+        del y, r, x, xl, conv
+        torch.cuda.empty_cache()
+    results["conv_int8_shapes"] = rows_out
+    return rows_out
+
+
+def check_linear_int8(device, results):
+    """Phase 10: the W8A8 linear at the stage-2 shapes: the int32 product
+    exact, and the times of the whole call, its quantise, ``_int_mm`` and
+    dequant parts, beside bf16 ``F.linear`` (a yardstick)."""
+    import torch
+    import torch.nn.functional as F
+    from deepv_tpu_torch.ops import linear_int8 as li8
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=device)
+    gen.manual_seed(23)
+    rows_out = []
+    for name, m, k, n in LINEAR_CASES:
+        x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+        bound = (6.0 / (k + n)) ** 0.5                     # the rollout's xavier init
+        wf = (torch.rand((n, k), generator=gen, device=device) * 2 - 1) * bound
+        lin = torch.nn.Linear(k, n, device=device, dtype=torch.bfloat16).requires_grad_(False)
+        lin.weight.copy_(wf)
+        lin.bias.zero_()
+        p = torch.nn.Module()
+        p.weight_int8, p.weight_scale = li8.quantize_linear(lin.weight)
+        p.bias = lin.bias
+        x8, sx = li8.quantize_tokens(x)
+        acc = li8.int_mm(x8, p.weight_int8.t())
+        exact = torch.matmul(x8.double(), p.weight_int8.double().t())
+        assert torch.equal(acc.double(), exact), f"{name}: _int_mm is not exact"
+        y = li8.linear_int8(x, p)
+        ref = F.linear(x.float(), lin.weight.float())
+        rel = float((y.float() - ref).norm() / ref.norm())
+        assert rel < 0.05, f"{name}: int8 linear {rel} relative L2 off the f32 product"
+        row = dict(name=name, rows=m, k=k, n=n, rel_l2_vs_f32=rel,
+                   ms=cuda_time_ms(lambda: li8.linear_int8(x, p), 20),
+                   quantise_ms=cuda_time_ms(lambda: li8.quantize_tokens(x), 20),
+                   int_mm_ms=cuda_time_ms(lambda: torch._int_mm(x8, p.weight_int8.t()), 20),
+                   dequant_ms=cuda_time_ms(lambda: (acc.float() * sx * p.weight_scale
+                                                    + p.bias.float()).to(x.dtype), 20),
+                   bf16_linear_ms=cuda_time_ms(lambda: F.linear(x, lin.weight, lin.bias), 20))
+        ops = 2 * m * k * n
+        row.update(int_mm_tops=ops / (row["int_mm_ms"] * 1e-3) / 1e12,
+                   bf16_tflops=ops / (row["bf16_linear_ms"] * 1e-3) / 1e12,
+                   int8_bound_ms=1e3 * ops / PEAK_INT8_OPS)
+        rows_out.append(row)
+        log("linear_int8", json.dumps(row))
+    results["linear_int8_shapes"] = rows_out
+
+
+def eight_bit_gap(frames, ref):
+    """Mean and 95th percentile of |frames - ref| in 8-bit pixel units."""
+    import torch
+    to8 = lambda f: (f.float() * 0.5 + 0.5).clamp(0, 1) * 255
+    d = (to8(frames) - to8(ref)).abs().flatten()
+    return float(d.mean()), float(torch.sort(d).values[int(0.95 * (d.numel() - 1))])
+
+
+def run_fast_path(device, results, ref_frames):
+    """Phase 11: the --fast preset through run.load_pipeline: flow caching
+    "skip_odd", the W8A8 block linears and VAEConfig(conv_impl="int8"), on
+    phase 5's image, prompt, seed and weights. Counts set to 0 just before and
+    read just after: K1 once per block of the 108 forwards skip_odd runs,
+    K2 never, K3 once per dispatch to the int8 conv, ``_int_mm`` once per
+    quantised linear of every forward."""
+    import torch
+    from deepv_tpu_torch.config import create_model_config
+    from deepv_tpu_torch.models.mmdit import Int8Linear
+    from deepv_tpu_torch.ops import causal_conv
+    from deepv_tpu_torch.run import load_pipeline
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = create_model_config("none", use_motion_prompt=True)
+    pipe = load_pipeline("none", cfg, random_weights=True, dtype=torch.bfloat16,
+                         device=device, seed=0, fast=True)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    quantised = sum(isinstance(m, Int8Linear) for m in pipe.mmdit.modules())
+    frames_by_class, calls = {}, [0]
+    orig = causal_conv.conv3d_int8
+
+    def spy(x, p, time_pad=2):
+        key = (x.shape[1], p.weight.shape[0], x.shape[3], x.shape[4])
+        frames = x.shape[0] * (x.shape[2] + time_pad - 2)
+        frames_by_class[key] = frames_by_class.get(key, 0) + frames
+        calls[0] += 1
+        return orig(x, p, time_pad)
+
+    causal_conv.conv3d_int8 = spy
+    try:
+        summary, frames, conv_launches = drive_rollout(pipe, setup_s)
+    finally:
+        causal_conv.conv3d_int8 = orig
+    mcfg = pipe.mcfg
+    assert summary["forwards"] == 108, f"skip_odd ran {summary['forwards']} forwards, not 108"
+    assert summary["attention_launches"] == 108 * mcfg.num_layers == 2592
+    assert not any(conv_launches.values()), f"the int8 path launched K2: {conv_launches}"
+    assert summary["conv_int8_launches"] == calls[0] > 0, (summary["conv_int8_launches"], calls[0])
+    assert quantised == 12 * (mcfg.num_layers - 1) + 9, quantised
+    assert summary["int_mm_calls"] == summary["forwards"] * quantised, summary["int_mm_calls"]
+    mean8, p95 = eight_bit_gap(frames, ref_frames)
+    summary.update(setup_peak_gib=setup_peak, quantised_linears=quantised,
+                   expected_conv_int8_launches=calls[0],
+                   expected_int_mm_calls=summary["forwards"] * quantised,
+                   conv_int8_frames_by_class={f"{ci}->{co} @{h}x{w}": n for (ci, co, h, w), n
+                                              in frames_by_class.items()},
+                   gap_vs_main_path_8bit_mean=mean8, gap_vs_main_path_8bit_p95=p95)
+    log("fast path:", json.dumps(summary))
+    results["fast_path"] = summary
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary, frames_by_class
+
+
+def run_adaptive_boundary_path(device, results, ref_frames):
+    """Phase 12: InferencePipeline with flow_cache="adaptive:0.5",
+    reuse_decoder_cache and carry_latents, on phase 5's image, prompt, seed
+    and weights; K1 once per block of every forward the pipeline records as
+    run."""
+    import torch
+    from deepv_tpu_torch.actions import action_vocabulary
+    from deepv_tpu_torch.config import MMDiTConfig, VAEConfig, create_model_config
+    from deepv_tpu_torch.io.text_embeds import random_text_embeds
+    from deepv_tpu_torch.io.weights import random_params
+    from deepv_tpu_torch.pipeline import InferencePipeline
+
+    t0 = time.perf_counter()
+    cfg = create_model_config("none", use_motion_prompt=True)
+    mcfg, vcfg = MMDiTConfig(), VAEConfig()
+    embeds = random_text_embeds(0, action_vocabulary(), joint_dim=mcfg.joint_attention_dim,
+                                pooled_dim=mcfg.pooled_projection_dim)
+    pipe = InferencePipeline(cfg, mcfg, vcfg,
+                             random_params(mcfg, vcfg, dtype=torch.bfloat16, seed=0,
+                                           device=device),
+                             embeds, dtype=torch.bfloat16, device=device,
+                             flow_cache="adaptive:0.5", reuse_decoder_cache=True,
+                             carry_latents=True)
+    torch.cuda.synchronize()
+    summary, frames, conv_launches = drive_rollout(pipe, time.perf_counter() - t0)
+    assert not any(conv_launches.values()), conv_launches
+    assert summary["conv_int8_launches"] == summary["int_mm_calls"] == 0, summary
+    assert "prime" not in summary["phases_s"], "cache reuse must not prime"
+    mean8, p95 = eight_bit_gap(frames, ref_frames)
+    summary.update(recompute_log=[list(r) for r in pipe.recompute_log],
+                   gap_vs_main_path_8bit_mean=mean8, gap_vs_main_path_8bit_p95=p95)
+    log("adaptive + boundary path:", json.dumps(summary))
+    results["adaptive_boundary_path"] = summary
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -721,6 +1019,7 @@ def main() -> int:
     try:
         from deepv_tpu_torch.ops import attention as att
         from deepv_tpu_torch.ops import conv_igemm as cig
+        from deepv_tpu_torch.ops import conv_int8 as ci8
         from deepv_tpu_torch.utils import cuda_build
     except ImportError as e:
         print(f"chip_smoke: deepv_tpu_torch is not beside this script ({e})", file=sys.stderr)
@@ -742,6 +1041,7 @@ def main() -> int:
         builds = dict(zip(SOURCES, pool.map(cuda_build.build, SOURCES)))
     att.load_library()
     cig.load_library()
+    ci8.load_library()
     build_s = time.perf_counter() - t0
     for src, built in builds.items():
         log(f"build: {src} -> {os.path.relpath(built.path, HERE)} (nvcc {built.seconds:.1f} s)")
@@ -759,11 +1059,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     pipe, conv_launches, frames_by_class = run_igemm_path(device, results, ref_frames)
-    del ref_frames
     check_decode(pipe, device, results)
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
+    k3_rows = check_conv_int8(device, results)
+    check_linear_int8(device, results)
+    fast, k3_frames_by_class = run_fast_path(device, results, ref_frames)
+    run_adaptive_boundary_path(device, results, ref_frames)
+    del ref_frames
 
     assert launches == sum(r["launches_per_rollout"] for r in rows), (
         "K1's launches per layout do not add up to the rollout's")
@@ -837,6 +1141,52 @@ def main() -> int:
                       f"frames, {row['mode']} mode, bf16"
                       + (", x channels-last" if row is on_path else "")),
         })
+    # K3, the bound and cuDNN's bf16 conv summed over the fast rollout's int8
+    # convs by class, as for K2
+    k3_per_frame = {}
+    for r in k3_rows:
+        if not r["edge"]:
+            k3_per_frame.setdefault((r["ci"], r["co"], r["h"], r["w"]), r)
+    missing = set(k3_frames_by_class) - set(k3_per_frame)
+    assert not missing, f"fast-rollout int8 conv classes without a K3 check: {sorted(missing)}"
+    k3_by_class = {}
+    for k, n in k3_frames_by_class.items():
+        r = k3_per_frame[k]
+        per = n / (r["frames"] * r["batch"])
+        k3_by_class[k] = dict(
+            frames=n, case=f"{r['mode']}, {r['frames']} frames", k3_s=per * r["ms"] / 1e3,
+            layout_s=per * r["layout_ms"] / 1e3, cudnn_bf16_s=per * r["library_ms"] / 1e3,
+            bound_s=per * r["bound_ms"] / 1e3)
+    k3_sums = {key: sum(v[key] for v in k3_by_class.values())
+               for key in ("k3_s", "layout_s", "cudnn_bf16_s", "bound_s")}
+    k3_names = {k: f"{k[0]}->{k[1]} @{k[2]}x{k[3]}" for k in k3_by_class}
+    results["conv_int8_rollout_by_class"] = {k3_names[k]: v for k, v in k3_by_class.items()}
+    results["conv_int8_rollout_sums"] = k3_sums
+    log(f"K3 over the fast rollout ({fast['conv_int8_launches']} launches, "
+        f"{sum(k3_frames_by_class.values())} output frames): K3 {k3_sums['k3_s']:.3f} s "
+        f"(of it quantise and layout {k3_sums['layout_s']:.3f} s), cuDNN bf16 "
+        f"{k3_sums['cudnn_bf16_s']:.3f} s, bound {k3_sums['bound_s']:.3f} s")
+    for k, v in k3_by_class.items():
+        log(f"  {k3_names[k]}: {v['frames']} frames ({v['case']}), K3 {v['k3_s']:.3f} s, "
+            f"cuDNN bf16 {v['cudnn_bf16_s']:.3f} s, bound {v['bound_s']:.3f} s")
+    # K3 at the class with the most K3 time in the fast rollout
+    top_row = k3_per_frame[max(k3_by_class, key=lambda k: k3_by_class[k]["k3_s"])]
+    kernels.append({
+        "name": "conv3d_int8_mma",
+        "route": "cuda",
+        "source": "deepv_tpu_torch/csrc/conv_int8.cu",
+        "replaces": "deepv_tpu/ops/conv_int8.py:88",
+        "launches": fast["conv_int8_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in k3_rows),
+        "ms": top_row["ms"],
+        "plain_ms": top_row["plain_ms"],
+        "bound_ms": top_row["bound_ms"],
+        "bound_by": top_row["bound_by"],
+        "library_ms": top_row["library_ms"],
+        "shape": (f"{top_row['ci']}->{top_row['co']} @{top_row['h']}x{top_row['w']}, "
+                  f"{top_row['frames']} output frames, {top_row['mode']} mode, bf16 out; "
+                  "no TPU kernel: deepv_tpu's XLA int8 conv; library_ms is cuDNN's bf16 conv"),
+    })
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(dict(results, kernels=kernels), f, indent=1)
     log(card)

@@ -24,6 +24,7 @@ from torch import nn
 from ..config import MMDiTConfig
 from ..ops.attention import attention
 from ..ops.basic import gelu_tanh, layer_norm, linear, rms_norm, silu
+from ..ops.linear_int8 import quantize_linear
 from ..ops.resample import down2x_bilinear, resize_bilinear
 from ..ops.rope import apply_rope, rope_tables_torch
 
@@ -201,6 +202,44 @@ class JointBlock(nn.Module):
         self.ff = _FeedForward(D, device)
         if not last:
             self.ff_context = _FeedForward(D, device)
+
+
+class Int8Linear(nn.Module):
+    """A linear layer quantised for the W8A8 path (``ops/linear_int8.py``):
+    buffers ``weight_int8`` [out, in], ``weight_scale`` [out] and ``bias``
+    (or None). It holds no floating-point weight."""
+
+    def __init__(self, lin: nn.Linear):
+        super().__init__()
+        w8, sw = quantize_linear(lin.weight)
+        self.register_buffer("weight_int8", w8)
+        self.register_buffer("weight_scale", sw)
+        self.register_buffer("bias", None if lin.bias is None else lin.bias.detach())
+
+
+#: per-block linears of the W8A8 path: the token-proportional D^2 products
+#: of both streams. AdaLN ("norm*"), embedders and proj_out stay exact.
+INT8_ATTN_KEYS = ("to_q", "to_k", "to_v", "to_out",
+                  "add_q_proj", "add_k_proj", "add_v_proj", "to_add_out")
+INT8_FF_KEYS = ("ff", "ff_context")
+
+
+def quantize_mmdit(model: "MMDiT") -> "MMDiT":
+    """Swap every joint block's attention and feed-forward ``nn.Linear``s
+    for ``Int8Linear``s in place (deepv_tpu's ``quantize_mmdit_params`` with
+    ``keep_original=False``): the model keeps no reference to their
+    floating-point weights, which are freed once the caller's own
+    references go. The last block has no ``to_add_out`` or ``ff_context``."""
+    for block in model.transformer_blocks:
+        for k in INT8_ATTN_KEYS:
+            if hasattr(block.attn, k):
+                setattr(block.attn, k, Int8Linear(getattr(block.attn, k)))
+        for ff_key in INT8_FF_KEYS:
+            ff = getattr(block, ff_key, None)
+            if ff is not None:
+                for k in ("proj", "out"):
+                    setattr(ff, k, Int8Linear(getattr(ff, k)))
+    return model
 
 
 class MMDiT(nn.Module):

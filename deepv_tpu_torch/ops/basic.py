@@ -14,6 +14,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from .linear_int8 import linear_int8
+
 
 def compute_dtype(dtype: torch.dtype) -> torch.dtype:
     """At-least-float32 (``jnp.promote_types(dtype, float32)``)."""
@@ -38,7 +40,11 @@ def exp_f32(x: torch.Tensor) -> torch.Tensor:
 
 def linear(x: torch.Tensor, p) -> torch.Tensor:
     """y = x @ W^T + b with W stored [out, in]; ``p`` holds ``weight`` and
-    an optional ``bias`` (an ``nn.Linear`` or any module with those)."""
+    an optional ``bias`` (an ``nn.Linear`` or any module with those). A
+    module carrying ``weight_int8`` (``models/mmdit.quantize_mmdit``) runs
+    the W8A8 path, ``ops/linear_int8.py``."""
+    if hasattr(p, "weight_int8"):
+        return linear_int8(x, p)
     y = F.linear(x, p.weight.to(x.dtype))
     bias = getattr(p, "bias", None)
     if bias is not None:

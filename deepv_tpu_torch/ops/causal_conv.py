@@ -16,9 +16,13 @@ consecutive chunks give the same output as one full pass. Modes:
                equals a full pass's.
 
 ``impl="igemm"`` sends every layer that ``supports_igemm`` accepts through
-the implicit-GEMM kernel (``ops/conv_igemm.py``); the other layers (1x1
-shortcuts, strided down-samplers, narrow in/out convs) keep ``F.conv3d``,
-as deepv_tpu keeps XLA's conv for them.
+the implicit-GEMM kernel (``ops/conv_igemm.py``); ``impl="int8"`` every
+layer that ``supports_int8`` accepts through the quantised conv
+(``ops/conv_int8.py``), whose activation scale covers the whole tensor the
+conv reads: the cache frames with x in ``init``/``cont``/``prime`` mode, x
+alone in ``full`` mode. The other layers (1x1 shortcuts, strided
+down-samplers, narrow in/out convs, and for int8 the levels below
+``MIN_H``) keep ``F.conv3d``, as deepv_tpu keeps XLA's conv for them.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import torch
 
 from .basic import conv3d
 from .conv_igemm import conv3d_igemm, supports_igemm
+from .conv_int8 import conv3d_int8, supports_int8
 
 
 def causal_conv3d(x: torch.Tensor, p, cache: Optional[torch.Tensor], *,
@@ -36,7 +41,8 @@ def causal_conv3d(x: torch.Tensor, p, cache: Optional[torch.Tensor], *,
                   impl: str = "xla") -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Apply a causal conv3d (``p`` holds weight [co, ci, kt, kh, kw] and
     bias). Returns ``(y, new_cache)``; the cache is None in ``full`` mode
-    and for kt == 1 layers. ``impl`` is "xla" (``F.conv3d``) or "igemm"."""
+    and for kt == 1 layers. ``impl`` is "xla" (``F.conv3d``), "igemm" or
+    "int8"."""
     kt, kh, kw = p.weight.shape[2:]
     hp, wp = kh // 2, kw // 2
     time_pad = kt - 1
@@ -45,11 +51,14 @@ def causal_conv3d(x: torch.Tensor, p, cache: Optional[torch.Tensor], *,
     spatial = ((hp, hp), (wp, wp))
     igemm = impl == "igemm" and supports_igemm(p.weight.shape, stride, x.dtype,
                                                x.shape[3], x.shape[4])
+    int8 = impl == "int8" and supports_int8(p.weight.shape, stride, x.shape[3])
 
     def conv(xp, pad_t):
         # eligible layers: the kernel, with the cache frames already in xp
         if igemm:
             return conv3d_igemm(xp, p, time_pad=pad_t)
+        if int8:
+            return conv3d_int8(xp, p, time_pad=pad_t)
         return conv3d(xp, p, stride=stride, padding=((pad_t, 0),) + spatial)
 
     if mode == "full" or kt == 1:

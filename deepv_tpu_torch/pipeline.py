@@ -1,6 +1,6 @@
 """Chunked autoregressive world-model rollout.
 
-Counterpart of ``deepv_tpu/pipeline.py`` on its exact default path: one
+Counterpart of ``deepv_tpu/pipeline.py`` on one device: one
 conditioning image plus per-unit motion prompts rolls out RGB + disparity +
 raymap video in 57-frame chunks with a 25-frame overlap. Each latent unit is
 denoised by 3 pyramid stages x 5 Euler steps, each step one MMDiT forward
@@ -8,6 +8,12 @@ over 2 CFG rows (3 once history has been retrieved). Units are decoded as
 they finish through the causal VAE's carried caches; at a chunk boundary the
 decoder caches are primed exactly from the carried latents, the overlap
 pixels are re-encoded, and a history frame is retrieved by camera nearness.
+
+The quality-gated fast modes are options of the same rollout: flow caching
+(``flow_cache="skip_odd"`` or ``"adaptive[:tau]"``), the W8A8 denoise
+linears (``denoise_int8``), the int8 VAE conv (``VAEConfig(conv_impl=
+"int8")``), and the chunk-boundary modes ``reuse_decoder_cache`` and
+``carry_latents``.
 
 Every Gaussian draw goes through one noise source (``TorchNoise`` by
 default, a seeded ``torch.Generator`` on the pipeline's device): the initial
@@ -25,12 +31,14 @@ import torch
 
 from .config import MMDiTConfig, PipelineConfig, VAEConfig
 from .io.weights import params_from_numpy
-from .models.mmdit import MMDiT, mmdit_forward
+from .models.mmdit import MMDiT, mmdit_forward, quantize_mmdit
 from .models.scheduler import FlowMatchSchedule, euler_step
-from .models.vae import (VAE, _dec_prime_warm, _dec_window, chunk_decode_cont,
-                         decoder_prime_need, gaussian_sample, vae_decode, vae_encode)
+from .models.vae import (VAE, _dec_prime_warm, _dec_window, chunk_decode,
+                         chunk_decode_cont, decoder_prime_need, gaussian_sample, vae_decode,
+                         vae_encode)
 from .ops.basic import fma_f32
 from .ops.block_noise import block_noise_from_z, block_noise_shape
+from .ops.conv_int8 import quantize_vae_convs
 from .ops.resample import down2x_bilinear, up2x_nearest
 from .raymap import raymap_from_camera_batch, raymap_to_camera
 from .utils.profiling import PhaseTimer
@@ -76,15 +84,31 @@ def _stage_scan(model: MMDiT, conditions, frame_times, frame_valid,
                 latents: torch.Tensor, text_embeds, text_mask, pooled,
                 timesteps: torch.Tensor, dsigmas: torch.Tensor,
                 guidance: float, history_scale: float, history, history_mask,
-                num_rows: int, history_downsample_ratio: int,
-                zero_depth: bool) -> torch.Tensor:
+                num_rows: int, history_downsample_ratio: int, zero_depth: bool,
+                recompute: Tuple[int, ...] = (), adaptive_tau: Optional[float] = None
+                ) -> Tuple[torch.Tensor, Tuple[int, ...]]:
     """All Euler steps of one pyramid stage: per step, one MMDiT forward
     over the CFG rows, the guidance combine in at-least-f32, and an f32
-    Euler update."""
+    Euler update. Returns the latents and, per step, 1 where the forward
+    ran and 0 where it was skipped.
+
+    Flow caching: ``recompute`` is a 0/1 mask over the steps (empty: all
+    ones, the exact path); a step marked 0 skips the forward and reuses the
+    previous step's guided velocity, and the Euler step is still taken.
+    ``adaptive_tau`` also runs a marked-0 step's forward when the latent's
+    relative L1 drift since the last forward, ``mean|lat - lat_ref| /
+    (mean|lat_ref| + 1e-6)`` in f32, reaches tau. That decision is taken on
+    the host, so each step after the first waits for the device."""
+    n_steps = int(timesteps.shape[0])
+    recompute = tuple(recompute) or (1,) * n_steps
+    if len(recompute) != n_steps or recompute[0] != 1:
+        raise ValueError(f"flow-cache mask {recompute} must cover all {n_steps} steps "
+                         f"and recompute the first")
     conds = [_zero_depth_channels(c) for c in conditions] if zero_depth else list(conditions)
     ct = torch.promote_types(latents.dtype, torch.float32)
-    lat = latents
-    for t, dsig in zip(timesteps, dsigmas):
+    tau = None if adaptive_tau is None else torch.tensor(adaptive_tau, dtype=torch.float32)
+
+    def forward(lat, t):
         model_in = torch.cat([lat] * num_rows, dim=0)
         if zero_depth:
             model_in = _zero_depth_channels(model_in)
@@ -100,8 +124,41 @@ def _stage_scan(model: MMDiT, conditions, frame_times, frame_valid,
         if num_rows == 3:
             hs = torch.tensor(history_scale, dtype=torch.float32, device=v.device).to(ct)
             guided = guided + hs * (v[2:3] - vt).to(ct)
-        lat = euler_step(lat, guided.to(lat.dtype), dsig)
-    return lat
+        return guided.to(lat.dtype)
+
+    lat = lat_ref = latents
+    v = None
+    decisions = []
+    for t, dsig, marked in zip(timesteps, dsigmas, recompute):
+        run = marked > 0
+        if not run and tau is not None:
+            num = (lat.to(torch.float32) - lat_ref.to(torch.float32)).abs().mean()
+            den = lat_ref.to(torch.float32).abs().mean() + 1e-6
+            run = bool((num / den >= tau).item())
+        if run:
+            v, lat_ref = forward(lat, t), lat
+        decisions.append(int(run))
+        lat = euler_step(lat, v, dsig)
+    return lat, tuple(decisions)
+
+
+def parse_flow_cache(flow_cache: str) -> Optional[float]:
+    """The adaptive bound tau of a ``flow_cache`` string ("none",
+    "skip_odd", "adaptive" (tau 0.3) or "adaptive:<tau>"), None for the
+    first two. A malformed string raises ValueError, never a default."""
+    if flow_cache.startswith("adaptive"):
+        head, sep, tau_s = flow_cache.partition(":")
+        bad = ValueError(f"flow_cache {flow_cache!r}: expected 'adaptive' or 'adaptive:<tau>'")
+        if head != "adaptive" or (sep and not tau_s):
+            raise bad
+        try:
+            return float(tau_s) if sep else 0.3
+        except ValueError:
+            raise bad from None
+    if flow_cache not in ("none", "skip_odd"):
+        raise ValueError(f"flow_cache {flow_cache!r}: expected 'none', 'skip_odd', "
+                         f"'adaptive' or 'adaptive:<tau>'")
+    return None
 
 
 def _renoise(latents: torch.Tensor, z: torch.Tensor, alpha: float, beta: float,
@@ -225,16 +282,6 @@ class InferencePipeline:
                  reuse_decoder_cache: bool = False, denoise_int8: bool = False,
                  prime_decoder_cache: bool = True, carry_latents: bool = False,
                  encode_window: int = 16):
-        if flow_cache != "none":
-            _not_ported(f"flow_cache={flow_cache!r}", "M12 flow caching")
-        if reuse_decoder_cache:
-            _not_ported("reuse_decoder_cache", "M13 boundary fast modes")
-        if carry_latents:
-            _not_ported("carry_latents", "M13 boundary fast modes")
-        if denoise_int8:
-            _not_ported("denoise_int8", "M14 int8 paths")
-        if vae_cfg.conv_impl == "int8":
-            _not_ported("conv_impl='int8'", "M14 int8 paths")
         if text_encoder is not None:
             _not_ported("text_encoder", "M15 text encoders")
         if mesh is not None:
@@ -249,8 +296,38 @@ class InferencePipeline:
             raise RuntimeError("device='cuda' but no CUDA device is available; "
                                "pass device='cpu' to run on the CPU")
         self.dtype = dtype
+        #: flow caching: "none" runs every Euler step's forward (exact);
+        #: "skip_odd" reuses the guided velocity on odd steps of each stage
+        #: (2 of 5 forwards skipped); "adaptive[:tau]" (tau 0.3 by default)
+        #: skips a step only while the latent's relative L1 drift since the
+        #: last forward stays under tau (tau 0 is bit-identical to "none").
+        #: Quality-gated: outputs deviate from the exact rollout.
+        self.adaptive_tau = parse_flow_cache(flow_cache)
+        self.flow_cache = flow_cache
+        #: per denoise stage run since the list was last emptied, 1 for each
+        #: step whose forward ran and 0 for each skipped one
+        self.recompute_log: List[Tuple[int, ...]] = []
         self.mmdit = params_from_numpy(MMDiT(mmdit_cfg), params["mmdit"], self.device)
+        #: W8A8 denoise linears (quality-gated, ops/linear_int8.py): the
+        #: block linears are replaced by int8 ones and their floating-point
+        #: weights dropped; AdaLN, embedders and proj_out stay exact
+        self.denoise_int8 = denoise_int8
+        if denoise_int8:
+            quantize_mmdit(self.mmdit)
         self.vae = params_from_numpy(VAE(vae_cfg), params["vae"], self.device)
+        if vae_cfg.conv_impl == "int8":
+            # the int8 weights, scales and K3's weight layout, made once for
+            # the encoder (the carry re-encode) and the decoder
+            quantize_vae_convs(self.vae)
+        #: carry the decoder caches across chunk boundaries instead of
+        #: priming them from the re-encoded overlap (both decode modes). The
+        #: overlap's pixels then come from the previous chunk's latents
+        #: instead of the uint8-round-tripped re-encode: outputs deviate.
+        self.reuse_decoder_cache = reuse_decoder_cache
+        #: carry the chunk's generated rgb latents into the next chunk's
+        #: conditioning instead of re-encoding the overlap pixels; disparity
+        #: is always re-encoded. Quality-gated: outputs deviate.
+        self.carry_latents = carry_latents
         self.text_embeds = text_embeds
         self.decode_window = decode_window
         self.encode_window = encode_window
@@ -260,7 +337,7 @@ class InferencePipeline:
         #: exact chunk-boundary cache priming: rebuild the decoder caches the
         #: overlap re-decode exists to produce without computing its pixels
         self._prime_need = None
-        if prime_decoder_cache:
+        if prime_decoder_cache and not reuse_decoder_cache:
             need = decoder_prime_need(vae_cfg)
             if need is not None and self.vae.decoder.conv_out.weight.shape[2] == 3:
                 self._prime_need = need
@@ -326,6 +403,17 @@ class InferencePipeline:
             mode = "cont"
         return _dec_window(self.vcfg, self.vae.decoder, z.to(self.dtype), cache, mode)
 
+    def _carry_rgb_latent(self, lat_img: torch.Tensor) -> torch.Tensor:
+        """carry_latents: the next chunk's rgb conditioning latents, the
+        chunk's own last generated ones. The re-encode they replace treats
+        the overlap's first frame as an image, so frame 0 is renormalised
+        from video to image stats (in f32)."""
+        c = self.cfg
+        cl = lat_img[:, :, -(1 + (c.num_input_image - 1) // c.vae_downsample):]
+        f0 = ((cl[:, :, :1].to(torch.float32) / c.vae_video_scale_factor
+               + c.vae_video_shift_factor - c.vae_shift_factor) * c.vae_scale_factor)
+        return torch.cat([f0.to(cl.dtype), cl[:, :, 1:]], dim=2).to(self.dtype)
+
     def _unnorm_latents(self, lat: torch.Tensor) -> torch.Tensor:
         """Image stats on the first frame, video stats on the rest."""
         c = self.cfg
@@ -360,6 +448,18 @@ class InferencePipeline:
         return chunk_decode_cont(self.vcfg, dec, lat[:, :, n_overlap:], cache,
                                  self.decode_window)
 
+    def _decode_latents_reuse(self, lat: torch.Tensor, cache, n_overlap: int):
+        """End-of-chunk decode for ``reuse_decoder_cache``: continue the
+        previous chunk's final decoder caches past the ``n_overlap`` carried
+        latents, or (``cache`` None) decode the whole stream. Returns
+        (pixels, final caches); both equal the streaming mode's."""
+        lat = self._unnorm_latents(lat).to(self.dtype)
+        dec = self.vae.decoder
+        if cache is None:
+            return chunk_decode(self.vcfg, dec, lat, self.decode_window, return_cache=True)
+        return chunk_decode_cont(self.vcfg, dec, lat[:, :, n_overlap:], cache,
+                                 self.decode_window, return_cache=True)
+
     def _decode_latents(self, lat: torch.Tensor) -> torch.Tensor:
         """Un-normalise + chunked decode."""
         return vae_decode(self.vcfg, self.vae, self._unnorm_latents(lat).to(self.dtype),
@@ -386,13 +486,22 @@ class InferencePipeline:
                 z = noise.normal("block", block_noise_shape(up_shape), torch.float32)
                 latents = _renoise(latents, z, alpha, beta, cfg.scheduler.gamma)
             ss = self.schedule.stage_schedule(cfg.num_inference_steps, i_s)
+            n_steps = len(ss.timesteps)
+            if self.flow_cache == "skip_odd":
+                recompute = tuple(1 - i % 2 for i in range(n_steps))
+            elif self.adaptive_tau is not None:
+                # tau governs every step after the forced first one
+                recompute = (1,) + (0,) * (n_steps - 1)
+            else:
+                recompute = ()
             conditions, times, valid = past_conditions[i_s]
-            latents = _stage_scan(
+            latents, ran = _stage_scan(
                 self.mmdit, conditions, times, valid, latents, text_embeds, text_mask,
                 pooled, torch.as_tensor(ss.timesteps, device=self.device),
                 torch.as_tensor(ss.sigmas[1:] - ss.sigmas[:-1], device=self.device),
                 guidance, history_scale, hist, hist_mask, num_rows,
-                cfg.history_downsample_ratio, cfg.no_need_depth)
+                cfg.history_downsample_ratio, cfg.no_need_depth, recompute, self.adaptive_tau)
+            self.recompute_log.append(ran)
             intermed.append(latents)
         return intermed
 
@@ -400,10 +509,15 @@ class InferencePipeline:
 
     def generate_i2v(self, noise, motion_prompt: Sequence[str], use_motion_prompt: bool,
                      input_image: torch.Tensor, input_disparity, input_raymap,
-                     input_history, video_guidance_scale: float = 3.5):
-        """One chunk. Returns (image, disparity, trans3d, trans2d,
-        full_window); ``full_window`` is False when the overlap's pixels were
-        not re-decoded (exact priming) and the caller restores them."""
+                     input_history, video_guidance_scale: float = 3.5, dec_state=None,
+                     carry_rgb_latent: Optional[torch.Tensor] = None):
+        """One chunk. ``dec_state`` is the previous chunk's (rgb, disparity)
+        decoder caches (``reuse_decoder_cache``), ``carry_rgb_latent`` its
+        carried rgb latents (``carry_latents``). Returns (image, disparity,
+        trans3d, trans2d, dec_state, carry latents, full_window); the two
+        carries are None when their mode is off, and ``full_window`` is
+        False when the overlap's pixels were not re-decoded (cache reuse or
+        exact priming) and the caller restores them."""
         cfg, mcfg = self.cfg, self.mcfg
         firstframe_mask = input_disparity is None
         num_rows = 2 if input_history is None else 3
@@ -420,7 +534,11 @@ class InferencePipeline:
                        ).reshape(bb, cc, tt, hh // 2, ww // 2)
 
         with self.timer.phase("vae_encode"):
-            if input_disparity is not None:
+            if carry_rgb_latent is not None:
+                # carry_latents: only disparity pays the re-encode
+                img_lat = carry_rgb_latent.to(self.dtype)
+                disp_lat = self._norm_image_latent(self._encode_pixels(input_disparity, noise))
+            elif input_disparity is not None:
                 enc = self._encode_pixels(torch.cat([input_image, input_disparity]), noise)
                 img_lat = self._norm_image_latent(enc[:1])
                 disp_lat = self._norm_image_latent(enc[1:2])
@@ -453,7 +571,14 @@ class InferencePipeline:
 
         full_window = True
         if stream and not firstframe_mask:
-            if self._prime_eligible(input_image_latent):
+            if dec_state is not None:
+                # reuse_decoder_cache: the previous chunk's caches already
+                # hold the overlap's conv state; only the new units decode
+                state["rgb"], state["disp"] = dec_state
+                dec_state = None
+                state["first"] = False
+                full_window = False
+            elif self._prime_eligible(input_image_latent):
                 with self.timer.phase("prime"):
                     state["rgb"], state["disp"] = self._prime_warm(input_image_latent)
                 state["first"] = False
@@ -501,6 +626,17 @@ class InferencePipeline:
             if stream:
                 image = torch.cat(rgb_frames, dim=2)
                 disparity = torch.cat(disp_frames, dim=2)
+            elif self.reuse_decoder_cache:
+                # continue the previous chunk's final caches past the
+                # boundary; the first chunk decodes everything
+                n_ov = 0 if firstframe_mask or dec_state is None else input_image_latent.shape[2]
+                full_window = n_ov == 0
+                prev_rgb, prev_disp = dec_state or (None, None)
+                dec_state = None
+                image, state["rgb"] = self._decode_latents_reuse(lat_img, prev_rgb, n_ov)
+                prev_rgb = None
+                disparity, state["disp"] = self._decode_latents_reuse(lat_disp, prev_disp, n_ov)
+                prev_disp = None
             elif not firstframe_mask and self._prime_eligible(input_image_latent):
                 n_ov = input_image_latent.shape[2]
                 full_window = False
@@ -511,7 +647,10 @@ class InferencePipeline:
                 disparity = self._decode_latents(lat_disp)
         if cfg.no_need_depth:
             disparity = torch.zeros_like(disparity)
-        return image, disparity, trans3d, trans2d, full_window
+        # only the reuse mode carries the decoder caches to the next chunk
+        dec_state = (state["rgb"], state["disp"]) if self.reuse_decoder_cache else None
+        carry = self._carry_rgb_latent(lat_img) if self.carry_latents else None
+        return image, disparity, trans3d, trans2d, dec_state, carry, full_window
 
     # -- full rollout -------------------------------------------------------
 
@@ -547,23 +686,30 @@ class InferencePipeline:
         input_disparity = input_raymap = input_history = None
         scale_factor = torch.tensor(1.0, dtype=torch.float32, device=self.device)
         start_unit = 0
-        keep_tail = self._prime_need is not None
-        tail_rgb = tail_disp = None
+        keep_tail = self.reuse_decoder_cache or self._prime_need is not None
+        dec_state = tail_rgb = tail_disp = carry_lat = None
 
         for now_iter in range(total_iters):
             motion_prompt = [prompts[0]] + prompts[start_unit + 1: start_unit + actual_unit]
             if input_raymap is not None:
                 input_raymap = (input_raymap - self.raymap_mean) / self.raymap_std
 
-            images, disparitys, trans3d, trans2d, full_window = self.generate_i2v(
+            # hand the decoder caches over, so that no binding here pins the
+            # previous generation while the chunk makes the next one
+            ds_arg, dec_state = dec_state, None
+            (images, disparitys, trans3d, trans2d, dec_state, carry_lat,
+             full_window) = self.generate_i2v(
                 noise, motion_prompt, use_motion, input_image, input_disparity,
-                input_raymap, input_history, video_guidance_scale=video_guidance_scale)
+                input_raymap, input_history, video_guidance_scale=video_guidance_scale,
+                dec_state=ds_arg, carry_rgb_latent=carry_lat)
+            del ds_arg
 
             if keep_tail:
                 if now_iter > 0 and not full_window:
-                    # the overlap was not re-decoded (exact priming): restore
-                    # the previous chunk's tail so the bookkeeping sees the
-                    # full 57-frame layout; these frames are dropped below
+                    # the overlap was not re-decoded (cache reuse or exact
+                    # priming): restore the previous chunk's tail so the
+                    # bookkeeping sees the full 57-frame layout; these
+                    # frames are dropped below
                     images = torch.cat([tail_rgb, images], dim=2)
                     disparitys = torch.cat([tail_disp, disparitys], dim=2)
                 tail_rgb = images[:, :, -n_img:]

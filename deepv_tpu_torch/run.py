@@ -6,11 +6,15 @@
 Runs on the CUDA card. Only random weights are ported (``--random_weights``;
 ``DEEPV_TINY=1`` selects the small smoke-run architecture); flags of paths
 not ported yet raise NotImplementedError naming their ROADMAP item.
+``--fast`` is the quality-gated fast preset (flow caching "skip_odd", the
+W8A8 denoise linears and the int8 VAE conv); ``--flow_cache`` overrides its
+flow-cache choice and ``--carry_latents`` adds the boundary carry mode.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import time
 from typing import Optional
@@ -67,12 +71,11 @@ def load_pipeline(model_path: str, model_cfg: PipelineConfig,
                   flow_cache: Optional[str] = None, carry_latents: bool = False,
                   device=None, seed: int = 0) -> InferencePipeline:
     """Random-weight pipeline on ``device`` (default "cuda"; raises when no
-    GPU is present, pass "cpu" explicitly to run on the CPU)."""
+    GPU is present, pass "cpu" explicitly to run on the CPU). ``fast``:
+    flow_cache="skip_odd", denoise_int8 and ``VAEConfig(conv_impl="int8")``;
+    ``flow_cache`` (when given) overrides the preset's choice."""
     if tp_shards != 1:
         raise NotImplementedError("tp_shards: not ported yet (ROADMAP M17 parallelism)")
-    if fast:
-        raise NotImplementedError("fast: not ported yet (ROADMAP M12 flow caching, "
-                                  "M14 int8 paths)")
     if not random_weights:
         raise NotImplementedError("checkpoint loading: not ported yet (ROADMAP M15 text "
                                   "encoders + checkpoint loader); pass random_weights=True")
@@ -88,8 +91,12 @@ def load_pipeline(model_path: str, model_cfg: PipelineConfig,
     params = random_params(mcfg, vcfg, dtype=dtype, seed=seed, device=device)
     embeds = random_text_embeds(0, action_vocabulary(), joint_dim=mcfg.joint_attention_dim,
                                 pooled_dim=mcfg.pooled_projection_dim)
+    if flow_cache is None:
+        flow_cache = "skip_odd" if fast else "none"
+    if fast:
+        vcfg = dataclasses.replace(vcfg, conv_impl="int8")
     return InferencePipeline(model_cfg, mcfg, vcfg, params, embeds, dtype=dtype,
-                             device=device, flow_cache=flow_cache or "none",
+                             device=device, flow_cache=flow_cache, denoise_int8=fast,
                              carry_latents=carry_latents)
 
 
@@ -156,9 +163,15 @@ def cli():
     p.add_argument("--tp_shards", type=int, default=1, help="only 1 is ported")
     p.add_argument("--icon_assets", default=None,
                    help="directory with the controller icon PNGs")
-    p.add_argument("--fast", action="store_true", help="not ported yet (raises)")
-    p.add_argument("--carry_latents", action="store_true", help="not ported yet (raises)")
-    p.add_argument("--flow_cache", default=None, help="only 'none' is ported")
+    p.add_argument("--fast", action="store_true",
+                   help="quality-gated fast preset: flow caching (skip_odd) + int8 VAE "
+                        "conv + int8 MMDiT linears")
+    p.add_argument("--carry_latents", action="store_true",
+                   help="quality-gated boundary fast mode: carry generated rgb latents "
+                        "across chunk boundaries instead of re-encoding the carry pixels")
+    p.add_argument("--flow_cache", default=None,
+                   help="flow-caching mode: none | skip_odd | adaptive[:tau] (overrides "
+                        "the --fast preset's choice)")
     p.add_argument("--aot_cache", default=None, metavar="DIR", help="not ported yet (raises)")
     p.add_argument("--device", default=None, help="torch device (default: cuda)")
     args = p.parse_args()

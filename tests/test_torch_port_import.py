@@ -60,6 +60,14 @@ def test_source_imports_no_jax_or_deepv_tpu(path):
                 f"{path.name}:{node.lineno} imports {name}"
 
 
+def test_source_scan_reaches_every_kernel_module():
+    """The scan above covers the modules of every kernel and int8 path."""
+    scanned = {str(p.relative_to(PACKAGE)) for p in PACKAGE.rglob("*.py")}
+    for module in ("ops/attention.py", "ops/conv_igemm.py", "ops/conv_int8.py",
+                   "ops/linear_int8.py", "models/mmdit.py", "pipeline.py"):
+        assert module in scanned, module
+
+
 def test_chip_smoke_refuses_without_cuda(tmp_path):
     """Without a CUDA device, and alone in a directory, chip_smoke.py exits
     non-zero and prints no result line."""

@@ -131,15 +131,18 @@ class ReplayNoise:
         return torch.from_numpy(a).to(dtype)
 
 
-def _batch():
-    img = np.random.default_rng(7).uniform(-1.0, 1.0, (1, 3, 64, 64))
+def _batch(height=64, width=64):
+    img = np.random.default_rng(7).uniform(-1.0, 1.0, (1, 3, height, width))
     return {"img": img, "prompt": np.array(prepare_motion_prompts("action", PROMPT)),
             "prompt_type": "action"}
 
 
-def _run_reference(params, embeds):
-    """deepv_tpu's rollout with its concrete Gaussian draws recorded (traced
-    calls inside jitted programs pass straight through)."""
+def _run_reference(params, embeds, vcfg=None, batch=None, patches=(), **pipe_kwargs):
+    """deepv_tpu's rollout of ``batch`` (default ``_batch()``) with its
+    concrete Gaussian draws recorded (traced calls inside jitted programs
+    pass straight through); ``vcfg`` defaults to ``VAEConfig.tiny()``,
+    ``patches`` are extra (object, name, value) pins and ``pipe_kwargs`` go
+    to its ``InferencePipeline`` (the fast modes)."""
     draws = {"latents": [], "block": [], "posterior": []}
     slices = []
     orig_normal = jax.random.normal
@@ -174,10 +177,10 @@ def _run_reference(params, embeds):
             slices.append(int(start))
         return orig_slice(operand, start, *args, **kwargs)
 
-    vcfg, mcfg = VAEConfig.tiny(), MMDiTConfig(**MCFG)
-    pipe = jax_pipeline.InferencePipeline(PipelineConfig(), mcfg, vcfg,
+    pipe = jax_pipeline.InferencePipeline(PipelineConfig(), MMDiTConfig(**MCFG),
+                                          vcfg or VAEConfig.tiny(),
                                           jax.tree.map(jnp.asarray, params), embeds,
-                                          dtype=jnp.float64)
+                                          dtype=jnp.float64, **pipe_kwargs)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jax.random, "normal", normal)
         mp.setattr(jax_pipeline, "_renoise", renoise)
@@ -192,8 +195,10 @@ def _run_reference(params, embeds):
         mp.setattr(jax.lax, "dynamic_slice_in_dim", dynamic_slice_in_dim)
         for name in ("exp", "cos", "sin", "arccos"):
             mp.setattr(jnp, name, correctly_rounded(getattr(jnp, name)))
+        for obj, name, value in patches:
+            mp.setattr(obj, name, value)
         jax.clear_caches()   # programs traced before the patch must not be reused
-        out = pipe.generate(_batch(), seed=9)
+        out = pipe.generate(_batch() if batch is None else batch, seed=9)
         out = {k: (np.asarray(v) if k != "motion_prompt_list" else v) for k, v in out.items()}
     jax.clear_caches()
     # _retrieve_history slices 4 arrays per boundary at the retrieved index

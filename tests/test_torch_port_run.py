@@ -1,5 +1,6 @@
 """The port's CLI entry point on the CPU: one tiny rollout written to an mp4,
-the GPU default of ``load_pipeline``, a tiny rollout with the igemm conv
+the GPU default of ``load_pipeline``, the ``fast`` preset and its options
+through ``load_pipeline`` and ``main``, a tiny rollout with the igemm conv
 backend, and the options not ported yet, which raise
 ``NotImplementedError`` instead of running another path."""
 
@@ -13,6 +14,7 @@ from deepv_tpu_torch.actions import action_vocabulary, prepare_motion_prompts
 from deepv_tpu_torch.config import MMDiTConfig, PipelineConfig, VAEConfig, create_model_config
 from deepv_tpu_torch.io.text_embeds import random_text_embeds
 from deepv_tpu_torch.io.weights import random_params
+from deepv_tpu_torch.models.mmdit import Int8Linear
 from deepv_tpu_torch.ops import causal_conv
 from deepv_tpu_torch.pipeline import InferencePipeline
 
@@ -43,10 +45,7 @@ def test_load_pipeline_runs_on_the_card_by_default(monkeypatch):
 
 @pytest.mark.parametrize("kwargs, item", [
     (dict(random_weights=False), "M15"),
-    (dict(fast=True), "M12"),
     (dict(tp_shards=2), "M17"),
-    (dict(flow_cache="skip_odd"), "M12"),
-    (dict(carry_latents=True), "M13"),
 ])
 def test_load_pipeline_refuses_what_is_not_ported(monkeypatch, kwargs, item):
     monkeypatch.setenv("DEEPV_TINY", "1")
@@ -56,8 +55,6 @@ def test_load_pipeline_refuses_what_is_not_ported(monkeypatch, kwargs, item):
 
 
 @pytest.mark.parametrize("kwargs, item", [
-    (dict(reuse_decoder_cache=True), "M13"),
-    (dict(denoise_int8=True), "M14"),
     (dict(mesh=object()), "M17"),
     (dict(use_tiling=True), "M17"),
     (dict(text_encoder=object()), "M15"),
@@ -69,13 +66,44 @@ def test_pipeline_refuses_what_is_not_ported(kwargs, item):
         InferencePipeline(PipelineConfig(), mcfg, vcfg, params, {}, device="cpu", **kwargs)
 
 
-@pytest.mark.parametrize("conv_impl, item", [("int8", "M14")])
-def test_pipeline_refuses_unported_conv_backends(conv_impl, item):
-    mcfg, vcfg = MMDiTConfig.tiny(), VAEConfig(**{**VAEConfig.tiny().__dict__,
-                                                  "conv_impl": conv_impl})
-    params = random_params(mcfg, vcfg, dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        InferencePipeline(PipelineConfig(), mcfg, vcfg, params, {}, device="cpu")
+@pytest.mark.parametrize("kwargs, flow_cache, tau, carry", [
+    (dict(fast=True), "skip_odd", None, False),
+    (dict(fast=True, flow_cache="adaptive:0.5", carry_latents=True), "adaptive:0.5", 0.5, True),
+])
+def test_load_pipeline_fast_builds_the_int8_models(monkeypatch, kwargs, flow_cache, tau, carry):
+    """``fast``: flow caching (an explicit ``flow_cache`` overrides the
+    preset's), the MMDiT's 21 block linears swapped for int8 ones (12 in the
+    first block, 9 in the context-pre-only last one) and the VAE's 3x3x3
+    convs carrying K3's weights, as deepv_tpu/run.py:87-98 builds it."""
+    monkeypatch.setenv("DEEPV_TINY", "1")
+    pipe = run.load_pipeline("none", create_model_config("none"), random_weights=True,
+                             device="cpu", **kwargs)
+    assert (pipe.flow_cache, pipe.adaptive_tau, pipe.carry_latents) == (flow_cache, tau, carry)
+    assert pipe.vcfg.conv_impl == "int8" and pipe.denoise_int8
+    int8 = [m for m in pipe.mmdit.modules() if isinstance(m, Int8Linear)]
+    assert len(int8) == 21
+    attn = pipe.mmdit.transformer_blocks[0].attn
+    assert not any(isinstance(m, torch.nn.Linear) for m in attn.children())
+    convs = [m for m in pipe.vae.modules()
+             if isinstance(m, torch.nn.Conv3d) and m.weight.shape[2:] == (3, 3, 3)]
+    assert convs and all(m.weight_k3.dtype == torch.int8 for m in convs)
+
+
+def test_main_writes_a_fast_video_on_the_cpu(tmp_path, monkeypatch):
+    """``run.main`` with ``fast``, ``carry_latents`` and adaptive caching: a
+    2-chunk DEEPV_TINY rollout at 64x128 (so every int8 product has more
+    than 16 rows) written as an mp4."""
+    image = tmp_path / "in.png"
+    pixels = np.random.default_rng(1).integers(0, 256, (64, 128, 3), dtype=np.uint8)
+    Image.fromarray(pixels).save(image)
+    out = tmp_path / "fast.mp4"
+    monkeypatch.setenv("DEEPV_TINY", "1")
+    written = run.main(str(image), "none", prompt_type="action",
+                       prompt="(FN)(FN)(FN)(FN)(FN)(FN)(FN)(fRL)(SR)(BL)(FN)",
+                       random_weights=True, height=64, width=128, fast=True,
+                       carry_latents=True, flow_cache="adaptive:0.5", device="cpu",
+                       output_path=str(out))
+    assert out.is_file() and out.stat().st_size > 0 and str(written) == str(out)
 
 
 def test_pipeline_runs_the_igemm_conv_backend(monkeypatch):

@@ -14,7 +14,14 @@ phases are made of:
     the eligible convs on the implicit-GEMM kernel (K2);
   * ``encode`` and ``encode_igemm``: one encoder window (17 frames, init
     mode: the first window of a carried clip's encode at a chunk boundary)
-    with each conv backend.
+    with each conv backend;
+  * ``denoise_adaptive_b2``: the 2-row unit with ``flow_cache="adaptive:0.5"``
+    (a host decision, and so a wait for the device, before every step after
+    a stage's first);
+  * ``denoise_fast_b2`` and ``denoise_fast_b3``: the two units of the fast
+    preset, flow caching "skip_odd" with the W8A8 block linears;
+  * ``decode_int8`` and ``encode_int8``: the decode and encoder windows with
+    ``VAEConfig(conv_impl="int8")`` (K3 at the 384x512 level).
 
 For each piece it prints the synchronised wall time without the profiler
 (median of 3, after one warm-up whose own time is kept as the first call's:
@@ -23,8 +30,9 @@ before), then, from one run under
 ``torch.profiler``: the device busy time (the union of kernel intervals),
 the idle share ``1 - busy / wall``, the number of kernels, the device time
 and launches by kernel class (the attention kernel K1, the igemm conv
-kernel, GEMMs, cuDNN convolutions, the rest; a line per denoise unit gives
-K1's seconds and launches beside the device-busy seconds) and,
+kernel K2, the int8 conv kernel K3, the int8 products of ``_int_mm``, other
+GEMMs, cuDNN convolutions, the rest; a line per denoise unit gives K1's
+seconds and launches beside the device-busy seconds) and,
 for the denoise units, the rate the GEMMs reach on the linear layers'
 operations counted from the shapes. Details go to
 ``chiprun_out/profile_port.json``. Needs a CUDA card; exits non-zero without.
@@ -51,6 +59,10 @@ def classify(name: str) -> str:
         return "attention_kernel"
     if "conv3d_igemm" in n:
         return "conv_igemm_kernel"
+    if "conv3d_int8" in n:
+        return "conv_int8_kernel"
+    if "gemm" in n and any(t in n for t in ("s8", "i8", "imma", "int8")):
+        return "int_mm"
     if "conv" in n or "fprop" in n or "dgrad" in n or "cudnn" in n:
         return "conv"
     if "gemm" in n or "nvjet" in n or "cutlass" in n or "xmma" in n:
@@ -100,10 +112,11 @@ def unit_inputs(pipe, rows: int, device):
     return (noise, cur, hist, conds, text, mask, pooled, rows), conds, mask
 
 
-def linear_flops(pipe, conds, text_mask, rows: int, history: bool) -> float:
-    """Operations of the MMDiT's per-token linear layers for one unit: per
-    block 12 D^2 multiply-adds a token (q, k, v, out and the 4x
-    feed-forward), 3 D^2 for context tokens in the last block."""
+def linear_flops(pipe, conds, text_mask, rows: int, history: bool, forwards) -> float:
+    """Operations of the MMDiT's per-token linear layers for one unit, with
+    ``forwards[s]`` forwards run at stage s: per block 12 D^2 multiply-adds
+    a token (q, k, v, out and the 4x feed-forward), 3 D^2 for context tokens
+    in the last block."""
     mcfg, pcfg = pipe.mcfg, pipe.cfg
     d, layers, p = mcfg.inner_dim, mcfg.num_layers, mcfg.patch_size
     ctx = text_mask.shape[1]
@@ -112,11 +125,11 @@ def linear_flops(pipe, conds, text_mask, rows: int, history: bool) -> float:
         r = pcfg.history_downsample_ratio
         ctx += (lh // r // p) * (lw // r // p)
     total = 0.0
-    for clips, _, _ in conds:
+    for (clips, _, _), n_forwards in zip(conds, forwards):
         shapes = [tuple(c.shape[2:]) for c in clips] + [tuple(clips[-1].shape[2:])]
         video = sum(t * (h // p) * (w // p) for t, h, w in shapes)
         macs = video * 12 * d * d * layers + ctx * (12 * d * d * (layers - 1) + 3 * d * d)
-        total += 2.0 * macs * rows * pcfg.num_inference_steps
+        total += 2.0 * macs * rows * n_forwards
     return total
 
 
@@ -176,7 +189,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     from deepv_tpu_torch.config import create_model_config
+    from deepv_tpu_torch.models.mmdit import quantize_mmdit
     from deepv_tpu_torch.models.vae import _enc_window
+    from deepv_tpu_torch.ops.conv_int8 import quantize_vae_convs
     from deepv_tpu_torch.run import load_pipeline
 
     device = torch.device("cuda", 0)
@@ -185,27 +200,39 @@ def main() -> int:
     pipe = load_pipeline("none", cfg, random_weights=True, dtype=torch.bfloat16,
                          device=device, seed=0)
     rows_out = []
+
+    def denoise(name, rows):
+        args, conds, mask = unit_inputs(pipe, rows, device)
+        # forwards run per unit: every step's, or (flow caching) those recorded
+        pipe.recompute_log = []
+        pipe._generate_one_unit(*args, guidance=3.5,
+                                history_scale=pipe.cfg.history_guidance_scale)
+        forwards = [sum(r) for r in pipe.recompute_log]
+        ran = sum(forwards)
+        flops = linear_flops(pipe, conds, mask, rows, rows == 3, forwards)
+
+        def unit():
+            return pipe._generate_one_unit(*args, guidance=3.5,
+                                           history_scale=pipe.cfg.history_guidance_scale)
+
+        def rates(row):
+            gemm = row["device_s_by_class"].get("gemm", 0.0) + row["device_s_by_class"].get(
+                "int_mm", 0.0)
+            return dict(forwards=ran, linear_flops=flops,
+                        gemm_tflops=flops / gemm / 1e12 if gemm else None)
+
+        row = measure(name, unit, rates)
+        rows_out.append(row)
+        print(f"{name}: {ran:.0f} forwards; K1 "
+              f"{row['device_s_by_class'].get('attention_kernel', 0.0):.4f} s in "
+              f"{row['kernels_by_class'].get('attention_kernel', 0)} launches; _int_mm "
+              f"{row['device_s_by_class'].get('int_mm', 0.0):.4f} s; device busy "
+              f"{row['device_busy_s']:.4f} s of {row['wall_s']:.4f} s wall "
+              f"(idle {100 * row['idle_share']:.1f}%)", flush=True)
+
     with torch.inference_mode():
         for rows in (2, 3):
-            args, conds, mask = unit_inputs(pipe, rows, device)
-            flops = linear_flops(pipe, conds, mask, rows, history=rows == 3)
-
-            def unit(args=args):
-                return pipe._generate_one_unit(*args, guidance=3.5,
-                                               history_scale=pipe.cfg.history_guidance_scale)
-
-            def rates(row, flops=flops):
-                gemm = row["device_s_by_class"].get("gemm")
-                return dict(linear_flops=flops,
-                            gemm_tflops=flops / gemm / 1e12 if gemm else None)
-
-            row = measure(f"denoise_b{rows}", unit, rates)
-            rows_out.append(row)
-            print(f"denoise unit, {rows} rows: K1 "
-                  f"{row['device_s_by_class'].get('attention_kernel', 0.0):.4f} s in "
-                  f"{row['kernels_by_class'].get('attention_kernel', 0)} launches; device busy "
-                  f"{row['device_busy_s']:.4f} s of {row['wall_s']:.4f} s wall "
-                  f"(idle {100 * row['idle_share']:.1f}%)", flush=True)
+            denoise(f"denoise_b{rows}", rows)
 
         ds = pipe.cfg.vae_downsample
         z = torch.randn((1, 16, 2, HEIGHT // ds, WIDTH // ds), device=device,
@@ -229,6 +256,18 @@ def main() -> int:
         pipe.vcfg = dataclasses.replace(pipe.vcfg, conv_impl="igemm")
         rows_out.append(measure("decode_igemm", decode))
         rows_out.append(measure("encode_igemm", encode))
+
+        quantize_vae_convs(pipe.vae)
+        pipe.vcfg = dataclasses.replace(pipe.vcfg, conv_impl="int8")
+        rows_out.append(measure("decode_int8", decode))
+        rows_out.append(measure("encode_int8", encode))
+
+        pipe.flow_cache, pipe.adaptive_tau = "adaptive:0.5", 0.5
+        denoise("denoise_adaptive_b2", 2)
+        quantize_mmdit(pipe.mmdit)
+        pipe.flow_cache, pipe.adaptive_tau = "skip_odd", None
+        for rows in (2, 3):
+            denoise(f"denoise_fast_b{rows}", rows)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout
