@@ -51,24 +51,33 @@ Phases, in order; any failure exits non-zero before the last line:
      window, a cont window and a primed cont window, with "igemm" and with
      "xla": f32 (TF32 off) within 1e-4 relative L2, bf16 within twice the
      relative L2 between the bf16 and f32 "xla" decodes of the same latents;
-  9. int8 conv kernel (K3) against its plain version at every int8-eligible
+  9. K3, the int8 conv, against its plain version at every int8-eligible
      conv class of the fast rollout (the 384x512 level: 3->128, 128->128,
      256->128, 256->512, 128->3), in each causal mode the rollout runs it
-     in, and at an edge case (batch 2, w = 80): the int32 accumulators exactly equal
+     in, at edge cases (batch 2, w = 80; float32 with w % 8 != 0; co = 3
+     with batch 2; 3 -> 3) and at a ties case (amax 127, halves that round
+     half to even): the quantise kernel's x8 and sx byte-equal to the plain
+     quantise step's, the conv kernel's int32 accumulators exactly equal
      (the sum is exact), the bf16 output within one bf16 ulp of the plain
-     version's. Times the wrapper, its quantise and channels-last work alone,
-     the plain version and F.conv3d in bf16 (cuDNN, a yardstick: torch has no
-     int8 3D conv), beside the least time at the int8 peak;
- 10. int8 linear: torch._int_mm at the stage-2 shapes exact against an f64
-     product, and the W8A8 call, its quantise, product and dequant parts
-     timed beside bf16 F.linear;
+     version's (the f32 output equal). Logs the route ops/conv_int8.plan
+     took (wgmma, or mma for conv_in's 3 input channels), and times the
+     whole call, its quantise step (the amax and the quantise kernel), each
+     kernel alone, the plain version and F.conv3d in bf16 (cuDNN, a
+     yardstick: torch has no int8 3D conv), beside the least times at the
+     int8 peak or the memory rate, and the TOPS;
+ 10. int8 linear: int_mm at shapes torch._int_mm refuses (16 rows; k, n not
+     multiples of 8), zero-padded, and torch._int_mm at the stage-2 shapes,
+     each exact against an f64 product; the W8A8 call, its quantise,
+     product and dequant parts timed beside bf16 F.linear;
  11. fast path: run.load_pipeline(fast=True) (flow caching "skip_odd", the
      int8 block linears, VAEConfig(conv_impl="int8")) on phase 5's image,
      prompt, seed and weights; counts set to 0 just before and read just
-     after: K1 2,592 (108 forwards x 24 blocks), K2 0, K3 once per dispatch
-     to the int8 conv (a spy counts them), _int_mm once per quantised linear
-     of every forward; 89 finite frames, and the gap to phase 5's frames in
-     8-bit units (printed, not gated: random weights amplify deviations);
+     after: K1 2,592 (108 forwards x 24 blocks), K2 0, K3's conv kernels
+     247 together (once per dispatch to the int8 conv, which a spy counts;
+     wgmma and mma both), its quantise kernel 247, _int_mm once per
+     quantised linear of every forward; 89 finite frames, and the gap to
+     phase 5's frames in 8-bit units (printed, not gated: random weights
+     amplify deviations);
  12. adaptive + boundary path: InferencePipeline(flow_cache="adaptive:0.5",
      reuse_decoder_cache=True, carry_latents=True), same inputs; K1 24 x the
      forwards the pipeline records as run, no priming, 89 finite frames.
@@ -136,6 +145,9 @@ CONV_EDGE_CASES = (
 K2_COUNTERS = ("launches", "gather_launches", "f32_launches")
 #: denoise forwards of the exact rollout: 12 units x 3 stages x 5 steps
 FORWARDS = 180
+#: int8 convs of the fast rollout: the dispatches to conv3d_int8 at the
+#: 384x512 level that phase 11's spy counts
+FAST_CONV_INT8_CALLS = 247
 #: every int8-eligible conv class of the full-width fast rollout
 #: (VAEConfig(conv_impl="int8") at 384x512; MIN_H = 256 leaves the top
 #: spatial level only): (layer, causal mode the rollout runs it in, ci, co,
@@ -163,8 +175,19 @@ K3_CASES = (
     ("encoder down block 0 resnets", "cont", 128, 128, 384, 512, 2),
     ("encoder down block 0 resnets", "full", 128, 128, 384, 512, 1),
 )
-#: K3 beyond K3_CASES: (name, mode, ci, co, h, w, output frames, batch)
-K3_EDGE_CASES = (("edge: batch 2, w not a multiple of 64", "full", 128, 128, 256, 80, 2, 2),)
+#: K3 beyond K3_CASES: (name, mode, ci, co, h, w, output frames, batch). The
+#: first edge case takes the wgmma kernel's 128-pixel tile with a w tail and
+#: a batch whose frames the causal past must not mix; the float32 one the
+#: quantise kernel's scalar path (w % 8 != 0) and the f32 output, which must
+#: equal the plain version's; the co = 3 one the wgmma kernel's 16-channel
+#: tile on a 128-pixel CTA; 3 -> 3 the mma kernel's 16-channel tile, which
+#: no rollout class takes; the ties case has x built to round half to even
+#: in the quantise kernel (``ties_input``)
+K3_EDGE_CASES = (("edge: batch 2, w not a multiple of 64", "full", 128, 128, 256, 80, 2, 2),
+                 ("edge: float32, w % 8 != 0", "cont", 256, 128, 256, 84, 1, 1),
+                 ("edge: co = 3, batch 2, w % 8 != 0", "full", 128, 3, 64, 84, 2, 2),
+                 ("edge: 3 -> 3 (mma, 16-channel tile)", "cont", 3, 3, 64, 72, 2, 1),
+                 ("ties: amax 127, halves", "cont", 128, 128, 256, 96, 1, 1))
 #: dense int8 peak of one H100 SXM (NVIDIA data sheet) at its 700 W limit
 PEAK_INT8_OPS = 1979e12
 #: the int8 linears of one stage-2 forward, 2 CFG rows (S = 2093, 77 text
@@ -172,6 +195,9 @@ PEAK_INT8_OPS = 1979e12
 LINEAR_CASES = (("D->D (q, k, v, out)", 2 * 2016, 1536, 1536),
                 ("D->4D (ff proj)", 2 * 2016, 1536, 6144),
                 ("4D->D (ff out)", 2 * 2016, 6144, 1536))
+#: int_mm shapes that torch._int_mm's CUDA rule refuses and int_mm pads:
+#: (rows, k, n)
+PADDED_INT_MM_CASES = ((16, 1536, 1536), (17, 12, 20))
 
 
 def log(*args):
@@ -422,7 +448,7 @@ def drive_rollout(pipe, setup_s: float):
     att.launches = att.f32_launches = 0
     for name in K2_COUNTERS:
         setattr(cig, name, 0)
-    ci8.launches = li8.calls = 0
+    ci8.launches = ci8.mma_launches = ci8.quantize_launches = li8.calls = 0
     t0 = time.perf_counter()
     out = pipe.generate(rollout_batch(), seed=666)
     torch.cuda.synchronize()
@@ -431,7 +457,10 @@ def drive_rollout(pipe, setup_s: float):
     assert att.f32_launches == 0, "the bf16 rollout launched the f32 attention kernel"
     conv_launches = {name: getattr(cig, name) for name in K2_COUNTERS}
     assert conv_launches["f32_launches"] == 0, "the bf16 rollout launched the f32 kernel"
-    int8_counts = dict(conv_int8_launches=ci8.launches, int_mm_calls=li8.calls)
+    int8_counts = dict(conv_int8_launches=ci8.launches + ci8.mma_launches,
+                       conv_int8_wgmma_launches=ci8.launches,
+                       conv_int8_mma_launches=ci8.mma_launches,
+                       quantize_k3_launches=ci8.quantize_launches, int_mm_calls=li8.calls)
 
     mcfg, pcfg = pipe.mcfg, pipe.cfg
     n_units = pcfg.max_temporal_length + (pcfg.max_temporal_length - pcfg.num_input_unit)
@@ -482,7 +511,8 @@ def run_main_path(device, results):
     main, frames, conv_launches = drive_rollout(pipe, setup_s)
     assert not any(conv_launches.values()), f"the default (xla) path launched K2: {conv_launches}"
     assert main["forwards"] == FORWARDS, f"the exact rollout ran {main['forwards']} forwards"
-    assert main["conv_int8_launches"] == main["int_mm_calls"] == 0, main
+    assert (main["conv_int8_launches"] == main["quantize_k3_launches"]
+            == main["int_mm_calls"] == 0), main
     log("main path:", json.dumps(main))
     results["main_path"] = main
     return pipe, main["attention_launches"], frames
@@ -792,10 +822,26 @@ def taps_needed(mode: str, n: int) -> int:
     return sum(9 * (3 - max(0, tp - to)) for to in range(n))
 
 
+def ties_input(b: int, ci: int, t: int, h: int, w: int, gen, device):
+    """x whose amax is 127, so sx = 1 and x / sx = x: values 127 and halves
+    (+-0.5, +-1.5, +-2.5, +-126.5) that quantise only by rounding half to
+    even, with integers between them; all exact in bf16."""
+    import torch
+    vals = torch.tensor([0.5, -0.5, 1.5, -1.5, 2.5, -2.5, 126.5, -126.5, 3.0, -4.0],
+                        device=device)
+    x = vals[torch.randint(0, len(vals), (b, ci, t, h, w), generator=gen, device=device)]
+    x.view(-1)[0] = 127.0
+    return x
+
+
 def check_conv_int8(device, results):
-    """Phase 9: K3 against its plain version at every int8-eligible conv
-    class of the fast rollout and at the edge case: int32 accumulators
-    exactly equal, bf16 output within one bf16 ulp."""
+    """Phase 9: K3's two kernels against their plain versions at every
+    int8-eligible conv class of the fast rollout, at the edge case and at
+    the ties case: the quantise kernel's x8 and sx byte-equal to
+    ``quantize_input_k3``'s, the conv kernel's int32 accumulators exactly
+    equal, the bf16 output within one bf16 ulp. Times the whole call, its
+    quantise step (the amax and the quantise kernel), the conv kernel alone,
+    the plain version and cuDNN's bf16 conv, beside the least times."""
     import torch
     import torch.nn.functional as F
     from deepv_tpu_torch.ops import conv_int8 as ci8
@@ -807,17 +853,32 @@ def check_conv_int8(device, results):
     cases = [c + (1,) for c in K3_CASES] + list(K3_EDGE_CASES)
     for layer, mode, ci, co, h, w, n, b in cases:
         x32, p32, tp = conv_case_inputs(mode, ci, co, h, w, n, gen, device, b)
-        x = x32.to(torch.bfloat16)
+        if layer.startswith("ties"):
+            x32 = ties_input(*x32.shape, gen, device)
+        dtype = torch.float32 if "float32" in layer else torch.bfloat16
+        x = x32.to(dtype)
         del x32
-        conv = torch.nn.Conv3d(ci, co, 3, device=device, dtype=torch.bfloat16)
+        conv = torch.nn.Conv3d(ci, co, 3, device=device, dtype=dtype)
         conv.requires_grad_(False)
         conv.weight.copy_(p32.weight)
         conv.bias.copy_(p32.bias)
         ci8.quantize_conv_weights(conv)
-        before = ci8.launches
+        t_in = x.shape[2]
+        pl = ci8.plan(ci, co, h, w, b, n)
+        counts = (ci8.launches, ci8.mma_launches, ci8.quantize_launches)
+        x8k, sxk = ci8.quantize_k3(x)
         acc = ci8.conv3d_int8_accumulators(x, conv, tp)
         y = ci8.conv3d_int8(x, conv, tp)
-        assert ci8.launches - before == 2, "K3 did not launch once per call"
+        wg, mma, quant = (ci8.launches - counts[0], ci8.mma_launches - counts[1],
+                          ci8.quantize_launches - counts[2])
+        assert quant == 3 and (wg, mma) == ((2, 0) if pl.kernel == "wgmma" else (0, 2)), (
+            f"{layer} {mode}: plan {pl.kernel}, launches wgmma {wg}, mma {mma}, quantise {quant}")
+        x8p, sxp = ci8.quantize_input_k3(x)
+        torch.cuda.synchronize()
+        x8_bad = int((x8k != x8p).sum())
+        assert x8_bad == 0 and torch.equal(sxk, sxp), (
+            f"{layer} {mode}: {x8_bad} quantised inputs differ from the plain version's")
+        del x8p
         x8, _ = ci8.quantize_input(x)
         ref_acc = ci8.accumulate_plain(x8, conv.weight_int8, tp)
         del x8
@@ -830,28 +891,53 @@ def check_conv_int8(device, results):
         err = (y.float() - r.float()).abs()
         excess = float((err - bf16_ulp(torch.maximum(y.float().abs(), r.float().abs()))).max())
         assert excess <= 0, f"{layer} {mode}: K3 vs plain beyond one bf16 ulp"
+        assert dtype == torch.bfloat16 or float(err.max()) == 0.0, (
+            f"{layer} {mode}: the f32 output differs from the plain version's")
         xl = F.pad(x, (0, 0, 0, 0, tp, 0)) if tp else x
         lib_err = float((F.conv3d(xl, conv.weight, conv.bias, padding=(0, 1, 1)).float()
                          - r.float()).abs().max())
         ms = cuda_time_ms(lambda: ci8.conv3d_int8(x, conv, tp), 5, 1)
-        layout_ms = cuda_time_ms(lambda: ci8.quantize_input_k3(x), 5, 1)
+        quantise_ms = cuda_time_ms(lambda: ci8.quantize_k3(x), 5, 1)
+        quantise_kernel_ms = cuda_time_ms(lambda: ci8.quantize_k3(x, sxk), 5, 1)
+        kernel_ms = cuda_time_ms(lambda: ci8.conv_k3(x8k, sxk, conv, tp, x.dtype), 5, 1)
+        quantise_plain_ms = cuda_time_ms(lambda: ci8.quantize_input_k3(x), 2, 1)
         plain_ms = cuda_time_ms(lambda: ci8.conv3d_int8_plain(x, conv, tp), 1, 0)
         library_ms = cuda_time_ms(
             lambda: F.conv3d(xl, conv.weight, conv.bias, padding=(0, 1, 1)), 5, 1)
         ops = 2 * taps_needed(mode, n) * ci * co * b * h * w
-        nbytes = x.numel() * 2 + conv.weight_int8.numel() + 8 * co + y.numel() * 2
-        t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES
-        row = dict(layer=layer, mode=mode, ci=ci, co=co, h=h, w=w, frames=n, batch=b,
-                   edge=layer.startswith("edge"), time_pad=tp, acc_mismatches=n_bad,
+        # whole call: bf16 x in (the amax and the quantise read it; counted
+        # once), int8 weight, scales and bias, bf16 y out; the conv kernel
+        # alone reads x8 instead of x; the quantise kernel reads x, writes x8.
+        # x8 and the weight count at their ci real channels: the zero
+        # channels up to ci_pad are the kernels' layout, not the function's
+        w_bytes = conv.weight_int8.numel() + 8 * co
+        x8_bytes = x8k.numel() // x8k.shape[-1] * ci
+        whole_bytes = (x.numel() + y.numel()) * x.element_size() + w_bytes
+        kernel_bytes = x8_bytes + w_bytes + y.numel() * y.element_size()
+        quantise_bytes = x.numel() * x.element_size() + x8_bytes + 4
+        bound = lambda nbytes, nops: max(nops / PEAK_INT8_OPS, nbytes / PEAK_BYTES) * 1e3
+        by = lambda nbytes, nops: "operations" if nops / PEAK_INT8_OPS >= nbytes / PEAK_BYTES \
+            else "bytes"
+        row = dict(layer=layer, mode=mode, ci=ci, co=co, h=h, w=w, frames=n, batch=b, t_in=t_in,
+                   edge=not layer.startswith(("decoder", "encoder")), time_pad=tp,
+                   dtype=str(dtype).replace("torch.", ""),
+                   route=pl.kernel, plan=dict(bn=pl.bn, bm=pl.bm, mb=pl.mb, segs=pl.segs,
+                                              grid=list(pl.grid)),
+                   x8_mismatches=x8_bad, acc_mismatches=n_bad,
                    max_abs_err=float(err.max()), ulp_excess=excess,
-                   cudnn_bf16_vs_plain_max_abs=lib_err, ms=ms, layout_ms=layout_ms,
-                   kernel_ms=ms - layout_ms, plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=1e3 * max(t_ops, t_bytes),
-                   bound_by="operations" if t_ops >= t_bytes else "bytes",
-                   ops=ops, bytes=nbytes, tops=ops / (ms * 1e-3) / 1e12)
+                   cudnn_bf16_vs_plain_max_abs=lib_err, ms=ms, quantise_ms=quantise_ms,
+                   quantise_kernel_ms=quantise_kernel_ms, kernel_ms=kernel_ms,
+                   plain_ms=plain_ms, quantise_plain_ms=quantise_plain_ms,
+                   library_ms=library_ms,
+                   bound_ms=bound(whole_bytes, ops), bound_by=by(whole_bytes, ops),
+                   kernel_bound_ms=bound(kernel_bytes, ops), kernel_bound_by=by(kernel_bytes, ops),
+                   quantise_bound_ms=bound(quantise_bytes, 0),
+                   ops=ops, bytes=whole_bytes, tops=ops / (ms * 1e-3) / 1e12,
+                   kernel_tops=ops / (kernel_ms * 1e-3) / 1e12,
+                   quantise_tb_s=quantise_bytes / (quantise_kernel_ms * 1e-3) / 1e12)
         rows_out.append(row)
         log("conv_int8", json.dumps(row))
-        del y, r, x, xl, conv
+        del y, r, x, xl, conv, x8k
         torch.cuda.empty_cache()
     results["conv_int8_shapes"] = rows_out
     return rows_out
@@ -868,6 +954,21 @@ def check_linear_int8(device, results):
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=device)
     gen.manual_seed(23)
+    # shapes outside torch._int_mm's CUDA rule, zero-padded by int_mm: the
+    # 64x64 tiny rollout's 16-row stage-0 product, odd k and n
+    padded = []
+    for m, k, n in PADDED_INT_MM_CASES:
+        a = torch.randint(-127, 128, (m, k), generator=gen, device=device, dtype=torch.int8)
+        bt = torch.randint(-127, 128, (n, k), generator=gen, device=device, dtype=torch.int8)
+        before = li8.calls
+        acc = li8.int_mm(a, bt.t())
+        assert li8.calls - before == 1 and acc.dtype == torch.int32
+        exact = torch.matmul(a.double(), bt.double().t())
+        assert tuple(acc.shape) == (m, n) and torch.equal(acc.double(), exact), (
+            f"padded int_mm {m}x{k}x{n} is not exact")
+        padded.append(dict(m=m, k=k, n=n, exact=True))
+    log("int_mm, padded:", json.dumps(padded))
+    results["int_mm_padded"] = padded
     rows_out = []
     for name, m, k, n in LINEAR_CASES:
         x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
@@ -952,7 +1053,12 @@ def run_fast_path(device, results, ref_frames):
     assert summary["forwards"] == 108, f"skip_odd ran {summary['forwards']} forwards, not 108"
     assert summary["attention_launches"] == 108 * mcfg.num_layers == 2592
     assert not any(conv_launches.values()), f"the int8 path launched K2: {conv_launches}"
-    assert summary["conv_int8_launches"] == calls[0] > 0, (summary["conv_int8_launches"], calls[0])
+    assert summary["conv_int8_launches"] == calls[0] == FAST_CONV_INT8_CALLS, (
+        summary["conv_int8_launches"], calls[0])
+    assert summary["quantize_k3_launches"] == calls[0], (
+        f"the quantise kernel launched {summary['quantize_k3_launches']} times, "
+        f"not once per int8 conv ({calls[0]})")
+    assert summary["conv_int8_wgmma_launches"] > summary["conv_int8_mma_launches"] > 0, summary
     assert quantised == 12 * (mcfg.num_layers - 1) + 9, quantised
     assert summary["int_mm_calls"] == summary["forwards"] * quantised, summary["int_mm_calls"]
     mean8, p95 = eight_bit_gap(frames, ref_frames)
@@ -996,7 +1102,8 @@ def run_adaptive_boundary_path(device, results, ref_frames):
     torch.cuda.synchronize()
     summary, frames, conv_launches = drive_rollout(pipe, time.perf_counter() - t0)
     assert not any(conv_launches.values()), conv_launches
-    assert summary["conv_int8_launches"] == summary["int_mm_calls"] == 0, summary
+    assert (summary["conv_int8_launches"] == summary["quantize_k3_launches"]
+            == summary["int_mm_calls"] == 0), summary
     assert "prime" not in summary["phases_s"], "cache reuse must not prime"
     mean8, p95 = eight_bit_gap(frames, ref_frames)
     summary.update(recompute_log=[list(r) for r in pipe.recompute_log],
@@ -1141,8 +1248,8 @@ def main() -> int:
                       f"frames, {row['mode']} mode, bf16"
                       + (", x channels-last" if row is on_path else "")),
         })
-    # K3, the bound and cuDNN's bf16 conv summed over the fast rollout's int8
-    # convs by class, as for K2
+    # K3, its quantise step and conv kernel, the bound and cuDNN's bf16 conv
+    # summed over the fast rollout's int8 convs by class, as for K2
     k3_per_frame = {}
     for r in k3_rows:
         if not r["edge"]:
@@ -1154,38 +1261,72 @@ def main() -> int:
         r = k3_per_frame[k]
         per = n / (r["frames"] * r["batch"])
         k3_by_class[k] = dict(
-            frames=n, case=f"{r['mode']}, {r['frames']} frames", k3_s=per * r["ms"] / 1e3,
-            layout_s=per * r["layout_ms"] / 1e3, cudnn_bf16_s=per * r["library_ms"] / 1e3,
-            bound_s=per * r["bound_ms"] / 1e3)
+            frames=n, case=f"{r['mode']}, {r['frames']} frames", route=r["route"],
+            k3_s=per * r["ms"] / 1e3, quantise_s=per * r["quantise_ms"] / 1e3,
+            kernel_s=per * r["kernel_ms"] / 1e3, cudnn_bf16_s=per * r["library_ms"] / 1e3,
+            bound_s=per * r["bound_ms"] / 1e3, kernel_tops=r["kernel_tops"])
     k3_sums = {key: sum(v[key] for v in k3_by_class.values())
-               for key in ("k3_s", "layout_s", "cudnn_bf16_s", "bound_s")}
+               for key in ("k3_s", "quantise_s", "kernel_s", "cudnn_bf16_s", "bound_s")}
     k3_names = {k: f"{k[0]}->{k[1]} @{k[2]}x{k[3]}" for k in k3_by_class}
     results["conv_int8_rollout_by_class"] = {k3_names[k]: v for k, v in k3_by_class.items()}
     results["conv_int8_rollout_sums"] = k3_sums
-    log(f"K3 over the fast rollout ({fast['conv_int8_launches']} launches, "
+    log(f"K3 over the fast rollout ({fast['conv_int8_launches']} conv launches, "
+        f"{fast['quantize_k3_launches']} quantise launches, "
         f"{sum(k3_frames_by_class.values())} output frames): K3 {k3_sums['k3_s']:.3f} s "
-        f"(of it quantise and layout {k3_sums['layout_s']:.3f} s), cuDNN bf16 "
-        f"{k3_sums['cudnn_bf16_s']:.3f} s, bound {k3_sums['bound_s']:.3f} s")
+        f"(quantise step {k3_sums['quantise_s']:.3f} s, conv kernels {k3_sums['kernel_s']:.3f} s),"
+        f" cuDNN bf16 {k3_sums['cudnn_bf16_s']:.3f} s, bound {k3_sums['bound_s']:.3f} s")
     for k, v in k3_by_class.items():
-        log(f"  {k3_names[k]}: {v['frames']} frames ({v['case']}), K3 {v['k3_s']:.3f} s, "
-            f"cuDNN bf16 {v['cudnn_bf16_s']:.3f} s, bound {v['bound_s']:.3f} s")
-    # K3 at the class with the most K3 time in the fast rollout
-    top_row = k3_per_frame[max(k3_by_class, key=lambda k: k3_by_class[k]["k3_s"])]
+        log(f"  {k3_names[k]}: {v['frames']} frames ({v['case']}, {v['route']}), K3 "
+            f"{v['k3_s']:.3f} s (quantise {v['quantise_s']:.3f} s, kernel {v['kernel_s']:.3f} s, "
+            f"{v['kernel_tops']:.0f} TOPS), cuDNN bf16 {v['cudnn_bf16_s']:.3f} s, "
+            f"bound {v['bound_s']:.3f} s")
+    # each K3 kernel at the class of its route with the most K3 time in the
+    # fast rollout; the quantise kernel at the top class overall
+    def top_class(route):
+        keys = [k for k in k3_by_class if k3_per_frame[k]["route"] == route]
+        return k3_per_frame[max(keys, key=lambda k: k3_by_class[k]["k3_s"])]
+
+    def shape(r):
+        return (f"{r['ci']}->{r['co']} @{r['h']}x{r['w']}, {r['frames']} output frames, "
+                f"{r['mode']} mode, bf16")
+
+    top_wg, top_mma = top_class("wgmma"), top_class("mma")
+    for name, counter, row, route in (("conv3d_int8_wgmma", "conv_int8_wgmma_launches", top_wg,
+                                       "wgmma"),
+                                      ("conv3d_int8_mma", "conv_int8_mma_launches", top_mma,
+                                       "mma")):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "deepv_tpu_torch/csrc/conv_int8.cu",
+            "replaces": "deepv_tpu/ops/conv_int8.py:88",
+            "launches": fast[counter],
+            "max_abs_err": max(r["max_abs_err"] for r in k3_rows if r["route"] == route),
+            "ms": row["kernel_ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["kernel_bound_ms"],
+            "bound_by": row["kernel_bound_by"],
+            "library_ms": row["library_ms"],
+            "shape": (shape(row) + f"; the conv kernel alone (the whole call {row['ms']:.4f} ms "
+                      "with the quantise step); no TPU kernel: deepv_tpu's XLA int8 conv; "
+                      "plain_ms is the whole plain conv; library_ms is cuDNN's bf16 conv"),
+        })
+    top = k3_per_frame[max(k3_by_class, key=lambda k: k3_by_class[k]["k3_s"])]
     kernels.append({
-        "name": "conv3d_int8_mma",
+        "name": "quantize_k3_input",
         "route": "cuda",
         "source": "deepv_tpu_torch/csrc/conv_int8.cu",
         "replaces": "deepv_tpu/ops/conv_int8.py:88",
-        "launches": fast["conv_int8_launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in k3_rows),
-        "ms": top_row["ms"],
-        "plain_ms": top_row["plain_ms"],
-        "bound_ms": top_row["bound_ms"],
-        "bound_by": top_row["bound_by"],
-        "library_ms": top_row["library_ms"],
-        "shape": (f"{top_row['ci']}->{top_row['co']} @{top_row['h']}x{top_row['w']}, "
-                  f"{top_row['frames']} output frames, {top_row['mode']} mode, bf16 out; "
-                  "no TPU kernel: deepv_tpu's XLA int8 conv; library_ms is cuDNN's bf16 conv"),
+        "launches": fast["quantize_k3_launches"],
+        "max_abs_err": 0.0 if all(r["x8_mismatches"] == 0 for r in k3_rows) else None,
+        "ms": top["quantise_kernel_ms"],
+        "plain_ms": top["quantise_plain_ms"],
+        "bound_ms": top["quantise_bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "shape": (shape(top) + f"'s input; the kernel alone (with the amax that makes sx "
+                  f"{top['quantise_ms']:.4f} ms; plain_ms includes it); no single PyTorch "
+                  "call quantises into this layout"),
     })
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(dict(results, kernels=kernels), f, indent=1)

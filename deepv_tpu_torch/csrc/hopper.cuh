@@ -81,6 +81,16 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint3
          ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
 }
 
+// The same descriptor without swizzle (K-major "interleave" layout): core
+// matrices of 8 rows x 16 bytes, rows 16 bytes apart; lbo, the byte offset
+// between core matrices adjacent along K; sbo, between 8-row groups. A start
+// 16 bytes further on is the same matrix shifted by one row.
+__device__ __forceinline__ uint64_t smem_desc_noswizzle(uint32_t addr, uint32_t lbo,
+                                                        uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -98,6 +108,12 @@ template <int N>
 __device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_acc(int32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
 }
 
 // cuTensorMapEncodeTiled, looked up at run time by cudaGetDriverEntryPoint (no -lcuda)

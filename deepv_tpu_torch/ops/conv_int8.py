@@ -1,4 +1,4 @@
-"""Symmetric int8 3x3x3 conv: the hand-written Hopper kernel (K3) and its plain version.
+"""Symmetric int8 3x3x3 conv: the hand-written Hopper kernels (K3) and their plain version.
 
 Counterpart of ``deepv_tpu/ops/conv_int8.py``, the quality-gated fast path of
 ``VAEConfig(conv_impl="int8")``: per-output-channel weight scales from
@@ -21,23 +21,28 @@ to 0.
 heights of at least ``MIN_H``, read from the module at call time. 256 is
 deepv_tpu's choice for its TPU; whether it suits the H100 is open.
 
-The kernel (``csrc/conv_int8.cu``, ``deepv_conv3d_int8``) has no TPU
-kernel to replace: deepv_tpu leaves the int8 conv to XLA, and PyTorch has no
-int8 3D convolution on CUDA. It reads the quantised input channels-last,
-``[b, t, h, w, ci_pad]``, and the weight as ``[27, co_pad, ci_pad]``
-(``weight_k3``, made once by ``quantize_conv_weights``), and runs mma.sync
-s8 products with int32 accumulators, which equal the plain version's bit
-for bit. The amax, the divide, the round, the int8 cast and the
-channels-last copy are PyTorch ops in the wrapper (``quantize_input``), as
-they are XLA ops in deepv_tpu.
+K3 (``csrc/conv_int8.cu``) has no TPU kernel to replace: deepv_tpu leaves
+the int8 conv to XLA, and PyTorch has no int8 3D convolution on CUDA. A
+call is two hand-written kernels after one reduction (``input_scale``):
+
+  * ``quantize_k3_input`` (``quantize_k3``): x -> the quantised input
+    channels-last, ``[b, t, h, w, ci_pad]``, in one pass (the plain version
+    is ``quantize_input_k3``);
+  * the conv on it and the weight's ``[27, co_pad, ci_pad]`` layout
+    (``weight_k3``, made once by ``quantize_conv_weights``): int32 sums
+    equal to the plain version's bit for bit, and the dequant epilogue
+    reading sx, sw and the bias from the device. ``plan`` picks the kernel:
+    ``wgmma`` (TMA-fed s8 ``wgmma``) where ci_pad is a multiple of 128,
+    ``mma`` (``cp.async`` + ``mma.sync``) for the rest (conv_in, ci = 3).
 
 ``conv3d_int8`` takes the plain version only for tensors on the CPU; for
-CUDA tensors it launches the kernel or raises.
+CUDA tensors it launches the kernels or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
@@ -47,8 +52,11 @@ from torch import nn
 #: quantise only convs at spatial heights of at least this (deepv_tpu's rule)
 MIN_H = 256
 
-#: launches of the kernel since the count was last set to 0
+#: launches of the ``wgmma`` conv kernel since the count was last set to 0
 launches = 0
+#: launches of the ``mma`` conv kernel and of the quantise kernel, counted apart
+mma_launches = 0
+quantize_launches = 0
 
 _library: Optional[ctypes.CDLL] = None
 _OUT_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -63,13 +71,84 @@ def supports_int8(weight_shape: Tuple[int, ...], stride: Tuple[int, int, int], h
 
 
 def channel_tile(co: int) -> int:
-    """The kernel's CTA width in output channels: 128 where co is a multiple
-    of it, else 16 (the 3-channel ``conv_out``)."""
+    """The conv kernels' CTA width in output channels: 128 where co is a
+    multiple of it, else 16 (the 3-channel ``conv_out``)."""
     return 128 if co % 128 == 0 else 16
 
 
 def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
+
+
+#: the ``wgmma`` kernel (csrc/conv_int8.cu, namespace ``wg``): input
+#: channels of a K unit (one 128-byte row of the weight's swizzled box) and
+#: channels of one A box (a 16-byte core-matrix column)
+WG_CHUNK = 128
+WG_SLOT_CH = 16
+#: the ``mma`` kernel: pixels of a CTA
+MMA_BM = 128
+
+
+@dataclass(frozen=True)
+class Plan:
+    """How one call runs on the card; ``conv_k3`` passes ``bn``, ``mb`` and
+    ``segs`` to the kernel, whose grid is ``grid``. ``wgmma``: a CTA takes
+    ``bm = 128 * mb`` pixels of one output row (two consumer warpgroups of
+    ``run = 64 * mb`` pixels, each reading boxes of ``run + 2`` pixels that
+    serve the three kw taps) and ``bn`` output channels; the grid is ``(h *
+    segs, co_pad / bn, b * t_out)``. ``mma``: 128 pixels of a frame and
+    ``bn`` channels; the grid is ``(ceil(h * w / 128), co_pad / bn, b *
+    t_out)``. The ring stages are the kernel's own compile-time choice
+    (``wg::Tile``, held to the shared memory by its static_asserts)."""
+
+    kernel: str
+    bn: int
+    bm: int
+    mb: int
+    segs: int
+    grid: Tuple[int, int, int]
+
+    @property
+    def run(self) -> int:
+        return self.bm // 2
+
+    @property
+    def box_w(self) -> int:
+        return self.run + 2
+
+
+def plan(ci: int, co: int, h: int, w: int, b: int, t_out: int) -> Plan:
+    """The kernel and tiling of one call: ``wgmma`` where the padded input
+    channels are a multiple of 128 (at the rollout's 384x512 level 128->128,
+    256->128 and 256->512 with 128-channel CTAs, and conv_out's 128->3 with
+    16-channel ones), with 256-pixel CTAs where w > 128 (a weight tile then
+    serves twice the pixels) and 128-pixel ones on narrow frames; ``mma``
+    for the rest (conv_in, ci = 3)."""
+    ci_pad = _round_up(ci, CI_STEP)
+    bn = channel_tile(co)
+    co_pad = _round_up(co, bn)
+    if ci_pad % WG_CHUNK == 0:
+        mb = 2 if w > 128 else 1
+        bm = 128 * mb
+        segs = -(-w // bm)
+        return Plan("wgmma", bn, bm, mb, segs, (h * segs, co_pad // bn, b * t_out))
+    return Plan("mma", bn, MMA_BM, 0, 0, (-(-h * w // MMA_BM), co_pad // bn, b * t_out))
+
+
+def wgmma_units(ci_pad: int, time_pad: int, to: int) -> range:
+    """The ``wgmma`` kernel's K units for output frame ``to``: (kt, kh,
+    128-channel chunk), kt-major (``unit_origin``), each serving the three
+    kw taps; units whose input frame lies in the causal past (kt < time_pad
+    - to) are skipped."""
+    chunks = ci_pad // WG_CHUNK
+    return range(max(0, time_pad - to) * 3 * chunks, 9 * chunks)
+
+
+def unit_origin(ci_pad: int, u: int) -> Tuple[int, int, int]:
+    """(kt, kh, first channel) of K unit ``u``."""
+    chunks = ci_pad // WG_CHUNK
+    g, c = divmod(u, chunks)
+    return g // 3, g % 3, c * WG_CHUNK
 
 
 def quantize_weight(weight: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -181,9 +260,17 @@ def load_library() -> ctypes.CDLL:
     if _library is None:
         from ..utils.cuda_build import build
         lib = build("conv_int8.cu").lib
-        fn = lib.deepv_conv3d_int8
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        lib.deepv_quantize_k3.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                                           ctypes.c_void_p] + [ctypes.c_int] * 6
+                                          + [ctypes.c_void_p])
+        lib.deepv_conv3d_int8.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
+                                          + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 11
+                                          + [ctypes.c_void_p])
+        lib.deepv_conv3d_int8_wgmma.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
+                                                + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 13
+                                                + [ctypes.c_void_p])
+        for fn in (lib.deepv_quantize_k3, lib.deepv_conv3d_int8, lib.deepv_conv3d_int8_wgmma):
+            fn.restype = ctypes.c_int
         _library = lib
     return _library
 
@@ -199,46 +286,103 @@ def _check_kernel_inputs(x: torch.Tensor, p, time_pad: int) -> None:
     if time_pad not in (0, 2) or t_in + time_pad - 2 < 1:
         raise ValueError(f"time_pad must be 0 or 2 with at least one output frame; got "
                          f"time_pad={time_pad}, t_in={t_in}")
-    if b * (t_in + time_pad - 2) > 65535:
-        raise ValueError(f"int8 conv kernel takes at most 65535 output frames, got "
-                         f"{b * (t_in + time_pad - 2)}")
+    if b * (t_in + time_pad - 2) > 65535 or b * t_in > 65535 or h > 65535:
+        raise ValueError(f"int8 conv kernels take at most 65535 frames and rows, got "
+                         f"b={b}, t_in={t_in}, h={h}")
 
 
-def _launch(x: torch.Tensor, p, time_pad: int, acc_only: bool) -> torch.Tensor:
-    """Quantise x and launch the kernel: the dequantised output in x's
-    dtype, or (``acc_only``) the int32 accumulators."""
-    global launches
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def quantize_k3(x: torch.Tensor, sx: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``quantize_input_k3`` by the quantise kernel: (x8 [b, t, h, w,
+    ci_pad] int8, sx), with sx from ``input_scale`` unless given. The plain
+    version for a tensor on the CPU; on CUDA the kernel, or an error."""
+    global quantize_launches
+    if x.device.type == "cpu":
+        return quantize_input_k3(x)
     if x.device.type != "cuda":
-        raise ValueError(f"the int8 conv kernel runs on CUDA tensors, got {x.device}")
-    _check_kernel_inputs(x, p, time_pad)
+        raise ValueError(f"the quantise kernel runs on CUDA tensors, got {x.device}")
+    if x.dtype not in _OUT_CODE or x.dim() != 5:
+        raise TypeError(f"the quantise kernel takes [b, ci, t, h, w] float32 or bfloat16, got "
+                        f"{x.dtype} {tuple(x.shape)}")
+    lib = load_library()
+    x = x.contiguous()
+    b, ci, t, h, w = x.shape
+    sx = input_scale(x) if sx is None else sx
+    if sx.dtype != torch.float32 or sx.numel() != 1 or sx.device != x.device:
+        raise ValueError("sx must be one float32 on x's device")
+    ci_pad = _round_up(ci, CI_STEP)
+    x8 = torch.empty((b, t, h, w, ci_pad), dtype=torch.int8, device=x.device)
+    err = lib.deepv_quantize_k3(x.data_ptr(), _OUT_CODE[x.dtype], sx.data_ptr(), x8.data_ptr(),
+                                b, ci, ci_pad, t, h, w, _stream(x))
+    if err != 0:
+        raise RuntimeError(f"int8 quantise kernel launch failed: error {err}")
+    quantize_launches += 1
+    return x8, sx
+
+
+def conv_k3(x8: torch.Tensor, sx: torch.Tensor, p, time_pad: int, dtype: torch.dtype,
+            acc_only: bool = False) -> torch.Tensor:
+    """The conv kernel ``plan`` picks, on a quantised input (``quantize_k3``'s
+    x8 [b, t_in, h, w, ci_pad] and sx): [b, co, t_in + time_pad - 2, h, w],
+    dequantised in ``dtype``, or (``acc_only``) the int32 accumulators."""
+    global launches, mma_launches
+    if x8.device.type != "cuda":
+        raise ValueError(f"the int8 conv kernel runs on CUDA tensors, got {x8.device}")
     lib = load_library()
     w8, sw = _weights(p)
     wk = p.weight_k3 if hasattr(p, "weight_k3") else k3_weight(w8)
-    co = p.weight.shape[0]
-    b, _, t_in, h, w = x.shape
-    t_out = t_in + time_pad - 2
-    x8, sx = quantize_input_k3(x)
-    scale = (sx * sw).contiguous()
     bias = getattr(p, "bias", None)
-    bias = (scale.new_zeros((co,)) if bias is None else bias.to(torch.float32)).contiguous()
-    for name, t in (("weight", wk), ("scale", scale), ("bias", bias)):
-        if t.device != x.device:
-            raise ValueError(f"{name} must lie on x's CUDA device, got {t.device}")
+    if bias is not None and bias.dtype not in _OUT_CODE:
+        bias = bias.to(torch.float32)
+    for name, t in (("weight", wk), ("weight scale", sw), ("bias", bias), ("sx", sx)):
+        if t is not None and (t.device != x8.device or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous on x's CUDA device, got {t.device}")
+    if sw.dtype != torch.float32 or sx.dtype != torch.float32:
+        raise TypeError(f"scales must be float32, got {sw.dtype} and {sx.dtype}")
+    co, ci = p.weight.shape[:2]
+    b, t_in, h, w, ci_pad = x8.shape
+    if x8.dtype != torch.int8 or not x8.is_contiguous() or ci_pad != _round_up(ci, CI_STEP):
+        raise ValueError(f"x8 must be contiguous int8 [b, t, h, w, {_round_up(ci, CI_STEP)}], "
+                         f"got {x8.dtype} {tuple(x8.shape)}")
+    t_out = t_in + time_pad - 2
+    pl = plan(ci, co, h, w, b, t_out)
     shape = (b, co, t_out, h, w)
     if acc_only:
-        acc, out = torch.empty(shape, dtype=torch.int32, device=x.device), None
+        acc, out = torch.empty(shape, dtype=torch.int32, device=x8.device), None
     else:
-        acc, out = None, torch.empty(shape, dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.deepv_conv3d_int8(
-        x8.data_ptr(), wk.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-        None if out is None else out.data_ptr(), None if acc is None else acc.data_ptr(),
-        b, x8.shape[-1], co, wk.shape[1], t_in, t_out, h, w, time_pad, _OUT_CODE[x.dtype],
-        channel_tile(co), stream)
+        acc, out = None, torch.empty(shape, dtype=dtype, device=x8.device)
+    ptrs = (x8.data_ptr(), wk.data_ptr(), sx.data_ptr(), sw.data_ptr(),
+            None if bias is None else bias.data_ptr(),
+            _OUT_CODE[bias.dtype] if bias is not None else 0,
+            None if out is None else out.data_ptr(), None if acc is None else acc.data_ptr())
+    if pl.kernel == "wgmma":
+        err = lib.deepv_conv3d_int8_wgmma(*ptrs, b, ci_pad, co, wk.shape[1], t_in, t_out, h, w,
+                                          time_pad, _OUT_CODE[dtype], pl.bn, pl.mb, pl.segs,
+                                          _stream(x8))
+    else:
+        err = lib.deepv_conv3d_int8(*ptrs, b, ci_pad, co, wk.shape[1], t_in, t_out, h, w,
+                                    time_pad, _OUT_CODE[dtype], pl.bn, _stream(x8))
     if err != 0:
-        raise RuntimeError(f"int8 conv kernel launch failed: error {err}")
-    launches += 1
+        raise RuntimeError(f"int8 conv kernel ({pl.kernel}) launch failed: error {err}")
+    if pl.kernel == "wgmma":
+        launches += 1
+    else:
+        mma_launches += 1
     return acc if acc_only else out
+
+
+def _launch(x: torch.Tensor, p, time_pad: int, acc_only: bool) -> torch.Tensor:
+    """Quantise x and launch the conv kernel: the dequantised output in x's
+    dtype, or (``acc_only``) the int32 accumulators."""
+    if x.device.type != "cuda":
+        raise ValueError(f"the int8 conv kernel runs on CUDA tensors, got {x.device}")
+    _check_kernel_inputs(x, p, time_pad)
+    x8, sx = quantize_k3(x)
+    return conv_k3(x8, sx, p, time_pad, x.dtype, acc_only)
 
 
 def conv3d_int8(x: torch.Tensor, p, time_pad: int = 2) -> torch.Tensor:

@@ -13,9 +13,12 @@ dequant epilogue:
 with rounding half to even. Note the two scales clamp at different points,
 as deepv_tpu's do. The product is ``torch._int_mm`` (cuBLASLt on CUDA, the
 same call on the CPU); it is a plain matrix product outside any kernel, as
-deepv_tpu leaves it to XLA's ``dot_general``. Its shape rules (more than 16
-rows, k and n multiples of 8) are checked here on every device: a shape
-that breaks them raises, it never falls back to a floating-point product.
+deepv_tpu leaves it to XLA's ``dot_general``. It takes more than 16 rows and
+k, n multiples of 8; ``int_mm`` zero-pads any other shape up to that rule on
+every device and slices the product back. Zero rows and columns add exactly
+0 to the int32 sums, so deepv_tpu's shapes (a 16-row stage-0 product, odd
+widths) compute, bit-equal, and nothing falls back to a floating-point
+product.
 
 ``ops/basic.linear`` dispatches here when the module carries
 ``weight_int8``; which layers do is decided by ``models/mmdit.quantize_mmdit``
@@ -47,17 +50,29 @@ def quantize_tokens(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.round(xf / sx).to(torch.int8), sx
 
 
+#: ``torch._int_mm``'s CUDA shape rule: more than this many rows ...
+MIN_ROWS = 16
+#: ... and k, n multiples of this
+K_N_STEP = 8
+
+
 def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``torch._int_mm(a, b)`` (int8 [m, k] @ int8 [k, n] -> int32) under
-    its CUDA shape rules, on every device."""
+    """``a @ b`` (int8 [m, k] @ int8 [k, n] -> int32) by ``torch._int_mm``,
+    on every device: a shape outside its CUDA rule is zero-padded to at
+    least 17 rows and to k, n multiples of 8, and the product sliced back
+    (the padding adds exactly 0 to every sum)."""
     global calls
     m, k = a.shape
     n = b.shape[1]
-    if m <= 16 or k % 8 or n % 8:
-        raise ValueError(f"int8 product needs more than 16 rows and k, n multiples of 8; "
-                         f"got m={m}, k={k}, n={n}")
+    mp = max(m, MIN_ROWS + 1)
+    kp, np_ = -(-k // K_N_STEP) * K_N_STEP, -(-n // K_N_STEP) * K_N_STEP
+    if (mp, kp) != (m, k):
+        a = torch.nn.functional.pad(a, (0, kp - k, 0, mp - m))
+    if (kp, np_) != (k, n):                # padded as [n, k]: b stays column-major
+        b = torch.nn.functional.pad(b.t(), (0, kp - k, 0, np_ - n)).t()
     calls += 1
-    return torch._int_mm(a, b)
+    out = torch._int_mm(a, b)
+    return out if (mp, np_) == (m, n) else out[:m, :n]
 
 
 def linear_int8(x: torch.Tensor, p) -> torch.Tensor:

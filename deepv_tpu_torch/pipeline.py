@@ -509,9 +509,15 @@ class InferencePipeline:
 
     def generate_i2v(self, noise, motion_prompt: Sequence[str], use_motion_prompt: bool,
                      input_image: torch.Tensor, input_disparity, input_raymap,
-                     input_history, video_guidance_scale: float = 3.5, dec_state=None,
+                     input_history, guidance_scale: float = 4.0,
+                     video_guidance_scale: float = 3.5, use_linear_guidance: bool = False,
+                     alpha: float = 1.0, min_guidance_scale: float = 1.1, dec_state=None,
                      carry_rgb_latent: Optional[torch.Tensor] = None):
-        """One chunk. ``dec_state`` is the previous chunk's (rgb, disparity)
+        """One chunk; deepv_tpu's parameters in its order, with the noise
+        source where deepv_tpu takes its PRNG key. Each unit's guidance is
+        ``video_guidance_scale``, or with ``use_linear_guidance`` unit i's
+        ``max(guidance_scale - alpha * i, min_guidance_scale)``.
+        ``dec_state`` is the previous chunk's (rgb, disparity)
         decoder caches (``reuse_decoder_cache``), ``carry_rgb_latent`` its
         carried rgb latents (``carry_latents``). Returns (image, disparity,
         trans3d, trans2d, dec_state, carry latents, full_window); the two
@@ -588,7 +594,14 @@ class InferencePipeline:
                 for fi in range(input_image_latent.shape[2]):
                     stream_push(input_image_latent[:, :, fi:fi + 1])
 
+        if use_linear_guidance:
+            # per-unit decayed guidance
+            guidance_list = [max(guidance_scale - alpha * t_, min_guidance_scale)
+                             for t_ in range(num_units + 1)]
+
         for unit_index in range(start_unit_index, num_units):
+            if use_linear_guidance:
+                video_guidance_scale = guidance_list[unit_index]
             prompt = motion_prompt[unit_index - int(firstframe_mask)]
             pe, pm, pp = self._embeds_for(prompt if use_motion_prompt else str(prompt))
             ne, nm, npo = self._embeds_for("empty")
@@ -655,10 +668,12 @@ class InferencePipeline:
     # -- full rollout -------------------------------------------------------
 
     @torch.inference_mode()
-    def generate(self, batch: Dict, seed: int = 666, video_guidance_scale: float = 3.5,
-                 noise=None) -> Dict:
+    def generate(self, batch: Dict, seed: int = 666, guidance_scale: float = 4.0,
+                 video_guidance_scale: float = 3.5, noise=None) -> Dict:
         """Roll out ``batch`` ({"img": [1, 3, H, W] in [-1, 1], "prompt":
-        per-unit sentences, "prompt_type"}). ``noise`` replaces the default
+        per-unit sentences, "prompt_type"}); deepv_tpu's parameters in its
+        order (``guidance_scale`` reaches ``generate_i2v``, where only linear
+        guidance reads it). ``noise`` replaces the default
         ``TorchNoise(seed, device)``. The output adds ``history_index``: the
         frame retrieved at each chunk boundary."""
         cfg = self.cfg
@@ -700,8 +715,9 @@ class InferencePipeline:
             (images, disparitys, trans3d, trans2d, dec_state, carry_lat,
              full_window) = self.generate_i2v(
                 noise, motion_prompt, use_motion, input_image, input_disparity,
-                input_raymap, input_history, video_guidance_scale=video_guidance_scale,
-                dec_state=ds_arg, carry_rgb_latent=carry_lat)
+                input_raymap, input_history, guidance_scale=guidance_scale,
+                video_guidance_scale=video_guidance_scale, dec_state=ds_arg,
+                carry_rgb_latent=carry_lat)
             del ds_arg
 
             if keep_tail:

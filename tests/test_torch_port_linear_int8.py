@@ -90,11 +90,39 @@ def test_output_matches_deepv_tpu(case):
 
 
 @pytest.mark.parametrize("m, k, n", [(16, 32, 32), (17, 12, 32), (17, 32, 20)])
-def test_int_mm_shape_rule_raises(m, k, n):
-    """More than 16 rows, k and n multiples of 8 (``torch._int_mm``'s CUDA
-    rule), on the CPU too; nothing falls back to a float product."""
-    with pytest.raises(ValueError, match="int8 product"):
-        tli.int_mm(torch.zeros((m, k), dtype=torch.int8), torch.zeros((k, n), dtype=torch.int8))
+def test_int_mm_pads_outside_the_cuda_shape_rule(m, k, n):
+    """Shapes ``torch._int_mm`` refuses on CUDA (16 rows; k or n not a
+    multiple of 8) are zero-padded, not refused and never sent to a float
+    product: the int32 sums bit-equal to the int64 product and to deepv_tpu's
+    ``dot_general``, the output bit-equal to the unfused order from those
+    integers and within one f32 ulp of ``jli.linear_int8`` (its possible
+    FMA, as in test_output_matches_deepv_tpu)."""
+    rng = np.random.default_rng(m * 1000 + k * 10 + n)
+    w = (rng.standard_normal((n, k)) * 0.05).astype(np.float32)
+    b = (rng.standard_normal(n) * 0.1).astype(np.float32)
+    x = (rng.standard_normal((m, k)) * 2.0).astype(np.float32)
+    ref = jli.quantize_linear({"weight": jnp.asarray(w), "bias": jnp.asarray(b)})
+    p = torch.nn.Module()
+    w8, sw = tli.quantize_linear(torch.from_numpy(w))
+    p.register_buffer("weight_int8", w8)
+    p.register_buffer("weight_scale", sw)
+    p.register_buffer("bias", torch.from_numpy(b))
+    x8, sx = tli.quantize_tokens(torch.from_numpy(x))
+    before = tli.calls
+    acc = tli.int_mm(x8, p.weight_int8.t())
+    assert tli.calls - before == 1 and acc.dtype == torch.int32 and tuple(acc.shape) == (m, n)
+    x8_ref, sx_ref = _reference_tokens(x)
+    exact = x8_ref.astype(np.int64) @ np.asarray(ref["weight_int8"]).astype(np.int64).T
+    np.testing.assert_array_equal(acc.numpy(), exact)
+    acc_ref = jax.lax.dot_general(jnp.asarray(x8_ref), ref["weight_int8"],
+                                  (((1,), (1,)), ((), ())), preferred_element_type=jnp.int32)
+    np.testing.assert_array_equal(acc.numpy(), np.asarray(acc_ref))
+    got = tli.linear_int8(torch.from_numpy(x), p).numpy()
+    unfused = ((exact.astype(np.float32) * sx_ref) * np.asarray(ref["weight_scale"])
+               + np.asarray(ref["bias"]))
+    np.testing.assert_array_equal(got, unfused.astype(np.float32))
+    np.testing.assert_array_max_ulp(got, np.asarray(jli.linear_int8(jnp.asarray(x), ref)),
+                                    maxulp=1)
 
 
 @pytest.fixture(scope="module")
@@ -144,3 +172,58 @@ def test_quantize_mmdit_frees_the_block_weights(quantised_tree):
     gc.collect()
     assert all(r() is None for r in refs)
     assert kept() is not None
+
+
+def test_denoise_int8_forward_with_sixteen_rows(quantised_tree):
+    """A W8A8 forward (deepv_tpu's ``denoise_int8``) at the 64x64 tiny
+    rollout's stage-0 layout with 2 CFG rows: its video-stream products
+    have 16 rows, which ``torch._int_mm`` refuses and ``int_mm`` pads. In
+    f64 against deepv_tpu run op by op (``jax.disable_jit``: its jitted
+    program rounds the activations that feed each quantiser differently,
+    test_torch_port_fast_rollout.py), at test_torch_port_mmdit.py's atol
+    1e-8: the same f64 formulas on the same int8 integers."""
+    from deepv_tpu.config import MMDiTConfig, PipelineConfig
+    from deepv_tpu.models.mmdit import mmdit_forward as jax_forward
+    from deepv_tpu.pipeline import _pyramid_list as jax_pyramid, padded_conditions as jax_padded
+    from deepv_tpu_torch.config import PipelineConfig as TPipelineConfig
+    from deepv_tpu_torch.pipeline import (_pyramid_list as port_pyramid,
+                                          padded_conditions as port_padded)
+    from test_torch_port_mmdit import _inputs, correctly_rounded
+
+    # one block, the fixture's last (its video stream runs every quantised
+    # linear), keeps the op-by-op reference cheap: each op compiles apart
+    tree = jax.tree.map(lambda a: a.numpy().astype(np.float64), quantised_tree)
+    tree["transformer_blocks"] = tree["transformer_blocks"][-1:]
+    cfg = dict(MCFG, num_layers=1)
+    gen, lat, text, mask, pooled, t, _ = _inputs(2, 0, seed=5)
+    with jax.enable_x64(), jax.disable_jit(), pytest.MonkeyPatch.context() as mp:
+        for name in ("exp", "cos", "sin"):
+            mp.setattr(jnp, name, correctly_rounded(getattr(jnp, name)))
+        clips, times, valid = jax_padded(PipelineConfig(), jax_pyramid(jnp.asarray(gen), 2),
+                                         3, True, 2)[0]
+        qtree = jli.quantize_mmdit_params(jax.tree.map(jnp.asarray, tree), keep_original=False)
+        ref = np.asarray(jax_forward(
+            MMDiTConfig(**cfg), qtree, list(clips) + [jnp.asarray(np.concatenate([lat] * 2))],
+            jnp.asarray(text), jnp.asarray(mask), jnp.asarray(pooled), jnp.asarray(t),
+            frame_times=list(times), frame_valid=list(valid)))
+    model = params_from_numpy(port_mmdit.MMDiT(TMMDiTConfig(**cfg)), tree)
+    port_mmdit.quantize_mmdit(model)
+    rows = []
+    orig = tli.int_mm
+
+    def spy(a, b):
+        rows.append(a.shape[0])
+        return orig(a, b)
+
+    clips, times, valid = port_padded(TPipelineConfig(), port_pyramid(torch.from_numpy(gen), 2),
+                                      3, True, 2)[0]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tli, "int_mm", spy)
+        out = port_mmdit.mmdit_forward(
+            model, list(clips) + [torch.from_numpy(np.concatenate([lat] * 2))],
+            torch.from_numpy(text), torch.from_numpy(mask), torch.from_numpy(pooled),
+            torch.from_numpy(t), frame_times=list(times), frame_valid=list(valid),
+            split_last_attn=True)
+    assert 16 in rows and min(rows) == 16, sorted(set(rows))
+    assert tuple(out.shape) == ref.shape == (2, 14, 1, 2, 2)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-8)

@@ -30,7 +30,8 @@ before), then, from one run under
 ``torch.profiler``: the device busy time (the union of kernel intervals),
 the idle share ``1 - busy / wall``, the number of kernels, the device time
 and launches by kernel class (the attention kernel K1, the igemm conv
-kernel K2, the int8 conv kernel K3, the int8 products of ``_int_mm``, other
+kernel K2, K3's quantise kernel and its conv kernels apart, the int8
+products of ``_int_mm``, other
 GEMMs, cuDNN convolutions, the rest; a line per denoise unit gives K1's
 seconds and launches beside the device-busy seconds) and,
 for the denoise units, the rate the GEMMs reach on the linear layers'
@@ -59,6 +60,8 @@ def classify(name: str) -> str:
         return "attention_kernel"
     if "conv3d_igemm" in n:
         return "conv_igemm_kernel"
+    if "quantize_k3_input" in n:
+        return "conv_int8_quantise"
     if "conv3d_int8" in n:
         return "conv_int8_kernel"
     if "gemm" in n and any(t in n for t in ("s8", "i8", "imma", "int8")):
@@ -259,8 +262,14 @@ def main() -> int:
 
         quantize_vae_convs(pipe.vae)
         pipe.vcfg = dataclasses.replace(pipe.vcfg, conv_impl="int8")
-        rows_out.append(measure("decode_int8", decode))
-        rows_out.append(measure("encode_int8", encode))
+        for name, fn in (("decode_int8", decode), ("encode_int8", encode)):
+            row = measure(name, fn)
+            rows_out.append(row)
+            sec, cnt = row["device_s_by_class"], row["kernels_by_class"]
+            print(f"{name}: K3 quantise kernel {sec.get('conv_int8_quantise', 0.0):.4f} s in "
+                  f"{cnt.get('conv_int8_quantise', 0)} launches, conv kernels "
+                  f"{sec.get('conv_int8_kernel', 0.0):.4f} s in "
+                  f"{cnt.get('conv_int8_kernel', 0)} launches", flush=True)
 
         pipe.flow_cache, pipe.adaptive_tau = "adaptive:0.5", 0.5
         denoise("denoise_adaptive_b2", 2)
