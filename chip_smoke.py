@@ -38,7 +38,11 @@ Phases, in order; any failure exits non-zero before the last line:
      history CFG, boundary priming, carry re-encode). The kernels' launch
      counts are set to 0 just before and read just after: K1 launches 4,320
      times (its bf16 kernel; the per-layout launches of phase 3 add up to
-     it), its f32 kernel and K2 never (the default conv is F.conv3d);
+     it), its f32 kernel and K2 never (the default conv is F.conv3d). An
+     on_frames hook sees 12 windows (chunk 1: 1 frame, then 7 x 8; chunk 2:
+     4 x 8) that concatenate to the output bit for bit, and times the first
+     window from the call of generate(), synchronised in the callback. The
+     test image holds float16 values, so phase 13 can send it on the wire;
   6. forward check: one full-width denoise forward at the stage-2, 3-row
      layout in f32 with K1's f32 kernel against the same forward with the
      plain attention;
@@ -77,10 +81,29 @@ Phases, in order; any failure exits non-zero before the last line:
      wgmma and mma both), its quantise kernel 247, _int_mm once per
      quantised linear of every forward; 89 finite frames, and the gap to
      phase 5's frames in 8-bit units (printed, not gated: random weights
-     amplify deviations);
+     amplify deviations). Then the same preset served: an InteractiveSession
+     on this pipeline stepped through the 12 actions in this thread, counts
+     set to 0 just before and read just after: its frames equal the
+     rollout's bit for bit, its recompute decisions ran 108 forwards, K1
+     24 x those, K3's conv and quantise kernels once per int8 dispatch
+     (the rollout's 247 plus step 12's opening of chunk 3), _int_mm once
+     per quantised linear of every forward;
  12. adaptive + boundary path: InferencePipeline(flow_cache="adaptive:0.5",
      reuse_decoder_cache=True, carry_latents=True), same inputs; K1 24 x the
-     forwards the pipeline records as run, no priming, 89 finite frames.
+     forwards the pipeline records as run, no priming, 89 finite frames;
+ 13. serving: serve.prewarm, then serve.SessionServer on 127.0.0.1 over a
+     load_pipeline with phase 5's weights; POST /session with phase 5's
+     image and seed, one POST /step per unit of the prompt (12), POST
+     /close. Counts set to 0 just before the session and read just after
+     its last step: K1 4,320, its f32 kernel, K2 and K3 never. chunk_complete
+     at steps 8 and 12 only, 89 frames, which equal phase 5's rgb and
+     disparity cast to float16 bit for bit. A GET /metrics from a second
+     thread while step 8 (the chunk boundary) holds the device lock answers
+     in under 1 s. The peak device memory stays within 1 GiB of phase
+     5's. Prints the prewarm seconds, the time to first frame
+     (POST /session to the first /step response) and the first step, the
+     step median, the boundary step, the peak device memory, and the
+     server's encode and the client's decode of one 8-frame window.
 The line before the last is a JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}. Extra detail goes to chiprun_out/.
 """
@@ -198,6 +221,8 @@ LINEAR_CASES = (("D->D (q, k, v, out)", 2 * 2016, 1536, 1536),
 #: int_mm shapes that torch._int_mm's CUDA rule refuses and int_mm pads:
 #: (rows, k, n)
 PADDED_INT_MM_CASES = ((16, 1536, 1536), (17, 12, 20))
+#: seconds any one HTTP call of phase 13 may take
+HTTP_TIMEOUT = 600
 
 
 def log(*args):
@@ -418,23 +443,41 @@ def check_attention(device, results):
 
 def rollout_batch():
     """The rollout's input: a smooth 384x512 test image with seeded noise and
-    the 11-action prompt."""
+    the 11-action prompt. The image holds float16 values, so it reaches a
+    served session (float16 on the wire) unchanged."""
     import numpy as np
     from deepv_tpu_torch.actions import prepare_motion_prompts
 
     rng = np.random.default_rng(0)
     yy, xx = np.mgrid[0:HEIGHT, 0:WIDTH] / np.array([HEIGHT, WIDTH])[:, None, None]
     img = np.stack([np.sin(6 * xx + 2 * c) * np.cos(4 * yy - c) for c in range(3)])
-    img = np.clip(img + 0.1 * rng.standard_normal(img.shape), -1, 1)[None].astype(np.float32)
+    img = np.clip(img + 0.1 * rng.standard_normal(img.shape), -1, 1)[None].astype(np.float16)
+    img = img.astype(np.float32)
     return {"img": img, "prompt": np.array(prepare_motion_prompts("action", PROMPT)),
             "prompt_type": "action"}
 
 
-def drive_rollout(pipe, setup_s: float):
+class FrameHook:
+    """An ``on_frames`` callback: keeps every decoded window, and the seconds
+    from ``t0`` to the first window, synchronised inside the callback."""
+
+    def __init__(self):
+        self.windows, self.first_s, self.t0 = [], None, None
+
+    def __call__(self, rgb, disp):
+        import torch
+        if self.first_s is None:
+            torch.cuda.synchronize()
+            self.first_s = time.perf_counter() - self.t0
+        self.windows.append((rgb, disp))
+
+
+def drive_rollout(pipe, setup_s: float, hook: "FrameHook | None" = None):
     """generate() with every kernel count set to 0 just before and read just
     after; checks the outputs and K1's count: one launch per block of every
     forward the pipeline records as run (all of them without flow caching).
-    Returns (summary, pred_img, K2 launches)."""
+    ``hook`` becomes ``pipe.on_frames`` for the call, timed from the call.
+    Returns (summary, output, K2 launches)."""
     import torch
     from deepv_tpu_torch.ops import attention as att
     from deepv_tpu_torch.ops import conv_igemm as cig
@@ -442,16 +485,22 @@ def drive_rollout(pipe, setup_s: float):
     from deepv_tpu_torch.ops import linear_int8 as li8
 
     pipe.timer.sync = True
-    pipe.recompute_log = []
     resident = torch.cuda.memory_allocated() / 2 ** 30      # weights and buffers
     torch.cuda.reset_peak_memory_stats()
     att.launches = att.f32_launches = 0
     for name in K2_COUNTERS:
         setattr(cig, name, 0)
     ci8.launches = ci8.mma_launches = ci8.quantize_launches = li8.calls = 0
+    batch = rollout_batch()
+    pipe.on_frames = hook
     t0 = time.perf_counter()
-    out = pipe.generate(rollout_batch(), seed=666)
-    torch.cuda.synchronize()
+    if hook is not None:
+        hook.t0 = t0
+    try:
+        out = pipe.generate(batch, seed=666)
+        torch.cuda.synchronize()
+    finally:
+        pipe.on_frames = None
     wall = time.perf_counter() - t0
     launches = att.launches
     assert att.f32_launches == 0, "the bf16 rollout launched the f32 attention kernel"
@@ -490,11 +539,34 @@ def drive_rollout(pipe, setup_s: float):
                    max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                    pixel_mean=float(img_out.float().mean()),
                    pixel_std=float(img_out.float().std()))
-    return summary, img_out, conv_launches
+    return summary, out, conv_launches
+
+
+def check_frame_hook(hook: FrameHook, out, n_carry: int) -> None:
+    """Phase 5's on_frames windows: chunk 1 one frame then 7 x 8, chunk 2
+    (exact priming) 4 x 8 new frames; concatenated, they are the output bit
+    for bit, disparity after each chunk's post-map (chunk 2's scale factor
+    is the carry's, from its first carried frame)."""
+    import torch
+    from deepv_tpu_torch.pipeline import _disparity_postmap
+
+    frames = [rgb.shape[2] for rgb, _ in hook.windows]
+    assert frames == [1] + [8] * 7 + [8] * 4, f"on_frames windows {frames}"
+    assert torch.equal(torch.cat([w for w, _ in hook.windows], dim=2), out["pred_img"]), \
+        "on_frames windows differ from pred_img"
+    disp = out["pred_disparity"]
+    n1 = sum(frames[:8])
+    sf1 = torch.tensor(1.0, dtype=torch.float32, device=disp.device)
+    sf2 = 1.0 / disp[:, :, n1 - n_carry].max()
+    for windows, sf, ref in ((hook.windows[:8], sf1, disp[:, :, :n1]),
+                             (hook.windows[8:], sf2, disp[:, :, n1:])):
+        got = _disparity_postmap(torch.cat([d for _, d in windows], dim=2), sf)
+        assert torch.equal(got, ref), "on_frames disparity windows differ from pred_disparity"
 
 
 def run_main_path(device, results):
-    """Phase 5: the full-width rollout through the user's entry points."""
+    """Phase 5: the full-width rollout through the user's entry points, with
+    the on_frames hook."""
     import torch
     from deepv_tpu_torch.config import create_model_config
     from deepv_tpu_torch.run import load_pipeline
@@ -508,14 +580,21 @@ def run_main_path(device, results):
     n_params = sum(p.numel() for p in pipe.mmdit.parameters())
     log(f"main path: pipeline with {n_params / 1e9:.3f} B MMDiT parameters ready in "
         f"{setup_s:.1f} s")
-    main, frames, conv_launches = drive_rollout(pipe, setup_s)
+    hook = FrameHook()
+    main, out, conv_launches = drive_rollout(pipe, setup_s, hook)
+    check_frame_hook(hook, out, pipe.cfg.num_input_image)
+    main["on_frames_windows"] = len(hook.windows)
+    main["first_frame_s"] = hook.first_s
+    log(f"main path: time to first frame (generate() to the first on_frames window, "
+        f"synchronised) {hook.first_s:.3f} s; {len(hook.windows)} windows equal the output")
+    del hook
     assert not any(conv_launches.values()), f"the default (xla) path launched K2: {conv_launches}"
     assert main["forwards"] == FORWARDS, f"the exact rollout ran {main['forwards']} forwards"
     assert (main["conv_int8_launches"] == main["quantize_k3_launches"]
             == main["int_mm_calls"] == 0), main
     log("main path:", json.dumps(main))
     results["main_path"] = main
-    return pipe, main["attention_launches"], frames
+    return pipe, main["attention_launches"], out["pred_img"], out["pred_disparity"]
 
 
 def check_forward(pipe, device, results):
@@ -745,9 +824,10 @@ def run_igemm_path(device, results, ref_frames):
 
     causal_conv.conv3d_igemm = spy
     try:
-        summary, frames, conv_launches = drive_rollout(pipe, setup_s)
+        summary, out, conv_launches = drive_rollout(pipe, setup_s)
     finally:
         causal_conv.conv3d_igemm = orig
+    frames = out["pred_img"]
     assert summary["forwards"] == FORWARDS, summary["forwards"]
     stats = pipe.timer.stats()
     expected = expected_conv_launches(pipe, stats, len(summary["history_index"]))
@@ -1046,9 +1126,10 @@ def run_fast_path(device, results, ref_frames):
 
     causal_conv.conv3d_int8 = spy
     try:
-        summary, frames, conv_launches = drive_rollout(pipe, setup_s)
+        summary, out, conv_launches = drive_rollout(pipe, setup_s)
     finally:
         causal_conv.conv3d_int8 = orig
+    frames = out["pred_img"]
     mcfg = pipe.mcfg
     assert summary["forwards"] == 108, f"skip_odd ran {summary['forwards']} forwards, not 108"
     assert summary["attention_launches"] == 108 * mcfg.num_layers == 2592
@@ -1068,6 +1149,52 @@ def run_fast_path(device, results, ref_frames):
                    conv_int8_frames_by_class={f"{ci}->{co} @{h}x{w}": n for (ci, co, h, w), n
                                               in frames_by_class.items()},
                    gap_vs_main_path_8bit_mean=mean8, gap_vs_main_path_8bit_p95=p95)
+
+    # the same preset served, one unit a step
+    from deepv_tpu_torch import serve
+    from deepv_tpu_torch.ops import attention as att
+    from deepv_tpu_torch.ops import conv_igemm as cig
+    from deepv_tpu_torch.ops import conv_int8 as ci8
+    from deepv_tpu_torch.ops import linear_int8 as li8
+
+    batch = rollout_batch()
+    actions = serve.InteractiveSession.actions_from_prompt_list(pipe.cfg, list(batch["prompt"]))
+    calls[0], forwards, steps = 0, 0, []
+    att.launches = att.f32_launches = 0
+    for name in K2_COUNTERS:
+        setattr(cig, name, 0)
+    ci8.launches = ci8.mma_launches = ci8.quantize_launches = li8.calls = 0
+    causal_conv.conv3d_int8 = spy
+    try:
+        t = time.perf_counter()
+        sess = serve.InteractiveSession(pipe)
+        sess.start(batch["img"], seed=666)
+        for action in actions:
+            steps.append(sess.step(action))
+            forwards += sum(map(sum, sess.recompute_log))
+        torch.cuda.synchronize()
+        served_s = time.perf_counter() - t
+    finally:
+        causal_conv.conv3d_int8 = orig
+    served = dict(wall_s=served_s, forwards=forwards, attention_launches=att.launches,
+                  attention_f32_launches=att.f32_launches,
+                  conv_igemm_launches={name: getattr(cig, name) for name in K2_COUNTERS},
+                  conv_int8_launches=ci8.launches + ci8.mma_launches,
+                  quantize_k3_launches=ci8.quantize_launches, int_mm_calls=li8.calls,
+                  expected_conv_int8_launches=calls[0])
+    rgb = torch.cat([s["rgb"] for s in steps], dim=2)
+    disp = torch.cat([s["disparity"] for s in steps], dim=2)
+    assert torch.equal(rgb, frames) and torch.equal(disp, out["pred_disparity"]), (
+        "the served --fast session's frames differ from the --fast rollout's")
+    assert forwards == summary["forwards"], (forwards, summary["forwards"])
+    assert served["attention_launches"] == forwards * mcfg.num_layers, served
+    assert served["attention_f32_launches"] == 0, served
+    assert not any(served["conv_igemm_launches"].values()), served
+    assert served["conv_int8_launches"] == served["quantize_k3_launches"] == calls[0] \
+        > FAST_CONV_INT8_CALLS, served
+    assert served["int_mm_calls"] == forwards * quantised, served
+    summary["served"] = served
+    del sess, steps, rgb, disp
     log("fast path:", json.dumps(summary))
     results["fast_path"] = summary
     del pipe
@@ -1100,7 +1227,8 @@ def run_adaptive_boundary_path(device, results, ref_frames):
                              flow_cache="adaptive:0.5", reuse_decoder_cache=True,
                              carry_latents=True)
     torch.cuda.synchronize()
-    summary, frames, conv_launches = drive_rollout(pipe, time.perf_counter() - t0)
+    summary, out, conv_launches = drive_rollout(pipe, time.perf_counter() - t0)
+    frames = out["pred_img"]
     assert not any(conv_launches.values()), conv_launches
     assert (summary["conv_int8_launches"] == summary["quantize_k3_launches"]
             == summary["int_mm_calls"] == 0), summary
@@ -1110,6 +1238,182 @@ def run_adaptive_boundary_path(device, results, ref_frames):
                    gap_vs_main_path_8bit_mean=mean8, gap_vs_main_path_8bit_p95=p95)
     log("adaptive + boundary path:", json.dumps(summary))
     results["adaptive_boundary_path"] = summary
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary
+
+
+def http_call(port: int, method: str, path: str, obj=None):
+    """One JSON request to the local server; returns (status, body)."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=HTTP_TIMEOUT)
+    try:
+        body = None if obj is None else json.dumps(obj)
+        conn.request(method, path, body, {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        return r.status, json.loads(r.read())
+    finally:
+        conn.close()
+
+
+def wire_f16(d):
+    """A /step payload's float16 values as sent."""
+    import base64
+    import numpy as np
+    return np.frombuffer(base64.b64decode(d["data"]), np.float16).reshape(d["shape"])
+
+
+def run_serving_path(device, results, ref_frames, ref_disparity, main_launches: int):
+    """Phase 13: interactive serving at full width on phase 5's weights,
+    image, prompt and seed: prewarm, then a SessionServer on 127.0.0.1 and a
+    session over HTTP, one POST /step per unit, with the counts set to 0
+    just before the session and read just after its last step; a GET
+    /metrics from a second thread while the chunk-boundary step holds the
+    device lock; POST /close."""
+    import threading
+    import numpy as np
+    import torch
+    from deepv_tpu_torch import serve
+    from deepv_tpu_torch.config import create_model_config
+    from deepv_tpu_torch.ops import attention as att
+    from deepv_tpu_torch.ops import conv_igemm as cig
+    from deepv_tpu_torch.ops import conv_int8 as ci8
+    from deepv_tpu_torch.ops import linear_int8 as li8
+    from deepv_tpu_torch.run import load_pipeline
+
+    t0 = time.perf_counter()
+    cfg = create_model_config("none", use_motion_prompt=True)
+    pipe = load_pipeline("none", cfg, random_weights=True, dtype=torch.bfloat16,
+                         device=device, seed=0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    prewarm_s = serve.prewarm(pipe, height=HEIGHT, width=WIDTH, log=log)
+    batch = rollout_batch()
+    actions = serve.InteractiveSession.actions_from_prompt_list(pipe.cfg, list(batch["prompt"]))
+    assert len(actions) == 12, len(actions)
+    boundary = pipe.cfg.max_temporal_length - 1         # step 8, the chunk boundary
+
+    torch.cuda.reset_peak_memory_stats()
+    att.launches = att.f32_launches = 0
+    for name in K2_COUNTERS:
+        setattr(cig, name, 0)
+    ci8.launches = ci8.mma_launches = ci8.quantize_launches = li8.calls = 0
+    server = serve.SessionServer(pipe, host="127.0.0.1", port=0)
+    port = server.start()
+    probe = {}
+
+    def probe_metrics():
+        """GET /metrics once the boundary step holds the device lock."""
+        lock, deadline = server._device_locks[0], time.perf_counter() + HTTP_TIMEOUT
+        while not lock.locked():
+            if time.perf_counter() > deadline:
+                return
+            time.sleep(0.0005)
+        t = time.perf_counter()
+        probe["status"], probe["metrics"] = http_call(port, "GET", "/metrics")
+        probe["s"] = time.perf_counter() - t
+        probe["lock_still_held"] = lock.locked()
+
+    try:
+        t_session = time.perf_counter()
+        status, resp = http_call(port, "POST", "/session",
+                                 {"image": serve._np_b64(batch["img"]), "seed": 666})
+        assert status == 200, resp
+        sid = resp["session_id"]
+        session_s = time.perf_counter() - t_session
+        rgb, disp, step_s, complete, totals = [], [], [], [], []
+        for i, action in enumerate(actions):
+            prober = threading.Thread(target=probe_metrics) if i == boundary else None
+            if prober is not None:
+                prober.start()
+            ts = time.perf_counter()
+            status, out = http_call(port, "POST", "/step", {"session_id": sid, "action": action})
+            step_s.append(time.perf_counter() - ts)
+            assert status == 200, out
+            if i == 0:
+                first_frame_s = time.perf_counter() - t_session
+            if prober is not None:
+                prober.join(timeout=HTTP_TIMEOUT)
+            rgb.append(wire_f16(out["rgb"]))
+            disp.append(wire_f16(out["disparity"]))
+            complete.append(out["chunk_complete"])
+            totals.append(out["frames_total"])
+        launches = dict(attention=att.launches, attention_f32=att.f32_launches,
+                        **{f"conv_igemm_{k}": getattr(cig, k) for k in K2_COUNTERS},
+                        conv_int8=ci8.launches + ci8.mma_launches,
+                        quantize_k3=ci8.quantize_launches, int_mm=li8.calls)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        status, closed = http_call(port, "POST", "/close", {"session_id": sid})
+        assert (status, closed) == (200, {"closed": True}), (status, closed)
+        status, metrics = http_call(port, "GET", "/metrics")
+        assert status == 200 and metrics["sessions"] == 0, metrics
+    finally:
+        server.stop()
+
+    expected = [False] * boundary + [True] + [False] * 3 + [True]
+    assert complete == expected, f"chunk_complete {complete}"
+    assert totals[-1] == 89, f"frames_total {totals[-1]}"
+    rgb, disp = np.concatenate(rgb, axis=2), np.concatenate(disp, axis=2)
+    want_rgb = np.asarray(ref_frames.float().cpu().numpy(), np.float16)
+    want_disp = np.asarray(ref_disparity.float().cpu().numpy(), np.float16)
+    assert rgb.shape == want_rgb.shape == (1, 3, 89, HEIGHT, WIDTH), rgb.shape
+    rgb_diff = int((rgb != want_rgb).sum())
+    disp_diff = int((disp != want_disp).sum())
+    assert rgb_diff == 0 and disp_diff == 0, (
+        f"served frames differ from phase 5's: {rgb_diff} rgb and {disp_diff} disparity values")
+    expected_k1 = len(actions) * len(pipe.cfg.stages) * pipe.cfg.num_inference_steps \
+        * pipe.mcfg.num_layers
+    assert launches["attention"] == expected_k1 == main_launches, (launches, main_launches)
+    assert not any(v for k, v in launches.items() if k != "attention"), launches
+    assert "s" in probe, "GET /metrics was not sent while the boundary step held the lock"
+    assert probe["status"] == 200 and probe["lock_still_held"], probe
+    assert probe["s"] < 1.0, f"/metrics took {probe['s']:.3f} s during the boundary step"
+    # a session holds what generate() holds between units: its peak stays
+    # within 1 GiB of phase 5's, step 12's opening of chunk 3 included
+    main_peak = results["main_path"]["max_memory_allocated_gib"]
+    assert peak < main_peak + 1.0, (
+        f"the served session's peak {peak:.2f} GiB is over phase 5's {main_peak:.2f} GiB + 1")
+
+    # the wire's share of a step: one 8-frame window's rgb and disparity
+    # through the server's encode (device to host, float16, base64, JSON)
+    # and the client's decode, median of 3
+    window = (ref_frames[:, :, 1:9], ref_disparity[:, :, 1:9])
+
+    def encode():
+        return json.dumps({"rgb": serve._np_b64(window[0]), "disparity": serve._np_b64(window[1])})
+
+    def decode(body):
+        out = json.loads(body)
+        return wire_f16(out["rgb"]), wire_f16(out["disparity"])
+
+    body = encode()
+    encode_s, decode_s = [], []
+    for _ in range(3):
+        t = time.perf_counter()
+        encode()
+        encode_s.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        decode(body)
+        decode_s.append(time.perf_counter() - t)
+    summary = dict(setup_s=setup_s, prewarm_s=prewarm_s, session_s=session_s,
+                   window_encode_s=float(np.median(encode_s)),
+                   window_decode_s=float(np.median(decode_s)), window_body_mb=len(body) / 1e6,
+                   first_frame_s=first_frame_s, first_step_s=step_s[0],
+                   step_s=step_s, step_median_s=float(np.median(step_s)),
+                   boundary_step_s=step_s[boundary], last_step_s=step_s[-1],
+                   metrics_during_boundary_s=probe["s"],
+                   metrics_during_boundary=probe["metrics"], launches=launches,
+                   max_memory_allocated_gib=peak, frames=int(totals[-1]))
+    log(f"serving: prewarm {prewarm_s:.2f} s; POST /session {session_s:.3f} s; time to first "
+        f"frame (POST /session to the first /step response) {first_frame_s:.3f} s, first step "
+        f"{step_s[0]:.3f} s; step median {summary['step_median_s']:.3f} s, boundary step "
+        f"{step_s[boundary]:.3f} s; /metrics during it {probe['s'] * 1e3:.1f} ms; "
+        f"peak {peak:.2f} GiB; K1 {launches['attention']} launches; 89 frames equal phase 5's; "
+        f"an 8-frame window on the wire ({len(body) / 1e6:.1f} MB): server encode "
+        f"{summary['window_encode_s']:.3f} s, client decode {summary['window_decode_s']:.3f} s")
+    log("serving path:", json.dumps(summary))
+    results["serving_path"] = summary
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
@@ -1160,7 +1464,7 @@ def main() -> int:
 
     rows = check_attention(device, results)
     conv_rows = check_conv_igemm(device, results)
-    pipe, launches, ref_frames = run_main_path(device, results)
+    pipe, launches, ref_frames, ref_disparity = run_main_path(device, results)
     check_forward(pipe, device, results)
     del pipe
     gc.collect()
@@ -1174,7 +1478,8 @@ def main() -> int:
     check_linear_int8(device, results)
     fast, k3_frames_by_class = run_fast_path(device, results, ref_frames)
     run_adaptive_boundary_path(device, results, ref_frames)
-    del ref_frames
+    run_serving_path(device, results, ref_frames, ref_disparity, launches)
+    del ref_frames, ref_disparity
 
     assert launches == sum(r["launches_per_rollout"] for r in rows), (
         "K1's launches per layout do not add up to the rollout's")

@@ -24,6 +24,7 @@ NotImplementedError naming their ROADMAP item.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -260,6 +261,68 @@ def _not_ported(option: str, item: str):
     raise NotImplementedError(f"{option}: not ported yet (ROADMAP {item})")
 
 
+@dataclasses.dataclass
+class _Chunk:
+    """``generate_i2v``'s state between two units of one chunk: the chunk's
+    latents, the unit latents generated so far (the conditioning latents
+    first) and the streaming decoder's caches and frames. ``generate_i2v``
+    runs every unit of a chunk in one loop; a serving session runs one unit
+    a request."""
+    latents: torch.Tensor
+    generated: List[torch.Tensor]
+    firstframe_mask: bool
+    num_rows: int
+    input_history: Optional[torch.Tensor]
+    unit_index: int
+    num_units: int
+    stream: bool
+    #: the previous chunk's decoder caches, kept for the batch decode's
+    #: reuse mode (a streaming chunk starts from them instead)
+    dec_state: Optional[Tuple] = None
+    rgb: Optional[Tuple] = None
+    disp: Optional[Tuple] = None
+    first: bool = True
+    rgb_frames: List[torch.Tensor] = dataclasses.field(default_factory=list)
+    disp_frames: List[torch.Tensor] = dataclasses.field(default_factory=list)
+    #: False when the overlap's pixels are not re-decoded (cache reuse or
+    #: exact priming) and the rollout restores them from the previous chunk
+    full_window: bool = True
+
+
+@dataclasses.dataclass
+class _Rollout:
+    """``generate``'s state between chunks: the finished chunks' outputs and
+    the next chunk's conditioning (``input_raymap`` normalised)."""
+    input_image: torch.Tensor
+    scale_factor: torch.Tensor
+    input_disparity: Optional[torch.Tensor] = None
+    input_raymap: Optional[torch.Tensor] = None
+    input_history: Optional[torch.Tensor] = None
+    images_list: List[torch.Tensor] = dataclasses.field(default_factory=list)
+    disparity_list: List[torch.Tensor] = dataclasses.field(default_factory=list)
+    trans3d_list: List[torch.Tensor] = dataclasses.field(default_factory=list)
+    trans2d_list: List[torch.Tensor] = dataclasses.field(default_factory=list)
+    motion_prompt_list: List[np.ndarray] = dataclasses.field(default_factory=list)
+    history_index: List[int] = dataclasses.field(default_factory=list)
+    now_iter: int = 0
+    #: the last chunk's raw overlap frames, for a chunk that skips them
+    tail_rgb: Optional[torch.Tensor] = None
+    tail_disp: Optional[torch.Tensor] = None
+    dec_state: Optional[Tuple] = None
+    carry_lat: Optional[torch.Tensor] = None
+
+    def output(self) -> Dict:
+        """The rollout so far in ``generate``'s output format."""
+        return {
+            "pred_img": torch.cat(self.images_list, dim=2),
+            "pred_disparity": torch.cat(self.disparity_list, dim=2),
+            "motion_prompt_list": self.motion_prompt_list,
+            "trans3d": torch.cat(self.trans3d_list, dim=1),
+            "trans2d": torch.cat(self.trans2d_list, dim=1),
+            "history_index": list(self.history_index),
+        }
+
+
 # ---------------------------------------------------------------------------
 # pipeline
 # ---------------------------------------------------------------------------
@@ -304,8 +367,9 @@ class InferencePipeline:
         #: Quality-gated: outputs deviate from the exact rollout.
         self.adaptive_tau = parse_flow_cache(flow_cache)
         self.flow_cache = flow_cache
-        #: per denoise stage run since the list was last emptied, 1 for each
-        #: step whose forward ran and 0 for each skipped one
+        #: per denoise stage of the last ``generate`` call (which empties it
+        #: first), 1 for each step whose forward ran and 0 for each skipped
+        #: one; ``generate_i2v`` appends its units' stages
         self.recompute_log: List[Tuple[int, ...]] = []
         self.mmdit = params_from_numpy(MMDiT(mmdit_cfg), params["mmdit"], self.device)
         #: W8A8 denoise linears (quality-gated, ops/linear_int8.py): the
@@ -328,6 +392,14 @@ class InferencePipeline:
         #: conditioning instead of re-encoding the overlap pixels; disparity
         #: is always re-encoded. Quality-gated: outputs deviate.
         self.carry_latents = carry_latents
+        #: optional callback ``on_frames(rgb_window, disp_window)``, fired
+        #: with the raw decoded pixels of each streamed window as it is
+        #: decoded (requires ``stream_decode``): the serving hook. A window
+        #: covers the chunk overlap only when the boundary re-decodes it;
+        #: with the default exact priming (or cache reuse) chunks >= 2 emit
+        #: their new frames only (32 per chunk, not 57). Consumers that need
+        #: the full re-decode stream pass ``prime_decoder_cache=False``.
+        self.on_frames = None
         self.text_embeds = text_embeds
         self.decode_window = decode_window
         self.encode_window = encode_window
@@ -470,6 +542,9 @@ class InferencePipeline:
     def _generate_one_unit(self, noise, latents, input_history, past_conditions,
                            text_embeds, text_mask, pooled, num_rows: int,
                            guidance: float, history_scale: float):
+        """Denoise one unit through the pyramid stages. Returns the stages'
+        latents and, per stage, 1 for each step whose forward ran and 0 for
+        each skipped one."""
         cfg = self.cfg
         hist = hist_mask = None
         if input_history is not None:
@@ -478,7 +553,7 @@ class InferencePipeline:
             hlen = (input_history.shape[-1] // r // p) * (input_history.shape[-2] // r // p)
             hist_mask = torch.cat([torch.zeros((2, hlen), dtype=torch.int32, device=self.device),
                                    torch.ones((1, hlen), dtype=torch.int32, device=self.device)])
-        intermed = []
+        intermed, recompute_log = [], []
         for i_s in range(len(cfg.stages)):
             if i_s > 0:
                 alpha, beta = self.schedule.renoise_coeffs(i_s)
@@ -501,32 +576,22 @@ class InferencePipeline:
                 torch.as_tensor(ss.sigmas[1:] - ss.sigmas[:-1], device=self.device),
                 guidance, history_scale, hist, hist_mask, num_rows,
                 cfg.history_downsample_ratio, cfg.no_need_depth, recompute, self.adaptive_tau)
-            self.recompute_log.append(ran)
+            recompute_log.append(ran)
             intermed.append(latents)
-        return intermed
+        return intermed, recompute_log
 
     # -- per-chunk i2v ------------------------------------------------------
 
-    def generate_i2v(self, noise, motion_prompt: Sequence[str], use_motion_prompt: bool,
-                     input_image: torch.Tensor, input_disparity, input_raymap,
-                     input_history, guidance_scale: float = 4.0,
-                     video_guidance_scale: float = 3.5, use_linear_guidance: bool = False,
-                     alpha: float = 1.0, min_guidance_scale: float = 1.1, dec_state=None,
-                     carry_rgb_latent: Optional[torch.Tensor] = None):
-        """One chunk; deepv_tpu's parameters in its order, with the noise
-        source where deepv_tpu takes its PRNG key. Each unit's guidance is
-        ``video_guidance_scale``, or with ``use_linear_guidance`` unit i's
-        ``max(guidance_scale - alpha * i, min_guidance_scale)``.
-        ``dec_state`` is the previous chunk's (rgb, disparity)
-        decoder caches (``reuse_decoder_cache``), ``carry_rgb_latent`` its
-        carried rgb latents (``carry_latents``). Returns (image, disparity,
-        trans3d, trans2d, dec_state, carry latents, full_window); the two
-        carries are None when their mode is off, and ``full_window`` is
-        False when the overlap's pixels were not re-decoded (cache reuse or
-        exact priming) and the caller restores them."""
+    def _open_chunk(self, noise, input_image: torch.Tensor, input_disparity, input_raymap,
+                    input_history, dec_state=None, carry_rgb_latent=None,
+                    stream: Optional[bool] = None) -> _Chunk:
+        """``generate_i2v``'s prologue, in its order of draws: the chunk's
+        latents, the conditioning encode (its posterior eps) and the
+        streaming decoder's start (cache reuse, exact priming or a warm-up
+        through the carried frames). ``stream`` defaults to
+        ``stream_decode``."""
         cfg, mcfg = self.cfg, self.mcfg
         firstframe_mask = input_disparity is None
-        num_rows = 2 if input_history is None else 3
         _, _, n_in, height, width = input_image.shape
         ds = cfg.vae_downsample
 
@@ -559,98 +624,108 @@ class InferencePipeline:
             raymap_lat = input_raymap.to(self.dtype)
         input_image_latent = torch.cat([img_lat, disp_lat, raymap_lat], dim=1).to(self.dtype)
 
-        generated = [input_image_latent]
-        num_units = temp // cfg.frame_per_unit
-        start_unit_index = 1 if firstframe_mask else (n_in - 1) // ds + 1
-
-        stream = self.stream_decode
-        state = {"rgb": None, "disp": None, "first": True}
-        rgb_frames, disp_frames = [], []
-
-        def stream_push(lat38):
-            li, ld = lat38[:, :-cfg.raymap_dim].chunk(2, dim=1)
-            yi, state["rgb"] = self._stream_push(li, state["rgb"], state["first"])
-            yd, state["disp"] = self._stream_push(ld, state["disp"], state["first"])
-            rgb_frames.append(yi)
-            disp_frames.append(yd)
-            state["first"] = False
-
-        full_window = True
-        if stream and not firstframe_mask:
+        ch = _Chunk(latents=latents, generated=[input_image_latent],
+                    firstframe_mask=firstframe_mask,
+                    num_rows=2 if input_history is None else 3, input_history=input_history,
+                    unit_index=1 if firstframe_mask else (n_in - 1) // ds + 1,
+                    num_units=temp // cfg.frame_per_unit,
+                    stream=self.stream_decode if stream is None else stream)
+        if not ch.stream:
+            ch.dec_state = dec_state
+        elif not firstframe_mask:
             if dec_state is not None:
                 # reuse_decoder_cache: the previous chunk's caches already
                 # hold the overlap's conv state; only the new units decode
-                state["rgb"], state["disp"] = dec_state
-                dec_state = None
-                state["first"] = False
-                full_window = False
+                ch.rgb, ch.disp = dec_state
+                ch.first = False
+                ch.full_window = False
             elif self._prime_eligible(input_image_latent):
                 with self.timer.phase("prime"):
-                    state["rgb"], state["disp"] = self._prime_warm(input_image_latent)
-                state["first"] = False
-                full_window = False
+                    ch.rgb, ch.disp = self._prime_warm(input_image_latent)
+                ch.first = False
+                ch.full_window = False
             else:
                 # warm the caches one carried frame at a time
                 for fi in range(input_image_latent.shape[2]):
-                    stream_push(input_image_latent[:, :, fi:fi + 1])
+                    self._push_frames(ch, input_image_latent[:, :, fi:fi + 1])
+        return ch
 
-        if use_linear_guidance:
-            # per-unit decayed guidance
-            guidance_list = [max(guidance_scale - alpha * t_, min_guidance_scale)
-                             for t_ in range(num_units + 1)]
+    def _push_frames(self, ch: _Chunk, lat38: torch.Tensor) -> None:
+        """Decode one latent window through the chunk's carried decoder
+        caches and hand its frames to ``on_frames``."""
+        li, ld = lat38[:, :-self.cfg.raymap_dim].chunk(2, dim=1)
+        yi, ch.rgb = self._stream_push(li, ch.rgb, ch.first)
+        yd, ch.disp = self._stream_push(ld, ch.disp, ch.first)
+        ch.rgb_frames.append(yi)
+        ch.disp_frames.append(yd)
+        ch.first = False
+        if self.on_frames is not None:
+            self.on_frames(yi, yd)
 
-        for unit_index in range(start_unit_index, num_units):
-            if use_linear_guidance:
-                video_guidance_scale = guidance_list[unit_index]
-            prompt = motion_prompt[unit_index - int(firstframe_mask)]
-            pe, pm, pp = self._embeds_for(prompt if use_motion_prompt else str(prompt))
-            ne, nm, npo = self._embeds_for("empty")
-            reps = num_rows - 1
-            text_embeds = torch.cat([ne] + [pe] * reps)
-            text_mask = torch.cat([nm] + [pm] * reps)
-            pooled = torch.cat([npo] + [pp] * reps)
+    def _next_unit(self, noise, ch: _Chunk, prompt: str, guidance: float):
+        """Denoise the chunk's next unit under ``prompt``'s embedding (and,
+        when streaming, decode it). Returns the unit's per-stage recompute
+        flags (``_generate_one_unit``)."""
+        cfg = self.cfg
+        pe, pm, pp = self._embeds_for(prompt)
+        ne, nm, npo = self._embeds_for("empty")
+        reps = ch.num_rows - 1
+        text_embeds = torch.cat([ne] + [pe] * reps)
+        text_mask = torch.cat([nm] + [pm] * reps)
+        pooled = torch.cat([npo] + [pp] * reps)
 
-            clean = _pyramid_list(torch.cat(generated, dim=2), len(cfg.stages) - 1)
-            past_conditions = padded_conditions(cfg, clean, unit_index, firstframe_mask,
-                                                num_rows)
-            fpu = cfg.frame_per_unit
-            cur = latents[:, :, unit_index * fpu:(unit_index + 1) * fpu]
-            with self.timer.phase("denoise_unit"):
-                intermed = self._generate_one_unit(
-                    noise, cur, input_history, past_conditions, text_embeds, text_mask,
-                    pooled, num_rows, guidance=video_guidance_scale,
-                    history_scale=cfg.history_guidance_scale)
-            generated.append(intermed[-1])
-            if stream:
-                with self.timer.phase("stream_decode"):
-                    stream_push(intermed[-1])
+        clean = _pyramid_list(torch.cat(ch.generated, dim=2), len(cfg.stages) - 1)
+        past_conditions = padded_conditions(cfg, clean, ch.unit_index, ch.firstframe_mask,
+                                            ch.num_rows)
+        fpu = cfg.frame_per_unit
+        cur = ch.latents[:, :, ch.unit_index * fpu:(ch.unit_index + 1) * fpu]
+        with self.timer.phase("denoise_unit"):
+            intermed, recompute = self._generate_one_unit(
+                noise, cur, ch.input_history, past_conditions, text_embeds, text_mask,
+                pooled, ch.num_rows, guidance=guidance,
+                history_scale=cfg.history_guidance_scale)
+        ch.generated.append(intermed[-1])
+        if ch.stream:
+            with self.timer.phase("stream_decode"):
+                self._push_frames(ch, intermed[-1])
+        ch.unit_index += 1
+        return recompute
 
-        if firstframe_mask:
-            generated = generated[1:]
+    def _end_chunk(self, ch: _Chunk, keep_caches: Optional[bool] = None):
+        """``generate_i2v``'s epilogue: the poses from the generated raymaps,
+        the chunk's pixels (the streamed frames, or a batch decode) and the
+        carries. Returns ``generate_i2v``'s tuple; its decoder caches are
+        kept when ``keep_caches`` (default ``reuse_decoder_cache``)."""
+        cfg = self.cfg
+        generated = ch.generated[1:] if ch.firstframe_mask else ch.generated
         gen = torch.cat(generated, dim=2)
 
         n_ray = cfg.raymap_dim
         lat_img, lat_disp = gen[:, :-n_ray].chunk(2, dim=1)
         gen_raymap = gen[:, -n_ray:].to(torch.float32) * self.raymap_std + self.raymap_mean
         trans3d, trans2d = raymap_to_camera(gen_raymap[:, :, 1:], append_first_reference=True,
-                                            from_relative_to_absolute=True, vae_downsample=ds)
+                                            from_relative_to_absolute=True,
+                                            vae_downsample=cfg.vae_downsample)
 
+        input_image_latent = ch.generated[0]
+        full_window = ch.full_window
         with self.timer.phase("vae_decode"):
-            if stream:
-                image = torch.cat(rgb_frames, dim=2)
-                disparity = torch.cat(disp_frames, dim=2)
+            if ch.stream:
+                image = torch.cat(ch.rgb_frames, dim=2)
+                disparity = torch.cat(ch.disp_frames, dim=2)
             elif self.reuse_decoder_cache:
                 # continue the previous chunk's final caches past the
                 # boundary; the first chunk decodes everything
-                n_ov = 0 if firstframe_mask or dec_state is None else input_image_latent.shape[2]
+                n_ov = (0 if ch.firstframe_mask or ch.dec_state is None
+                        else input_image_latent.shape[2])
                 full_window = n_ov == 0
-                prev_rgb, prev_disp = dec_state or (None, None)
-                dec_state = None
-                image, state["rgb"] = self._decode_latents_reuse(lat_img, prev_rgb, n_ov)
+                prev_rgb, prev_disp = ch.dec_state or (None, None)
+                ch.dec_state = None
+                image, ch.rgb = self._decode_latents_reuse(lat_img, prev_rgb, n_ov)
                 prev_rgb = None
-                disparity, state["disp"] = self._decode_latents_reuse(lat_disp, prev_disp, n_ov)
+                disparity, ch.disp = self._decode_latents_reuse(lat_disp, prev_disp, n_ov)
                 prev_disp = None
-            elif not firstframe_mask and self._prime_eligible(input_image_latent):
+            elif not ch.firstframe_mask and self._prime_eligible(input_image_latent):
                 n_ov = input_image_latent.shape[2]
                 full_window = False
                 image = self._decode_latents_primed(lat_img, n_ov)
@@ -660,12 +735,86 @@ class InferencePipeline:
                 disparity = self._decode_latents(lat_disp)
         if cfg.no_need_depth:
             disparity = torch.zeros_like(disparity)
-        # only the reuse mode carries the decoder caches to the next chunk
-        dec_state = (state["rgb"], state["disp"]) if self.reuse_decoder_cache else None
+        keep = self.reuse_decoder_cache if keep_caches is None else keep_caches
+        dec_state = (ch.rgb, ch.disp) if keep else None
         carry = self._carry_rgb_latent(lat_img) if self.carry_latents else None
         return image, disparity, trans3d, trans2d, dec_state, carry, full_window
 
+    def generate_i2v(self, noise, motion_prompt: Sequence[str], use_motion_prompt: bool,
+                     input_image: torch.Tensor, input_disparity, input_raymap,
+                     input_history, guidance_scale: float = 4.0,
+                     video_guidance_scale: float = 3.5, use_linear_guidance: bool = False,
+                     alpha: float = 1.0, min_guidance_scale: float = 1.1, dec_state=None,
+                     carry_rgb_latent: Optional[torch.Tensor] = None):
+        """One chunk; deepv_tpu's parameters in its order, with the noise
+        source where deepv_tpu takes its PRNG key. Each unit's guidance is
+        ``video_guidance_scale``, or with ``use_linear_guidance`` unit i's
+        ``max(guidance_scale - alpha * i, min_guidance_scale)``.
+        ``dec_state`` is the previous chunk's (rgb, disparity)
+        decoder caches (``reuse_decoder_cache``), ``carry_rgb_latent`` its
+        carried rgb latents (``carry_latents``). Returns (image, disparity,
+        trans3d, trans2d, dec_state, carry latents, full_window); the two
+        carries are None when their mode is off, and ``full_window`` is
+        False when the overlap's pixels were not re-decoded (cache reuse or
+        exact priming) and the caller restores them. Each unit's recompute
+        flags are appended to ``recompute_log``."""
+        ch = self._open_chunk(noise, input_image, input_disparity, input_raymap,
+                              input_history, dec_state, carry_rgb_latent)
+        dec_state = None
+        if use_linear_guidance:
+            # per-unit decayed guidance
+            guidance_list = [max(guidance_scale - alpha * t_, min_guidance_scale)
+                             for t_ in range(ch.num_units + 1)]
+        while ch.unit_index < ch.num_units:
+            if use_linear_guidance:
+                video_guidance_scale = guidance_list[ch.unit_index]
+            prompt = motion_prompt[ch.unit_index - int(ch.firstframe_mask)]
+            self.recompute_log.extend(self._next_unit(
+                noise, ch, prompt if use_motion_prompt else str(prompt), video_guidance_scale))
+        return self._end_chunk(ch)
+
     # -- full rollout -------------------------------------------------------
+
+    def _new_rollout(self, img) -> _Rollout:
+        """A rollout's state before its first chunk, from one conditioning
+        image [3, H, W] or [1, 3, H, W] in [-1, 1]."""
+        img = torch.as_tensor(img if isinstance(img, torch.Tensor) else np.asarray(img),
+                              device=self.device)
+        if img.ndim == 3:      # [3, H, W]
+            img = img[None, :, None]
+        elif img.ndim == 4:    # [1, 3, H, W]
+            img = img[:, :, None]
+        return _Rollout(input_image=img.to(self.dtype),
+                        scale_factor=torch.tensor(1.0, dtype=torch.float32, device=self.device))
+
+    def _carry_chunk(self, noise, roll: _Rollout, chunk_out, motion_prompt,
+                     carry: bool = True) -> None:
+        """``generate``'s bookkeeping after one chunk (``generate_i2v``'s
+        tuple): restore the overlap's pixels when the chunk did not
+        re-decode them, post-map, chain the poses and append to the rollout;
+        then, with ``carry``, the next chunk's conditioning and history."""
+        (images, disparitys, trans3d, trans2d, roll.dec_state, roll.carry_lat,
+         full_window) = chunk_out
+        n_img = self.cfg.num_input_image
+        if roll.now_iter > 0 and not full_window:
+            # the bookkeeping sees the full 57-frame layout; these frames are
+            # dropped below
+            images = torch.cat([roll.tail_rgb, images], dim=2)
+            disparitys = torch.cat([roll.tail_disp, disparitys], dim=2)
+        roll.tail_rgb, roll.tail_disp = images[:, :, -n_img:], disparitys[:, :, -n_img:]
+        images, disparitys = self._accumulate_chunk(
+            roll.now_iter, images, disparitys, trans3d, trans2d, motion_prompt,
+            roll.scale_factor, roll.images_list, roll.disparity_list, roll.motion_prompt_list,
+            roll.trans3d_list, roll.trans2d_list)
+        roll.now_iter += 1
+        if not carry:
+            return
+        (roll.input_image, roll.input_disparity, input_raymap, roll.input_history,
+         roll.scale_factor, idx) = self._prepare_carry(
+            noise, images, disparitys, roll.scale_factor, roll.images_list,
+            roll.disparity_list, roll.trans3d_list, roll.trans2d_list)
+        roll.input_raymap = (input_raymap - self.raymap_mean) / self.raymap_std
+        roll.history_index.append(idx)
 
     @torch.inference_mode()
     def generate(self, batch: Dict, seed: int = 666, guidance_scale: float = 4.0,
@@ -675,11 +824,13 @@ class InferencePipeline:
         order (``guidance_scale`` reaches ``generate_i2v``, where only linear
         guidance reads it). ``noise`` replaces the default
         ``TorchNoise(seed, device)``. The output adds ``history_index``: the
-        frame retrieved at each chunk boundary."""
+        frame retrieved at each chunk boundary. ``recompute_log`` is emptied
+        first, so it holds this call's decisions."""
         cfg = self.cfg
         noise = noise if noise is not None else TorchNoise(seed, self.device)
+        self.recompute_log = []
         actual_unit = cfg.max_temporal_length
-        n_img, n_unit = cfg.num_input_image, cfg.num_input_unit
+        n_unit = cfg.num_input_unit
 
         prompts = list(batch["prompt"])
         while ((len(prompts) - actual_unit) % (actual_unit - n_unit) != 0
@@ -688,70 +839,24 @@ class InferencePipeline:
         total_iters = (len(prompts) - actual_unit) // (actual_unit - n_unit) + 1
 
         use_motion = batch.get("prompt_type") == "action"
-        img = torch.as_tensor(np.asarray(batch["img"]), device=self.device)
-        if img.ndim == 3:      # [3, H, W]
-            img = img[None, :, None]
-        elif img.ndim == 4:    # [1, 3, H, W]
-            img = img[:, :, None]
-        input_image = img.to(self.dtype)
-
-        images_list, disparity_list, trans3d_list, trans2d_list = [], [], [], []
-        motion_prompt_list: List[np.ndarray] = []
-        history_index: List[int] = []
-        input_disparity = input_raymap = input_history = None
-        scale_factor = torch.tensor(1.0, dtype=torch.float32, device=self.device)
+        roll = self._new_rollout(batch["img"])
         start_unit = 0
-        keep_tail = self.reuse_decoder_cache or self._prime_need is not None
-        dec_state = tail_rgb = tail_disp = carry_lat = None
-
         for now_iter in range(total_iters):
             motion_prompt = [prompts[0]] + prompts[start_unit + 1: start_unit + actual_unit]
-            if input_raymap is not None:
-                input_raymap = (input_raymap - self.raymap_mean) / self.raymap_std
-
             # hand the decoder caches over, so that no binding here pins the
             # previous generation while the chunk makes the next one
-            ds_arg, dec_state = dec_state, None
-            (images, disparitys, trans3d, trans2d, dec_state, carry_lat,
-             full_window) = self.generate_i2v(
-                noise, motion_prompt, use_motion, input_image, input_disparity,
-                input_raymap, input_history, guidance_scale=guidance_scale,
+            ds_arg, roll.dec_state = roll.dec_state, None
+            out = self.generate_i2v(
+                noise, motion_prompt, use_motion, roll.input_image, roll.input_disparity,
+                roll.input_raymap, roll.input_history, guidance_scale=guidance_scale,
                 video_guidance_scale=video_guidance_scale, dec_state=ds_arg,
-                carry_rgb_latent=carry_lat)
+                carry_rgb_latent=roll.carry_lat)
             del ds_arg
-
-            if keep_tail:
-                if now_iter > 0 and not full_window:
-                    # the overlap was not re-decoded (cache reuse or exact
-                    # priming): restore the previous chunk's tail so the
-                    # bookkeeping sees the full 57-frame layout; these
-                    # frames are dropped below
-                    images = torch.cat([tail_rgb, images], dim=2)
-                    disparitys = torch.cat([tail_disp, disparitys], dim=2)
-                tail_rgb = images[:, :, -n_img:]
-                tail_disp = disparitys[:, :, -n_img:]
-
-            images, disparitys = self._accumulate_chunk(
-                now_iter, images, disparitys, trans3d, trans2d, motion_prompt,
-                scale_factor, images_list, disparity_list, motion_prompt_list,
-                trans3d_list, trans2d_list)
+            self._carry_chunk(noise, roll, out, motion_prompt,
+                              carry=now_iter < total_iters - 1)
+            del out
             start_unit += actual_unit - n_unit
-            if now_iter == total_iters - 1:
-                break
-            (input_image, input_disparity, input_raymap, input_history, scale_factor,
-             idx) = self._prepare_carry(noise, images, disparitys, scale_factor,
-                                        images_list, disparity_list, trans3d_list,
-                                        trans2d_list)
-            history_index.append(idx)
-
-        return {
-            "pred_img": torch.cat(images_list, dim=2),
-            "pred_disparity": torch.cat(disparity_list, dim=2),
-            "motion_prompt_list": motion_prompt_list,
-            "trans3d": torch.cat(trans3d_list, dim=1),
-            "trans2d": torch.cat(trans2d_list, dim=1),
-            "history_index": history_index,
-        }
+        return roll.output()
 
     # -- chunk bookkeeping ----------------------------------------------------
 

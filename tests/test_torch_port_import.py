@@ -61,11 +61,13 @@ def test_source_imports_no_jax_or_deepv_tpu(path):
 
 
 def test_source_scan_reaches_every_kernel_module():
-    """The scan above covers the modules of every kernel and int8 path."""
+    """The scan above covers the modules of every kernel and int8 path, and
+    the serving entry point; the import check imports it too."""
     scanned = {str(p.relative_to(PACKAGE)) for p in PACKAGE.rglob("*.py")}
     for module in ("ops/attention.py", "ops/conv_igemm.py", "ops/conv_int8.py",
-                   "ops/linear_int8.py", "models/mmdit.py", "pipeline.py"):
+                   "ops/linear_int8.py", "models/mmdit.py", "pipeline.py", "serve.py"):
         assert module in scanned, module
+    assert "deepv_tpu_torch.serve" in port_modules()
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

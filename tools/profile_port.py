@@ -207,10 +207,9 @@ def main() -> int:
     def denoise(name, rows):
         args, conds, mask = unit_inputs(pipe, rows, device)
         # forwards run per unit: every step's, or (flow caching) those recorded
-        pipe.recompute_log = []
-        pipe._generate_one_unit(*args, guidance=3.5,
-                                history_scale=pipe.cfg.history_guidance_scale)
-        forwards = [sum(r) for r in pipe.recompute_log]
+        _, recompute = pipe._generate_one_unit(*args, guidance=3.5,
+                                               history_scale=pipe.cfg.history_guidance_scale)
+        forwards = [sum(r) for r in recompute]
         ran = sum(forwards)
         flops = linear_flops(pipe, conds, mask, rows, rows == 3, forwards)
 
