@@ -20,11 +20,14 @@ Phases, in order; any failure exits non-zero before the last line:
      plain version and SDPA with the same boolean mask (a yardstick the port
      never calls), beside the least time the card needs, counts the tile
      classes, and sums K1, SDPA and the bound over the rollout's launches;
+     at the stage-2, 2-row layout it also times the f32 kernel (the
+     exactness check) beside SDPA in f32 and the bound at the f32 rate;
   4. igemm conv kernel (K2) against its plain PyTorch version at every
      eligible 3x3x3 conv shape of the full-width VAE, in the causal mode the
      rollout uses there, 1-2 output frames, at the channels-last input the
-     rollout hands the gather kernel, and at three edge shapes (w not a
-     multiple of 64; w % 8 != 0; batch 2 with 3 frames): f32 at atol 2e-4 /
+     rollout hands the cl path, and at three edge shapes (w not a
+     multiple of 64; w % 8 != 0, the cl path through a channels-last copy;
+     batch 2 with 3 frames), checking which kernel ran: f32 at atol 2e-4 /
      rtol 1e-4 (tests/test_conv_igemm.py:33), bf16 within one bf16 ulp of
      the larger value plus that 2e-4 (the two sum the same exact products
      in f32 in other orders, then round once). Times the wrapper, its
@@ -49,8 +52,9 @@ Phases, in order; any failure exits non-zero before the last line:
   7. igemm path: the same rollout through InferencePipeline with
      VAEConfig(conv_impl="igemm") and the same weights, image, prompt and
      seed; counts set to 0 just before and read just after: K1 4,320 and K2
-     (its wgmma and gather kernels together; the f32 kernel never) exactly
-     the count the phase counts imply;
+     (its wgmma and cl paths together; the f32 kernel never) exactly the
+     count the phase counts imply, the cl path once per full-mode encoder
+     call (the mid block hands its resnet x channels-last: 3);
   8. decode check: one latent stream decoded at full width through an init
      window, a cont window and a primed cont window, with "igemm" and with
      "xla": f32 (TF32 off) within 1e-4 relative L2, bf16 within twice the
@@ -58,17 +62,21 @@ Phases, in order; any failure exits non-zero before the last line:
   9. K3, the int8 conv, against its plain version at every int8-eligible
      conv class of the fast rollout (the 384x512 level: 3->128, 128->128,
      256->128, 256->512, 128->3), in each causal mode the rollout runs it
-     in, at edge cases (batch 2, w = 80; float32 with w % 8 != 0; co = 3
+     in (and conv_in also at the rollout's longest call, 17 output frames),
+     at edge cases (batch 2, w = 80; float32 with w % 8 != 0; co = 3
      with batch 2; 3 -> 3) and at a ties case (amax 127, halves that round
      half to even): the quantise kernel's x8 and sx byte-equal to the plain
      quantise step's, the conv kernel's int32 accumulators exactly equal
      (the sum is exact), the bf16 output within one bf16 ulp of the plain
-     version's (the f32 output equal). Logs the route ops/conv_int8.plan
-     took (wgmma, or mma for conv_in's 3 input channels), and times the
+     version's (the f32 output equal). Checks the route ops/conv_int8.plan
+     took (wgmma, or packed for ci <= 16: conv_in, 3 -> 3), and times the
      whole call, its quantise step (the amax and the quantise kernel), each
      kernel alone, the plain version and F.conv3d in bf16 (cuDNN, a
      yardstick: torch has no int8 3D conv), beside the least times at the
-     int8 peak or the memory rate, and the TOPS;
+     int8 peak or the memory rate, and the TOPS. At conv_in's 2-frame init
+     case it also times conv_in's work on the wgmma kernel (128 -> 128 with the
+     input and weight channels past the third zero; its sums must equal
+     the packed kernel's);
  10. int8 linear: int_mm at shapes torch._int_mm refuses (16 rows; k, n not
      multiples of 8), zero-padded, and torch._int_mm at the stage-2 shapes,
      each exact against an f64 product; the W8A8 call, its quantise,
@@ -77,8 +85,9 @@ Phases, in order; any failure exits non-zero before the last line:
      int8 block linears, VAEConfig(conv_impl="int8")) on phase 5's image,
      prompt, seed and weights; counts set to 0 just before and read just
      after: K1 2,592 (108 forwards x 24 blocks), K2 0, K3's conv kernels
-     247 together (once per dispatch to the int8 conv, which a spy counts;
-     wgmma and mma both), its quantise kernel 247, _int_mm once per
+     247 together (once per dispatch to the int8 conv, which a spy counts:
+     the packed kernel once per conv_in call, wgmma for the rest), its
+     quantise kernel 247, _int_mm once per
      quantised linear of every forward; 89 finite frames, and the gap to
      phase 5's frames in 8-bit units (printed, not gated: random weights
      amplify deviations). Then the same preset served: an InteractiveSession
@@ -86,7 +95,8 @@ Phases, in order; any failure exits non-zero before the last line:
      set to 0 just before and read just after: its frames equal the
      rollout's bit for bit, its recompute decisions ran 108 forwards, K1
      24 x those, K3's conv and quantise kernels once per int8 dispatch
-     (the rollout's 247 plus step 12's opening of chunk 3), _int_mm once
+     (the rollout's 247 plus step 12's opening of chunk 3; the packed
+     kernel once per conv_in call), _int_mm once
      per quantised linear of every forward;
  12. adaptive + boundary path: InferencePipeline(flow_cache="adaptive:0.5",
      reuse_decoder_cache=True, carry_latents=True), same inputs; K1 24 x the
@@ -155,17 +165,17 @@ CONV_CASES = (
 #: K2 cases beyond CONV_CASES: (name, mode, ci, co, h, w, output frames,
 #: batch, x channels-last). The first is on the rollout's path: the
 #: encoder's mid-block resnet after its attention block gets x channels-last
-#: in full mode (the first image and the history frames), which TMA cannot
-#: read along w, so it runs the gather kernel. The rest are shapes the
-#: rollout does not run but K2 must take.
+#: in full mode (the first image and the history frames), which the wgmma
+#: path's map cannot read along w, so it runs the cl path. The rest are
+#: shapes the rollout does not run but K2 must take.
 CONV_EDGE_CASES = (
     ("encoder mid block resnet after attention", "full", 512, 512, 48, 64, 1, 1, True),
     ("edge: w not a multiple of 64", "cont", 128, 128, 48, 80, 2, 1, False),
-    ("edge: w % 8 != 0 (gather kernel)", "full", 128, 128, 6, 10, 1, 1, False),
+    ("edge: w % 8 != 0 (cl path, channels-last copy)", "full", 128, 128, 6, 10, 1, 1, False),
     ("edge: batch 2, 3 frames", "full", 256, 256, 96, 128, 3, 2, False),
 )
-#: K2's launch counters: the wgmma kernel, the gather kernel, the f32 kernel
-K2_COUNTERS = ("launches", "gather_launches", "f32_launches")
+#: K2's launch counters: the wgmma path, the cl path, the f32 kernel
+K2_COUNTERS = ("launches", "cl_launches", "f32_launches")
 #: denoise forwards of the exact rollout: 12 units x 3 stages x 5 steps
 FORWARDS = 180
 #: int8 convs of the fast rollout: the dispatches to conv3d_int8 at the
@@ -180,6 +190,9 @@ FAST_CONV_INT8_CALLS = 247
 #: windows) and prime (the boundary's cache rebuild, which skips conv_out
 #: and everything before the last up block). Up block 2's temporal
 #: up-sampler runs at 384x512 after its spatial one, so it is eligible too.
+#: conv_in is also checked at the rollout's longest call, the encoder's
+#: 17-frame boundary clip in init mode (19 input frames); the first case of
+#: a class is the one the rollout sums take.
 K3_CASES = (
     ("decoder up block 3 resnets", "cont", 128, 128, 384, 512, 2),
     ("decoder up block 3 resnets", "prime", 128, 128, 384, 512, 2),
@@ -194,6 +207,7 @@ K3_CASES = (
     ("encoder conv_in", "init", 3, 128, 384, 512, 2),
     ("encoder conv_in", "cont", 3, 128, 384, 512, 2),
     ("encoder conv_in", "full", 3, 128, 384, 512, 1),
+    ("encoder conv_in", "init", 3, 128, 384, 512, 17),
     ("encoder down block 0 resnets", "init", 128, 128, 384, 512, 2),
     ("encoder down block 0 resnets", "cont", 128, 128, 384, 512, 2),
     ("encoder down block 0 resnets", "full", 128, 128, 384, 512, 1),
@@ -203,13 +217,13 @@ K3_CASES = (
 #: a batch whose frames the causal past must not mix; the float32 one the
 #: quantise kernel's scalar path (w % 8 != 0) and the f32 output, which must
 #: equal the plain version's; the co = 3 one the wgmma kernel's 16-channel
-#: tile on a 128-pixel CTA; 3 -> 3 the mma kernel's 16-channel tile, which
-#: no rollout class takes; the ties case has x built to round half to even
+#: tile on a 128-pixel CTA; 3 -> 3 the packed kernel's 16-channel tile,
+#: which no rollout class takes; the ties case has x built to round half to even
 #: in the quantise kernel (``ties_input``)
 K3_EDGE_CASES = (("edge: batch 2, w not a multiple of 64", "full", 128, 128, 256, 80, 2, 2),
                  ("edge: float32, w % 8 != 0", "cont", 256, 128, 256, 84, 1, 1),
                  ("edge: co = 3, batch 2, w % 8 != 0", "full", 128, 3, 64, 84, 2, 2),
-                 ("edge: 3 -> 3 (mma, 16-channel tile)", "cont", 3, 3, 64, 72, 2, 1),
+                 ("edge: 3 -> 3 (packed, 16-channel tile)", "cont", 3, 3, 64, 72, 2, 1),
                  ("ties: amax 127, halves", "cont", 128, 128, 256, 96, 1, 1))
 #: dense int8 peak of one H100 SXM (NVIDIA data sheet) at its 700 W limit
 PEAK_INT8_OPS = 1979e12
@@ -241,6 +255,35 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls captured in one CUDA
+    graph and replayed: no host time between launches, which at kernels of
+    tens of microseconds is as long as the kernel (the wrapper's Python, its
+    tensor-map encoding). ``fn`` must be capturable: the conv wrappers and
+    their cuDNN yardsticks are."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
     return start.elapsed_time(end) / iters
 
 
@@ -402,6 +445,24 @@ def check_attention(device, results):
         qt, kt, vt = (x.transpose(1, 2) for x in (qb, kb, vb))
         library_ms = cuda_time_ms(
             lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), 10)
+        f32 = None
+        if name == "stage2_b2":
+            # the f32 kernel (the exactness check; no rollout path runs it)
+            # at this layout beside SDPA in f32 and the bound at the f32 rate
+            before = att.f32_launches
+            f32_ms = cuda_time_ms(lambda: att.attention(q, k, v, valid, times, n_last=n_last), 3, 1)
+            assert att.f32_launches > before, "the f32 forward did not run the f32 kernel"
+            q32, k32, v32 = (x.transpose(1, 2) for x in (q, k, v))
+            f32_lib = cuda_time_ms(
+                lambda: F.scaled_dot_product_attention(q32, k32, v32, attn_mask=mask), 3, 1)
+            f32_plain = cuda_time_ms(lambda: att.attention_plain(q, k, v, valid, times), 2, 1)
+            t32_ops, t32_bytes = flops / PEAK_F32_FLOPS, 2 * nbytes / PEAK_BYTES
+            f32 = dict(kernel="attn_fwd_f32", ms=f32_ms, plain_ms=f32_plain, library_ms=f32_lib,
+                       bound_ms=1e3 * max(t32_ops, t32_bytes),
+                       bound_by="operations" if t32_ops >= t32_bytes else "bytes",
+                       err=errs["err_f32_kernel"])
+            log("attention f32 check kernel", json.dumps(f32))
+            del q32, k32, v32
         del allowed, mask
         row = dict(layout=name, b=b, S=s, heads=h, head_dim=d, n_last=n_last,
                    allowed_pairs=pairs, split_pairs=split_pairs, flops=flops, bytes=nbytes,
@@ -409,7 +470,7 @@ def check_attention(device, results):
                    library_ms=library_ms, bound_ms=1e3 * max(t_ops, t_bytes),
                    bound_by="operations" if t_ops >= t_bytes else "bytes",
                    tflops=flops / (ms * 1e-3) / 1e12, tiles=tile_counts(valid, times),
-                   launches_per_rollout=units[b] * per_unit)
+                   launches_per_rollout=units[b] * per_unit, f32=f32)
         rows_out.append(row)
         log("attention", json.dumps(row))
 
@@ -490,7 +551,7 @@ def drive_rollout(pipe, setup_s: float, hook: "FrameHook | None" = None):
     att.launches = att.f32_launches = 0
     for name in K2_COUNTERS:
         setattr(cig, name, 0)
-    ci8.launches = ci8.mma_launches = ci8.quantize_launches = li8.calls = 0
+    ci8.launches = ci8.packed_launches = ci8.quantize_launches = li8.calls = 0
     batch = rollout_batch()
     pipe.on_frames = hook
     t0 = time.perf_counter()
@@ -506,9 +567,9 @@ def drive_rollout(pipe, setup_s: float, hook: "FrameHook | None" = None):
     assert att.f32_launches == 0, "the bf16 rollout launched the f32 attention kernel"
     conv_launches = {name: getattr(cig, name) for name in K2_COUNTERS}
     assert conv_launches["f32_launches"] == 0, "the bf16 rollout launched the f32 kernel"
-    int8_counts = dict(conv_int8_launches=ci8.launches + ci8.mma_launches,
+    int8_counts = dict(conv_int8_launches=ci8.launches + ci8.packed_launches,
                        conv_int8_wgmma_launches=ci8.launches,
-                       conv_int8_mma_launches=ci8.mma_launches,
+                       conv_int8_packed_launches=ci8.packed_launches,
                        quantize_k3_launches=ci8.quantize_launches, int_mm_calls=li8.calls)
 
     mcfg, pcfg = pipe.mcfg, pipe.cfg
@@ -698,7 +759,7 @@ def check_conv_igemm(device, results):
             y = cig.conv3d_igemm(x, p, tp)
             r = cig.conv3d_igemm_plain(x, p, tp)
             torch.cuda.synchronize()
-            ran = [k for k, name, c0 in zip(("wgmma", "gather", "fma_f32"), K2_COUNTERS, before)
+            ran = [k for k, name, c0 in zip(("wgmma", "cl", "fma_f32"), K2_COUNTERS, before)
                    if getattr(cig, name) != c0]
             assert ran == [kernel], f"{layer} {mode}: expected the {kernel} kernel, ran {ran}"
             assert tuple(y.shape) == (b, co, n, h, w), tuple(y.shape)
@@ -718,15 +779,19 @@ def check_conv_igemm(device, results):
             del lib
             big = 2 * 27 * ci * co * n * h * w > 1e12
             iters = (2 if big else 5) if dtype == torch.bfloat16 else 1
-            ms = cuda_time_ms(lambda: cig.conv3d_igemm(x, p, tp), iters, 1)
-            if kernel == "wgmma":                # the K-major weight, no copy of x
+            ms = graph_ms(lambda: cig.conv3d_igemm(x, p, tp), iters, 1)
+            if kernel == "wgmma" or (kernel == "cl" and cig._tma_strides_cl(x) is not None):
+                # the K-major weight, no copy of x
                 layout = lambda: cig.relayout_weight(p.weight, x.dtype)
+            elif kernel == "cl":                 # the K-major weight and a channels-last x
+                layout = lambda: (cig.relayout_weight(p.weight, x.dtype),
+                                  x.permute(0, 2, 3, 4, 1).contiguous())
             else:                                # a channels-last x and [(taps, ci), co]
                 layout = lambda: (x.permute(0, 2, 3, 4, 1).contiguous(),
                                   p.weight.permute(2, 3, 4, 1, 0).reshape(27 * ci, co).contiguous())
-            layout_ms = cuda_time_ms(layout, 5, 1)
+            layout_ms = graph_ms(layout, 5, 1)
             plain_ms = cuda_time_ms(lambda: cig.conv3d_igemm_plain(x, p, tp), 1, 1)
-            library_ms = cuda_time_ms(
+            library_ms = graph_ms(
                 lambda: F.conv3d(xl, p.weight, p.bias, padding=(0, 1, 1)), iters, 1)
             # the taps this input needs: in full mode the first output frames'
             # taps in the causal past read only padding, and K2 skips them
@@ -736,10 +801,13 @@ def check_conv_igemm(device, results):
             nbytes = (x.numel() + p.weight.numel() + co + y.numel()) * esize
             peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
             t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
-            plan = cig.tile_plan(b, co, n, h, w, sms) if kernel == "wgmma" else None
+            plan = (None if kernel == "fma_f32" else
+                    cig.tile_plan(b, co, n, h, w, sms, channels_last=kernel == "cl"))
             row = dict(layer=layer, mode=mode, ci=ci, co=co, h=h, w=w, frames=n, batch=b,
                        edge=layer.startswith("edge"), kernel=kernel,
-                       plan=None if plan is None else dict(bn=plan.bn, grid=plan.grid),
+                       plan=None if plan is None else dict(
+                           bn=plan.bn, channels_last=plan.channels_last, grid=plan.grid,
+                           ctas=plan.ctas),
                        dtype=str(dtype).split(".")[-1], time_pad=tp,
                        max_abs_err=float(err.max()), ulp_excess=excess,
                        cudnn_vs_plain_max_abs=lib_err, ms=ms, layout_ms=layout_ms,
@@ -831,9 +899,16 @@ def run_igemm_path(device, results, ref_frames):
     assert summary["forwards"] == FORWARDS, summary["forwards"]
     stats = pipe.timer.stats()
     expected = expected_conv_launches(pipe, stats, len(summary["history_index"]))
-    k2 = conv_launches["launches"] + conv_launches["gather_launches"]
+    k2 = conv_launches["launches"] + conv_launches["cl_launches"]
     assert k2 == expected, f"K2 launched {k2} times ({conv_launches}), expected {expected}"
+    # the cl path: the mid-block resnet after the attention of every
+    # full-mode encoder call (the first image, each boundary's history rgb
+    # and disparity frames)
+    expected_cl = 1 + 2 * len(summary["history_index"])
+    assert conv_launches["cl_launches"] == expected_cl, (
+        f"the cl path launched {conv_launches['cl_launches']} times, expected {expected_cl}")
     summary["expected_conv_igemm_launches"] = expected
+    summary["expected_conv_igemm_cl_launches"] = expected_cl
     summary["conv_frames_by_class"] = {f"{ci}->{co} @{h}x{w}": n
                                        for (ci, co, h, w), n in frames_by_class.items()}
     summary["max_abs_diff_vs_main_path"] = float((frames.float() - ref_frames.float()).abs().max())
@@ -945,14 +1020,16 @@ def check_conv_int8(device, results):
         ci8.quantize_conv_weights(conv)
         t_in = x.shape[2]
         pl = ci8.plan(ci, co, h, w, b, n)
-        counts = (ci8.launches, ci8.mma_launches, ci8.quantize_launches)
+        assert pl.kernel == ("packed" if ci <= 16 else "wgmma"), (layer, pl)
+        counts = (ci8.launches, ci8.packed_launches, ci8.quantize_launches)
         x8k, sxk = ci8.quantize_k3(x)
         acc = ci8.conv3d_int8_accumulators(x, conv, tp)
         y = ci8.conv3d_int8(x, conv, tp)
-        wg, mma, quant = (ci8.launches - counts[0], ci8.mma_launches - counts[1],
-                          ci8.quantize_launches - counts[2])
-        assert quant == 3 and (wg, mma) == ((2, 0) if pl.kernel == "wgmma" else (0, 2)), (
-            f"{layer} {mode}: plan {pl.kernel}, launches wgmma {wg}, mma {mma}, quantise {quant}")
+        wg, packed, quant = (ci8.launches - counts[0], ci8.packed_launches - counts[1],
+                             ci8.quantize_launches - counts[2])
+        assert quant == 3 and (wg, packed) == ((2, 0) if pl.kernel == "wgmma" else (0, 2)), (
+            f"{layer} {mode}: plan {pl.kernel}, launches wgmma {wg}, packed {packed}, "
+            f"quantise {quant}")
         x8p, sxp = ci8.quantize_input_k3(x)
         torch.cuda.synchronize()
         x8_bad = int((x8k != x8p).sum())
@@ -967,7 +1044,27 @@ def check_conv_int8(device, results):
         assert tuple(y.shape) == (b, co, n, h, w), tuple(y.shape)
         n_bad = int((acc != ref_acc).sum())
         assert n_bad == 0, f"{layer} {mode}: {n_bad} int32 accumulators differ"
-        del acc, ref_acc
+        del ref_acc
+        padded_wgmma_ms = None
+        if layer == "encoder conv_in" and mode == "init" and n == 2:
+            # conv_in's work on the wgmma kernel: 128 -> 128 whose input and
+            # weight channels past the third are zero (same sx and sw, so the
+            # same sums); timed beside the packed kernel
+            xw = torch.zeros((b, 128) + tuple(x.shape[2:]), dtype=dtype, device=device)
+            xw[:, :ci] = x
+            cw = torch.nn.Conv3d(128, co, 3, device=device, dtype=dtype).requires_grad_(False)
+            cw.weight.zero_()
+            cw.weight[:, :ci] = conv.weight
+            cw.bias.copy_(conv.bias)
+            ci8.quantize_conv_weights(cw)
+            assert ci8.plan(128, co, h, w, b, n).kernel == "wgmma"
+            x8w, sxw = ci8.quantize_k3(xw)
+            accw = ci8.conv_k3(x8w, sxw, cw, tp, dtype, acc_only=True)
+            torch.cuda.synchronize()
+            assert torch.equal(accw, acc), "conv_in on the wgmma kernel: other int32 sums"
+            padded_wgmma_ms = graph_ms(lambda: ci8.conv_k3(x8w, sxw, cw, tp, dtype), 10, 1)
+            del xw, cw, x8w, accw
+        del acc
         err = (y.float() - r.float()).abs()
         excess = float((err - bf16_ulp(torch.maximum(y.float().abs(), r.float().abs()))).max())
         assert excess <= 0, f"{layer} {mode}: K3 vs plain beyond one bf16 ulp"
@@ -976,13 +1073,13 @@ def check_conv_int8(device, results):
         xl = F.pad(x, (0, 0, 0, 0, tp, 0)) if tp else x
         lib_err = float((F.conv3d(xl, conv.weight, conv.bias, padding=(0, 1, 1)).float()
                          - r.float()).abs().max())
-        ms = cuda_time_ms(lambda: ci8.conv3d_int8(x, conv, tp), 5, 1)
-        quantise_ms = cuda_time_ms(lambda: ci8.quantize_k3(x), 5, 1)
-        quantise_kernel_ms = cuda_time_ms(lambda: ci8.quantize_k3(x, sxk), 5, 1)
-        kernel_ms = cuda_time_ms(lambda: ci8.conv_k3(x8k, sxk, conv, tp, x.dtype), 5, 1)
+        ms = graph_ms(lambda: ci8.conv3d_int8(x, conv, tp), 5, 1)
+        quantise_ms = graph_ms(lambda: ci8.quantize_k3(x), 5, 1)
+        quantise_kernel_ms = graph_ms(lambda: ci8.quantize_k3(x, sxk), 5, 1)
+        kernel_ms = graph_ms(lambda: ci8.conv_k3(x8k, sxk, conv, tp, x.dtype), 10, 1)
         quantise_plain_ms = cuda_time_ms(lambda: ci8.quantize_input_k3(x), 2, 1)
         plain_ms = cuda_time_ms(lambda: ci8.conv3d_int8_plain(x, conv, tp), 1, 0)
-        library_ms = cuda_time_ms(
+        library_ms = graph_ms(
             lambda: F.conv3d(xl, conv.weight, conv.bias, padding=(0, 1, 1)), 5, 1)
         ops = 2 * taps_needed(mode, n) * ci * co * b * h * w
         # whole call: bf16 x in (the amax and the quantise read it; counted
@@ -1003,6 +1100,7 @@ def check_conv_int8(device, results):
                    dtype=str(dtype).replace("torch.", ""),
                    route=pl.kernel, plan=dict(bn=pl.bn, bm=pl.bm, mb=pl.mb, segs=pl.segs,
                                               grid=list(pl.grid)),
+                   padded_wgmma_ms=padded_wgmma_ms,
                    x8_mismatches=x8_bad, acc_mismatches=n_bad,
                    max_abs_err=float(err.max()), ulp_excess=excess,
                    cudnn_bf16_vs_plain_max_abs=lib_err, ms=ms, quantise_ms=quantise_ms,
@@ -1017,6 +1115,9 @@ def check_conv_int8(device, results):
                    quantise_tb_s=quantise_bytes / (quantise_kernel_ms * 1e-3) / 1e12)
         rows_out.append(row)
         log("conv_int8", json.dumps(row))
+        if padded_wgmma_ms is not None:
+            log(f"K3 conv_in ({mode}, {n} frames): packed kernel {kernel_ms:.4f} ms, the same "
+                f"work on the wgmma kernel with ci padded to 128 {padded_wgmma_ms:.4f} ms")
         del y, r, x, xl, conv, x8k
         torch.cuda.empty_cache()
     results["conv_int8_shapes"] = rows_out
@@ -1103,6 +1204,7 @@ def run_fast_path(device, results, ref_frames):
     from deepv_tpu_torch.config import create_model_config
     from deepv_tpu_torch.models.mmdit import Int8Linear
     from deepv_tpu_torch.ops import causal_conv
+    from deepv_tpu_torch.ops import conv_int8 as ci8
     from deepv_tpu_torch.run import load_pipeline
 
     torch.cuda.reset_peak_memory_stats()
@@ -1114,7 +1216,7 @@ def run_fast_path(device, results, ref_frames):
     setup_s = time.perf_counter() - t0
     setup_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     quantised = sum(isinstance(m, Int8Linear) for m in pipe.mmdit.modules())
-    frames_by_class, calls = {}, [0]
+    frames_by_class, calls, narrow = {}, [0], [0]
     orig = causal_conv.conv3d_int8
 
     def spy(x, p, time_pad=2):
@@ -1122,6 +1224,7 @@ def run_fast_path(device, results, ref_frames):
         frames = x.shape[0] * (x.shape[2] + time_pad - 2)
         frames_by_class[key] = frames_by_class.get(key, 0) + frames
         calls[0] += 1
+        narrow[0] += x.shape[1] <= ci8.PACKED_MAX_CI        # conv_in: the packed kernel
         return orig(x, p, time_pad)
 
     causal_conv.conv3d_int8 = spy
@@ -1129,6 +1232,7 @@ def run_fast_path(device, results, ref_frames):
         summary, out, conv_launches = drive_rollout(pipe, setup_s)
     finally:
         causal_conv.conv3d_int8 = orig
+    rollout_frames_by_class = dict(frames_by_class)     # the spy counts the served session too
     frames = out["pred_img"]
     mcfg = pipe.mcfg
     assert summary["forwards"] == 108, f"skip_odd ran {summary['forwards']} forwards, not 108"
@@ -1139,7 +1243,10 @@ def run_fast_path(device, results, ref_frames):
     assert summary["quantize_k3_launches"] == calls[0], (
         f"the quantise kernel launched {summary['quantize_k3_launches']} times, "
         f"not once per int8 conv ({calls[0]})")
-    assert summary["conv_int8_wgmma_launches"] > summary["conv_int8_mma_launches"] > 0, summary
+    assert summary["conv_int8_packed_launches"] == narrow[0] > 0, (
+        f"the packed kernel launched {summary['conv_int8_packed_launches']} times, "
+        f"not once per conv_in call ({narrow[0]})")
+    assert summary["conv_int8_wgmma_launches"] == calls[0] - narrow[0], summary
     assert quantised == 12 * (mcfg.num_layers - 1) + 9, quantised
     assert summary["int_mm_calls"] == summary["forwards"] * quantised, summary["int_mm_calls"]
     mean8, p95 = eight_bit_gap(frames, ref_frames)
@@ -1147,23 +1254,22 @@ def run_fast_path(device, results, ref_frames):
                    expected_conv_int8_launches=calls[0],
                    expected_int_mm_calls=summary["forwards"] * quantised,
                    conv_int8_frames_by_class={f"{ci}->{co} @{h}x{w}": n for (ci, co, h, w), n
-                                              in frames_by_class.items()},
+                                              in rollout_frames_by_class.items()},
                    gap_vs_main_path_8bit_mean=mean8, gap_vs_main_path_8bit_p95=p95)
 
     # the same preset served, one unit a step
     from deepv_tpu_torch import serve
     from deepv_tpu_torch.ops import attention as att
     from deepv_tpu_torch.ops import conv_igemm as cig
-    from deepv_tpu_torch.ops import conv_int8 as ci8
     from deepv_tpu_torch.ops import linear_int8 as li8
 
     batch = rollout_batch()
     actions = serve.InteractiveSession.actions_from_prompt_list(pipe.cfg, list(batch["prompt"]))
-    calls[0], forwards, steps = 0, 0, []
+    calls[0], narrow[0], forwards, steps = 0, 0, 0, []
     att.launches = att.f32_launches = 0
     for name in K2_COUNTERS:
         setattr(cig, name, 0)
-    ci8.launches = ci8.mma_launches = ci8.quantize_launches = li8.calls = 0
+    ci8.launches = ci8.packed_launches = ci8.quantize_launches = li8.calls = 0
     causal_conv.conv3d_int8 = spy
     try:
         t = time.perf_counter()
@@ -1179,9 +1285,10 @@ def run_fast_path(device, results, ref_frames):
     served = dict(wall_s=served_s, forwards=forwards, attention_launches=att.launches,
                   attention_f32_launches=att.f32_launches,
                   conv_igemm_launches={name: getattr(cig, name) for name in K2_COUNTERS},
-                  conv_int8_launches=ci8.launches + ci8.mma_launches,
+                  conv_int8_launches=ci8.launches + ci8.packed_launches,
+                  conv_int8_packed_launches=ci8.packed_launches,
                   quantize_k3_launches=ci8.quantize_launches, int_mm_calls=li8.calls,
-                  expected_conv_int8_launches=calls[0])
+                  expected_conv_int8_launches=calls[0], expected_packed_launches=narrow[0])
     rgb = torch.cat([s["rgb"] for s in steps], dim=2)
     disp = torch.cat([s["disparity"] for s in steps], dim=2)
     assert torch.equal(rgb, frames) and torch.equal(disp, out["pred_disparity"]), (
@@ -1192,6 +1299,8 @@ def run_fast_path(device, results, ref_frames):
     assert not any(served["conv_igemm_launches"].values()), served
     assert served["conv_int8_launches"] == served["quantize_k3_launches"] == calls[0] \
         > FAST_CONV_INT8_CALLS, served
+    assert served["conv_int8_packed_launches"] == narrow[0] \
+        > summary["conv_int8_packed_launches"], served
     assert served["int_mm_calls"] == forwards * quantised, served
     summary["served"] = served
     del sess, steps, rgb, disp
@@ -1200,7 +1309,7 @@ def run_fast_path(device, results, ref_frames):
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
-    return summary, frames_by_class
+    return summary, rollout_frames_by_class
 
 
 def run_adaptive_boundary_path(device, results, ref_frames):
@@ -1298,7 +1407,7 @@ def run_serving_path(device, results, ref_frames, ref_disparity, main_launches: 
     att.launches = att.f32_launches = 0
     for name in K2_COUNTERS:
         setattr(cig, name, 0)
-    ci8.launches = ci8.mma_launches = ci8.quantize_launches = li8.calls = 0
+    ci8.launches = ci8.packed_launches = ci8.quantize_launches = li8.calls = 0
     server = serve.SessionServer(pipe, host="127.0.0.1", port=0)
     port = server.start()
     probe = {}
@@ -1341,7 +1450,7 @@ def run_serving_path(device, results, ref_frames, ref_disparity, main_launches: 
             totals.append(out["frames_total"])
         launches = dict(attention=att.launches, attention_f32=att.f32_launches,
                         **{f"conv_igemm_{k}": getattr(cig, k) for k in K2_COUNTERS},
-                        conv_int8=ci8.launches + ci8.mma_launches,
+                        conv_int8=ci8.launches + ci8.packed_launches,
                         quantize_k3=ci8.quantize_launches, int_mm=li8.calls)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         status, closed = http_call(port, "POST", "/close", {"session_id": sid})
@@ -1529,14 +1638,15 @@ def main() -> int:
         log(f"  {names[k]}: {v['frames']} frames, K2 {v['k2_s']:.3f} s, cuDNN {v['cudnn_s']:.3f} s, "
             f"bound {v['bound_s']:.3f} s, {v['tflops']:.0f} TF/s, plan {v['plan']}")
     top = per_frame[next(iter(by_class))]
-    # K2's two bf16 kernels: wgmma at the class with the most K2 time, gather
-    # at the channels-last encoder case, where the rollout runs it
+    # K2's two bf16 paths: wgmma at the class with the most K2 time, cl (the
+    # same kernel template with A read channels-last) at the encoder case,
+    # where the rollout runs it
     on_path = next(r for r in bf16 if r["layer"] == CONV_EDGE_CASES[0][0])
     for name, counter, row, rows in (
             ("conv3d_igemm_wgmma", "launches", top,
              [r for r in bf16 if r["kernel"] == "wgmma"]),
-            ("conv3d_igemm_gather", "gather_launches", on_path,
-             [r for r in bf16 if r["kernel"] == "gather"])):
+            ("conv3d_igemm_wgmma_cl", "cl_launches", on_path,
+             [r for r in bf16 if r["kernel"] == "cl"])):
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -1595,11 +1705,11 @@ def main() -> int:
         return (f"{r['ci']}->{r['co']} @{r['h']}x{r['w']}, {r['frames']} output frames, "
                 f"{r['mode']} mode, bf16")
 
-    top_wg, top_mma = top_class("wgmma"), top_class("mma")
+    top_wg, top_packed = top_class("wgmma"), top_class("packed")
     for name, counter, row, route in (("conv3d_int8_wgmma", "conv_int8_wgmma_launches", top_wg,
                                        "wgmma"),
-                                      ("conv3d_int8_mma", "conv_int8_mma_launches", top_mma,
-                                       "mma")):
+                                      ("conv3d_int8_packed", "conv_int8_packed_launches",
+                                       top_packed, "packed")):
         kernels.append({
             "name": name,
             "route": "cuda",

@@ -17,51 +17,74 @@
 // bound it, far above the bf16 ridge point (~295 operations per byte). Inside
 // the card the next limit is the bytes a tile pulls from L2 per operation.
 //
-// Three kernels, chosen by the wrapper (ops/conv_igemm.py::kernel_for):
+// Two kernels, chosen by the wrapper (ops/conv_igemm.py::kernel_for):
 //
-// conv3d_igemm_wgmma (bf16, w % 8 == 0; every conv of the rollout):
-//   * GEMM view: M = output pixels, N = co, K = 27 taps x ci. A is MN-major:
-//     a [64 ci][pixels] block is exactly x's [.., ci, t, h, w] layout read
-//     along w, so TMA loads it straight from x (5-D tensor map, w innermost).
-//     TMA zero-fills every element outside x, negative coordinates included:
-//     the spatial halo and the causal past cost nothing, no copy of x is made.
+// conv3d_igemm_wgmma<BN, A> (bf16), one template whose A operand comes from
+// one of two layouts of x; the B operand, the K walk, the tiles and the
+// epilogue are shared:
+//   * GEMM view: M = output pixels, N = co, K = 27 taps x ci.
 //   * An M tile is two "runs" of 64 output pixels, each one row segment of
 //     one frame; wide frames put several runs in a row, 64-wide frames one.
 //     Runs past w or h compute on zeros or halo rows and are not stored.
-//   * A per (kt, kh, 64-channel chunk) "unit": one unswizzled [64 ci][88 px]
-//     box per run, columns w0 - 8 .. w0 + 79, which holds the three kw taps.
-//     A shift of one column breaks the 16-byte alignment a shared-memory
-//     wgmma descriptor needs, so instead of three boxes per unit (one per kw)
-//     the consumers read the shifted A operand into registers (the m16n8k16
-//     A fragment, 16-bit shared loads) and issue wgmma with A from registers.
-//     That loads A from L2 once per unit, not once per tap.
+//   * K walks (kt, kh, 64-channel chunk) "units", kt-major; one A load per
+//     unit and run serves the three kw taps. Units whose input frame lies
+//     wholly in the causal past are skipped. TMA zero-fills every element
+//     outside x, negative coordinates included: the spatial halo and the
+//     causal past cost nothing, no padded copy of x is made.
+//   * A = kNcdhw, x [b, ci, t, h, w] read along w (every conv of the
+//     rollout; w % 8 == 0): a 5-D tensor map with w innermost loads one
+//     unswizzled [64 ci][88 px] box per unit and run, columns w0 - 8 ..
+//     w0 + 79. This A is MN-major, and a shift of one column breaks the
+//     16-byte alignment a shared-memory wgmma descriptor needs, so the
+//     consumers read the shifted A operand into registers (the m16n8k16 A
+//     fragment, 16-bit shared loads) and issue wgmma with A from registers.
+//   * A = kCl, x channels-last (ci innermost: the view the encoder's mid
+//     block hands on after its attention, or the wrapper's channels-last
+//     copy of an x that TMA cannot read along w, w % 8 != 0): x's own
+//     layout is the K-major A wgmma reads from shared memory, so no register
+//     staging. A 5-D map over (ci, w, h, t, b), b and t apart so that a
+//     negative t reads zeros and never the previous batch's frames, loads
+//     per unit and run one box of [66 px][64 ci], w0 - 1 .. w0 + 64, with
+//     the 128-byte swizzle, 1024-byte aligned: tap kw is the descriptor of
+//     the same box started kw 128-byte rows in (the swizzle is a function
+//     of the absolute shared-memory address, so the shifted start reads the
+//     shifted rows). wgmma.m64n128k16 with A and B from shared memory; one
+//     wgmma group stays in flight. This path replaces an earlier cp.async
+//     gather kernel: WMMA on sm_80 fragments, every K step walked (the
+//     causal past too), 96 CTAs at the rollout's call, and a second weight
+//     layout made on every call.
+//     Two other A loads were measured against this one on the H100 and
+//     dropped, both slower at the rollout's call (PERF.md): three swizzled
+//     boxes of [64 px][64 ci] per unit and run, one per kw (three times the
+//     bytes), and eight unswizzled [66 px][8 ci] boxes, 16-byte core-matrix
+//     columns read 16*kw bytes on (conv_int8.cu's layout; eight TMA loads).
 //   * B is K-major: the wrapper re-lays the weight out to [27, co, ci], and a
 //     3-D tensor map loads one [BN co][64 ci] box per tap with the 128-byte
 //     swizzle that the wgmma descriptor reads.
 //   * Warp-specialised: warpgroup 0 gives up its registers and one thread
 //     keeps both rings (A units, B taps) full with TMA and mbarriers;
-//     warpgroups 1 and 2 each take one run, build its A fragments, and
-//     issue wgmma.m64nBNk16 (bf16 in, f32 accumulators in registers) on the
-//     stages that have arrived, releasing each stage to the producer by its
-//     mbarrier. No block-wide barrier in the K loop.
-//   * Tiles: 128 pixels x 256 channels (128 accumulators a thread) or
-//     128 x 128; the wrapper takes the narrower one where the wider would
-//     leave SMs idle (calls with few tiles, e.g. 512->512 @48x64).
-//   * Units whose input frame lies wholly in the causal past are skipped.
+//     warpgroups 1 and 2 each take one run and issue wgmma (bf16 in, f32
+//     accumulators in registers) on the stages that have arrived, releasing
+//     each stage to the producer by its mbarrier. No block-wide barrier in
+//     the K loop.
+//   * Tiles (ops/conv_igemm.py::tile_plan), one CTA an SM: 128 pixels x
+//     256 channels or x 128 from x [b, ci, t, h, w]; 128 x 128 from x
+//     channels-last. A 128 x 64 tile, two CTAs an SM, put a CTA on every SM
+//     at the encoder's 512->512 @48x64 call (192 CTAs, where 128 x 128
+//     leaves 36 of 132 SMs idle), but each CTA re-reads the run's A for half
+//     the products, and it measured slower there; it was dropped.
 //   * Epilogue: bias added in f32, one rounding, the tile transposed through
 //     shared memory to [co][pixel] and stored 16 bytes (8 pixels) a thread
-//     into y [b, co, t, h, w], clipped at w and h; 64-bit offsets.
+//     into y [b, co, t, h, w] (element by element where w % 8 != 0), clipped
+//     at w and h; 64-bit offsets.
 //
-// conv3d_igemm_gather (bf16 that TMA cannot read along w: w % 8 != 0, or x
-// channels-last, as the encoder's mid block hands it on after its
-// attention) and conv3d_igemm_f32 (the exactness check on the card):
-// cp.async kernels on a channels-last x (the wrapper's copy, free when x
-// already is channels-last), WMMA bf16 and plain FMA f32 respectively.
+// conv3d_igemm_f32 (float32, the exactness check on the card; no rollout
+// path runs it): plain FMA on a channels-last copy of x and a [(kt, kh, kw,
+// ci), co] weight.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
@@ -72,22 +95,6 @@ struct Shape {
   int b, ci, co, t_in, t_out, h, w, time_pad;
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int src_bytes = valid ? 16 : 0;   // 0: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(gmem), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
 // Offset of x[bi, ti, hi, wi, c] in the channels-last input, or -1 when the
 // tap falls in the zero halo (causal past, spatial border).
 __device__ __forceinline__ int64_t tap_offset(const Shape& s, int bi, int ti, int hi, int wi,
@@ -97,166 +104,16 @@ __device__ __forceinline__ int64_t tap_offset(const Shape& s, int bi, int ti, in
 }
 
 // ---------------------------------------------------------------------------
-// bf16 gather (w % 8 != 0): cp.async on a channels-last copy, WMMA products
-// ---------------------------------------------------------------------------
-
-constexpr int kBM = 128;          // output pixels per CTA
-constexpr int kBN = 128;          // output channels per CTA
-constexpr int kBK = 32;           // input channels per K step
-constexpr int kStages = 3;
-constexpr int kThreads = 256;     // 8 warps: 2 (pixels) x 4 (channels), 64x32 each
-constexpr int kLdA = kBK + 8;     // bf16 row stride of the A tile (80 B)
-constexpr int kLdB = kBN + 8;     // bf16 row stride of the B tile (272 B)
-constexpr int kLdC = kBM + 4;     // f32 row stride of the [co][pixel] epilogue tile
-constexpr int kTileA = kBM * kLdA;
-constexpr int kTileB = kBK * kLdB;
-constexpr size_t kSmemPipe = (size_t)kStages * (kTileA + kTileB) * sizeof(__nv_bfloat16);
-constexpr size_t kSmemEpi = (size_t)kBN * kLdC * sizeof(float);
-constexpr size_t kSmemBf16 = kSmemPipe > kSmemEpi ? kSmemPipe : kSmemEpi;
-
-// This thread's two rows of the A tile (pixel, 8-channel chunk).
-struct ARows {
-  int row[2], chunk[2], h[2], w[2];
-  bool ok[2];
-};
-
-__device__ __forceinline__ void load_stage_bf16(
-    __nv_bfloat16* sa, __nv_bfloat16* sb, const __nv_bfloat16* __restrict__ x,
-    const __nv_bfloat16* __restrict__ wr, const Shape& s, const ARows& ar, int bi, int to,
-    int n0, int it, int ci_steps) {
-  const int tap = it / ci_steps;
-  const int c0 = (it - tap * ci_steps) * kBK;
-  const int kt = tap / 9, kh = (tap / 3) % 3, kw = tap % 3;
-  const int ti = to + kt - s.time_pad;
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int64_t off = ar.ok[j] ? tap_offset(s, bi, ti, ar.h[j] + kh - 1, ar.w[j] + kw - 1,
-                                              c0 + ar.chunk[j] * 8)
-                                 : -1;
-    cp_async16(sa + ar.row[j] * kLdA + ar.chunk[j] * 8, off >= 0 ? x + off : x, off >= 0);
-  }
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int idx = threadIdx.x + j * kThreads;
-    const int r = idx >> 4, c = idx & 15;
-    cp_async16(sb + r * kLdB + c * 8, wr + ((int64_t)tap * s.ci + c0 + r) * s.co + n0 + c * 8,
-               true);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-conv3d_igemm_gather(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wr,
-                    const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ y,
-                    Shape s) {
-  using namespace nvcuda;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* sa = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sb = sa + kStages * kTileA;
-
-  const int hw = s.h * s.w;
-  const int m0 = blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
-  const int bi = blockIdx.z / s.t_out;
-  const int to = blockIdx.z % s.t_out;
-
-  ARows ar;
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int idx = threadIdx.x + j * kThreads;
-    ar.row[j] = idx >> 2;
-    ar.chunk[j] = idx & 3;
-    const int p = m0 + ar.row[j];
-    ar.ok[j] = p < hw;
-    ar.h[j] = p / s.w;
-    ar.w[j] = p % s.w;
-  }
-  const int ci_steps = s.ci / kBK;
-  const int k_iters = 27 * ci_steps;
-
-  const int warp = threadIdx.x >> 5;
-  const int wm = (warp & 1) * 64;
-  const int wn = (warp >> 1) * 32;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-#pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (st < k_iters)
-      load_stage_bf16(sa + st * kTileA, sb + st * kTileB, x, wr, s, ar, bi, to, n0, st,
-                      ci_steps);
-    cp_async_commit();
-  }
-
-  for (int it = 0; it < k_iters; ++it) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();                       // stage `it` landed; stage it-1 fully consumed
-    const int nxt = it + kStages - 1;
-    if (nxt < k_iters) {
-      const int st = nxt % kStages;
-      load_stage_bf16(sa + st * kTileA, sb + st * kTileB, x, wr, s, ar, bi, to, n0, nxt,
-                      ci_steps);
-    }
-    cp_async_commit();
-
-    const __nv_bfloat16* ta = sa + (it % kStages) * kTileA;
-    const __nv_bfloat16* tb = sb + (it % kStages) * kTileB;
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(fa[i], ta + (wm + i * 16) * kLdA + kk * 16, kLdA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], tb + kk * 16 * kLdB + wn + j * 16, kLdB);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();                         // the ring is free: reuse it for the epilogue
-
-  float* sc = reinterpret_cast<float*>(smem_raw);   // [co][pixel]
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(sc + (wn + j * 16) * kLdC + wm + i * 16, acc[i][j], kLdC,
-                              wmma::mem_col_major);
-  __syncthreads();
-
-  for (int idx = threadIdx.x; idx < kBN * (kBM / 4); idx += kThreads) {
-    const int n = idx / (kBM / 4);
-    const int m = (idx % (kBM / 4)) * 4;
-    if (m0 + m >= hw) continue;            // hw is a multiple of 4: whole groups drop
-    const float bv = __bfloat162float(bias[n0 + n]);
-    const float4 v = *reinterpret_cast<const float4*>(sc + n * kLdC + m);
-    __nv_bfloat162 lo = __floats2bfloat162_rn(v.x + bv, v.y + bv);
-    __nv_bfloat162 hi = __floats2bfloat162_rn(v.z + bv, v.w + bv);
-    uint2 packed;
-    packed.x = *reinterpret_cast<unsigned*>(&lo);
-    packed.y = *reinterpret_cast<unsigned*>(&hi);
-    __nv_bfloat16* dst = y + (((int64_t)bi * s.co + n0 + n) * s.t_out + to) * hw + m0 + m;
-    *reinterpret_cast<uint2*>(dst) = packed;
-  }
-}
-
-// ---------------------------------------------------------------------------
 // f32: plain FMA (the exactness check on the card)
 // ---------------------------------------------------------------------------
 
+constexpr int kFThreads = 256;
 constexpr int kFBM = 64;          // output pixels per CTA
 constexpr int kFBN = 64;          // output channels per CTA
 constexpr int kFBK = 16;          // input channels per K step
 constexpr int kFLdA = kFBM + 4;   // [k][pixel] rows, 16-byte aligned
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kFThreads)
 conv3d_igemm_f32(const float* __restrict__ x, const float* __restrict__ wr,
                  const float* __restrict__ bias, float* __restrict__ y, Shape s) {
   __shared__ __align__(16) float sa[kFBK * kFLdA];   // [k][pixel]
@@ -330,12 +187,15 @@ conv3d_igemm_f32(const float* __restrict__ x, const float* __restrict__ wr,
 
 
 // ---------------------------------------------------------------------------
-// bf16: TMA-fed wgmma, read straight from x [b, ci, t, h, w]
+// bf16: TMA-fed wgmma, A from x [b, ci, t, h, w] or from x channels-last
 // ---------------------------------------------------------------------------
 
 namespace wg {
 
 using namespace hopper;
+
+// where the A operand comes from (see the note at the top)
+enum ASource : int { kNcdhw = 0, kCl = 1 };
 
 constexpr int kRun = 64;                    // output pixels of a run: one row segment
 constexpr int kHalo = 8;                    // columns loaded left of a run: one 16-byte unit
@@ -345,25 +205,30 @@ constexpr int kThreads = 384;               // warpgroup 0: producer; 1, 2: cons
 constexpr int kConsumers = 256;
 constexpr int kBoxBytes = kBK * kBoxW * 2;  // one [64 ci][88 px] box, 11 KB
 constexpr int kRingBudget = 216 * 1024;    // of the 227 KB a block may use
+// channels-last A: a box of [66 px][64 ci] with 128-byte rows, swizzled
+constexpr int kClW = kRun + 2;
+constexpr int kBoxSwz = (kClW * 128 + 1023) / 1024 * 1024;
 
 // An M tile is two runs, one per consumer warpgroup (64 output rows of
 // wgmma each); BN: output channels of the tile. B stages hold one tap's
-// [BN co][64 ci]; A stages one (kt, kh, 64-channel chunk)'s two boxes,
-// which serve the three kw taps.
+// [BN co][64 ci]; A stages one (kt, kh, 64-channel chunk)'s A loads for
+// both runs, which serve the three kw taps.
 constexpr int kRuns = 2;
 constexpr int kBM = kRun * kRuns;
 
-template <int BN>
+template <int BN, int A>
 struct Tile {
   static constexpr int kBBytes = BN * kBK * 2;
-  static constexpr int kBStages = BN == 256 ? 4 : 8;             // 128 KB of taps
-  static constexpr int kABytes = kRuns * kBoxBytes;
+  static constexpr int kBStages = BN == 128 ? 8 : 4;
+  static constexpr int kABytes = A == kNcdhw ? kRuns * kBoxBytes : kRuns * kBoxSwz;
+  static constexpr int kATx = A == kNcdhw ? kABytes : kRuns * kClW * kBK * 2;
   static constexpr int kAFit = (kRingBudget - kBStages * kBBytes) / kABytes;
   static constexpr int kAStages = kAFit > 4 ? 4 : kAFit;
   static constexpr int kRingBytes = kBStages * kBBytes + kAStages * kABytes;
   static constexpr int kAcc = BN / 2;                                  // f32 a thread per run
   static constexpr int kLdC = kBM + 8;                                 // bf16 [co][px] row stride
   static_assert(kAStages >= 2, "fewer than two A stages");
+  static_assert(kRingBytes <= kRingBudget, "the rings exceed their budget");
   static_assert(BN * kLdC * 2 <= kRingBytes, "epilogue tile exceeds the ring");
   static constexpr int kBarBytes = 2 * (kAStages + kBStages) * 8;
   static constexpr int kSmemBytes = kRingBytes + kBarBytes + 1024;     // + alignment slack
@@ -375,6 +240,31 @@ struct Params {
   const __nv_bfloat16* bias;
   __nv_bfloat16* y;
 };
+
+// D[64 x N] += A[64 x 16] * B[16 x N], A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
 
 // D[64 x N] += A[64 x 16] * B[16 x N]: A from registers (the m16n8k16 A
 // fragment of each warp's 16 rows), B K-major in shared memory.
@@ -445,8 +335,8 @@ __device__ __forceinline__ void wgmma_rs_m64n256k16(float (&d)[128], const uint3
 
 
 template <int BN>
-__device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], const uint32_t (&a)[4],
-                                           uint64_t db) {
+__device__ __forceinline__ void wgmma_rs(float (&d)[BN / 2], const uint32_t (&a)[4],
+                                         uint64_t db) {
   if constexpr (BN == 256) {
     wgmma_rs_m64n256k16(d, a, db);
   } else {
@@ -468,18 +358,19 @@ __device__ __forceinline__ uint32_t pack2(uint16_t lo, uint16_t hi) {
   return (uint32_t)lo | ((uint32_t)hi << 16);
 }
 
-template <int BN>
+template <int BN, int A>
 __global__ void __launch_bounds__(kThreads, 1)
 conv3d_igemm_wgmma(const __grid_constant__ CUtensorMap tmap_x,
                    const __grid_constant__ CUtensorMap tmap_w, const Params p) {
-  using T = Tile<BN>;
+  using T = Tile<BN, A>;
+  static_assert(A == kNcdhw || BN == 128, "channels-last x takes the 128-wide tile");
   extern __shared__ __align__(1024) unsigned char wg_smem[];
-  // swizzled B tiles and wgmma descriptors want 1024-byte aligned stages
+  // swizzled tiles and wgmma descriptors want 1024-byte aligned stages
   const uint32_t raw = smem_u32(wg_smem);
   const uint32_t base = (raw + 1023u) & ~1023u;
   unsigned char* smem = wg_smem + (base - raw);
   const uint32_t b_ring = base;                                  // kBStages x [BN][64] bf16
-  const uint32_t a_ring = base + T::kBStages * T::kBBytes;       // kAStages x two boxes
+  const uint32_t a_ring = base + T::kBStages * T::kBBytes;       // kAStages x both runs' A
   const uint32_t a_full = base + T::kRingBytes;                  // barriers, 8 bytes each
   const uint32_t a_empty = a_full + T::kAStages * 8;
   const uint32_t b_full = a_empty + T::kAStages * 8;
@@ -518,15 +409,22 @@ conv3d_igemm_wgmma(const __grid_constant__ CUtensorMap tmap_x,
       for (int u = u_begin, ia = 0; u < u_end; ++u, ++ia) {
         const int sa = ia % T::kAStages;
         mbar_wait(a_empty + 8 * sa, ((ia / T::kAStages) & 1) ^ 1);
-        mbar_expect_tx(a_full + 8 * sa, T::kABytes);
+        mbar_expect_tx(a_full + 8 * sa, T::kATx);
         const int g = u / chunks;
         const int c0 = (u - g * chunks) * kBK;
         const int kt = g / 3, kh = g - 3 * (g / 3);
+        const int ti = to + kt - p.time_pad;
+        const uint32_t stage = a_ring + sa * T::kABytes;
         for (int r = 0; r < kRuns; ++r) {
           int hh, w0;
           run_origin(p, m_tile * kRuns + r, hh, w0);
-          tma_load_5d(a_ring + sa * T::kABytes + r * kBoxBytes, &tmap_x, a_full + 8 * sa,
-                      w0 - kHalo, hh + kh - 1, to + kt - p.time_pad, c0, bi);
+          if constexpr (A == kNcdhw) {
+            tma_load_5d(stage + r * kBoxBytes, &tmap_x, a_full + 8 * sa, w0 - kHalo, hh + kh - 1,
+                        ti, c0, bi);
+          } else {
+            tma_load_5d(stage + r * kBoxSwz, &tmap_x, a_full + 8 * sa, c0, w0 - 1, hh + kh - 1,
+                        ti, bi);
+          }
         }
         for (int kw = 0; kw < 3; ++kw, ++ib) {
           const int sb = ib % T::kBStages;
@@ -543,48 +441,88 @@ conv3d_igemm_wgmma(const __grid_constant__ CUtensorMap tmap_x,
     const int ct = threadIdx.x - 128;                    // 0..255
     const int run = wgi - 1;
     const int warp = (ct & 127) >> 5, lane = ct & 31;
-    // this thread's A fragment elements: pixel m = 16 warp + lane / 4 (and
-    // m + 8), channels k = 2 (lane % 4) (+1, +8, +9) of each k16 step; the
-    // kw tap reads column m + kw - 1 of the run, box column m + kw + 7
-    const int a_off = 2 * (lane & 3) * kBoxW + warp * 16 + (lane >> 2) + kHalo - 1;
     float acc[T::kAcc];
 #pragma unroll
     for (int i = 0; i < T::kAcc; ++i) acc[i] = 0.f;
 
-    int ib = 0;
-    for (int u = u_begin, ia = 0; u < u_end; ++u, ++ia) {
-      const int sa = ia % T::kAStages;
-      mbar_wait(a_full + 8 * sa, (ia / T::kAStages) & 1);
-      const uint16_t* abox = reinterpret_cast<const uint16_t*>(
-          smem + (a_ring - base) + sa * T::kABytes + run * kBoxBytes) + a_off;
+    if constexpr (A == kNcdhw) {
+      // this thread's A fragment elements: pixel m = 16 warp + lane / 4 (and
+      // m + 8), channels k = 2 (lane % 4) (+1, +8, +9) of each k16 step; the
+      // kw tap reads column m + kw - 1 of the run, box column m + kw + 7
+      const int a_off = 2 * (lane & 3) * kBoxW + warp * 16 + (lane >> 2) + kHalo - 1;
+      int ib = 0;
+      for (int u = u_begin, ia = 0; u < u_end; ++u, ++ia) {
+        const int sa = ia % T::kAStages;
+        mbar_wait(a_full + 8 * sa, (ia / T::kAStages) & 1);
+        const uint16_t* abox = reinterpret_cast<const uint16_t*>(
+            smem + (a_ring - base) + sa * T::kABytes + run * kBoxBytes) + a_off;
 #pragma unroll
-      for (int kw = 0; kw < 3; ++kw, ++ib) {
-        uint32_t frag[4][4];
+        for (int kw = 0; kw < 3; ++kw, ++ib) {
+          uint32_t frag[4][4];
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          const uint16_t* q = abox + kw + kk * 16 * kBoxW;
-          frag[kk][0] = pack2(q[0], q[kBoxW]);
-          frag[kk][1] = pack2(q[8], q[kBoxW + 8]);
-          frag[kk][2] = pack2(q[8 * kBoxW], q[9 * kBoxW]);
-          frag[kk][3] = pack2(q[8 * kBoxW + 8], q[9 * kBoxW + 8]);
+          for (int kk = 0; kk < 4; ++kk) {
+            const uint16_t* q = abox + kw + kk * 16 * kBoxW;
+            frag[kk][0] = pack2(q[0], q[kBoxW]);
+            frag[kk][1] = pack2(q[8], q[kBoxW + 8]);
+            frag[kk][2] = pack2(q[8 * kBoxW], q[9 * kBoxW]);
+            frag[kk][3] = pack2(q[8 * kBoxW + 8], q[9 * kBoxW + 8]);
+          }
+          if (kw == 2) mbar_arrive(a_empty + 8 * sa);    // the boxes are in registers
+          const int sb = ib % T::kBStages;
+          mbar_wait(b_full + 8 * sb, (ib / T::kBStages) & 1);
+          const uint32_t bs = b_ring + sb * T::kBBytes;
+          fence_acc(acc);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < kBK / 16; ++kk) {
+            // B [BN co][64 ci], K-major, 128-byte swizzle: k16 slices are 32
+            // bytes apart in each row, 8-row groups 1024 bytes apart
+            wgmma_rs<BN>(acc, frag[kk], smem_desc(bs + kk * 32, 16, 1024));
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_acc(acc);
+          mbar_arrive(b_empty + 8 * sb);
         }
-        if (kw == 2) mbar_arrive(a_empty + 8 * sa);      // the boxes are in registers
-        const int sb = ib % T::kBStages;
-        mbar_wait(b_full + 8 * sb, (ib / T::kBStages) & 1);
-        const uint32_t bs = b_ring + sb * T::kBBytes;
-        fence_acc(acc);
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < kBK / 16; ++kk) {
-          // B [BN co][64 ci], K-major, 128-byte swizzle: k16 slices are 32
-          // bytes apart in each row, 8-row groups 1024 bytes apart
-          wgmma_tile<BN>(acc, frag[kk], smem_desc(bs + kk * 32, 16, 1024));
-        }
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_acc(acc);
-        mbar_arrive(b_empty + 8 * sb);
       }
+    } else {
+      // A and B from shared memory; a tap's stages go back to the producer
+      // once the next tap's group is committed and the previous one retired
+      int ib = 0, prev_sa = 0, prev_sb = 0;
+      bool prev = false, prev_last = false;
+      for (int u = u_begin, ia = 0; u < u_end; ++u, ++ia) {
+        const int sa = ia % T::kAStages;
+        mbar_wait(a_full + 8 * sa, (ia / T::kAStages) & 1);
+        const uint32_t astage = a_ring + sa * T::kABytes;
+#pragma unroll 1
+        for (int kw = 0; kw < 3; ++kw, ++ib) {
+          const int sb = ib % T::kBStages;
+          mbar_wait(b_full + 8 * sb, (ib / T::kBStages) & 1);
+          const uint32_t bs = b_ring + sb * T::kBBytes;
+          fence_acc(acc);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < kBK / 16; ++kk) {
+            // the run's swizzled [66 px][64 ci] box: tap kw starts kw
+            // 128-byte rows in (the swizzle follows the absolute address)
+            const uint64_t da = smem_desc(astage + run * kBoxSwz + kw * 128 + kk * 32, 16, 1024);
+            wgmma_ss_m64n128k16(acc, da, smem_desc(bs + kk * 32, 16, 1024));
+          }
+          wgmma_commit();
+          wgmma_wait<1>();                               // the previous tap's group retired
+          fence_acc(acc);
+          if (prev) {
+            mbar_arrive(b_empty + 8 * prev_sb);
+            if (prev_last) mbar_arrive(a_empty + 8 * prev_sa);
+          }
+          prev = true;
+          prev_sb = sb;
+          prev_sa = sa;
+          prev_last = kw == 2;
+        }
+      }
+      wgmma_wait<0>();
+      fence_acc(acc);
     }
     consumer_sync();                                     // the rings are free from here on
     // epilogue: bias in f32, one rounding, [co][pixel] tile in shared memory
@@ -602,51 +540,76 @@ conv3d_igemm_wgmma(const __grid_constant__ CUtensorMap tmap_x,
     }
     consumer_sync();
     const int64_t hw = (int64_t)p.h * p.w;
+    const bool vec = p.w % 8 == 0;                       // rows of y 16-byte aligned
     for (int idx = ct; idx < BN * kRuns * 8; idx += kConsumers) {
       const int n = idx / (kRuns * 8);
       const int c = idx - n * (kRuns * 8);
       const int r = c >> 3, px8 = (c & 7) * 8;
       int hh, w0;
       run_origin(p, m_tile * kRuns + r, hh, w0);
-      if (hh >= p.h || w0 + px8 >= p.w) continue;        // w % 8 == 0: whole groups drop
-      const uint4 v = *reinterpret_cast<const uint4*>(st + n * T::kLdC + r * kRun + px8);
+      if (hh >= p.h || w0 + px8 >= p.w) continue;
+      const __nv_bfloat16* src = st + n * T::kLdC + r * kRun + px8;
       __nv_bfloat16* dst = p.y + (((int64_t)bi * p.co + n0 + n) * p.t_out + to) * hw +
                            (int64_t)hh * p.w + w0 + px8;
-      *reinterpret_cast<uint4*>(dst) = v;
+      if (vec) {
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+      } else {
+        for (int e = 0; e < 8 && w0 + px8 + e < p.w; ++e) dst[e] = src[e];
+      }
     }
   }
 }
 
-template <int BN>
+// x's tensor map: for kNcdhw dims (w, h, t, c, b), w innermost, boxes of
+// [64 c][1][1][1 h][88 w] unswizzled (the consumers read them with any
+// one-column shift), sx = x's (b, c, t, h) element strides; for the
+// channels-last sources dims (c, w, h, t, b), c innermost, sx = (b, t, h,
+// w): boxes of [66 w][64 c] with the 128-byte swizzle.
+template <int A>
+CUresult encode_x(EncodeTiled encode, CUtensorMap* tx, const void* x, const Params& p, int t_in,
+                  const int64_t* sx) {
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  if constexpr (A == kNcdhw) {
+    const cuuint64_t dim[5] = {(cuuint64_t)p.w, (cuuint64_t)p.h, (cuuint64_t)t_in,
+                               (cuuint64_t)p.ci, (cuuint64_t)p.b};
+    const cuuint64_t stride[4] = {(cuuint64_t)sx[3] * 2, (cuuint64_t)sx[2] * 2,
+                                  (cuuint64_t)sx[1] * 2, (cuuint64_t)sx[0] * 2};
+    const cuuint32_t box[5] = {kBoxW, 1, 1, kBK, 1};
+    return encode(tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(x), dim, stride,
+                  box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  } else {
+    const cuuint64_t dim[5] = {(cuuint64_t)p.ci, (cuuint64_t)p.w, (cuuint64_t)p.h,
+                               (cuuint64_t)t_in, (cuuint64_t)p.b};
+    const cuuint64_t stride[4] = {(cuuint64_t)sx[3] * 2, (cuuint64_t)sx[2] * 2,
+                                  (cuuint64_t)sx[1] * 2, (cuuint64_t)sx[0] * 2};
+    const cuuint32_t box[5] = {kBK, kClW, 1, 1, 1};
+    return encode(tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(x), dim, stride,
+                  box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  }
+}
+
+template <int BN, int A>
 int launch(const void* x, const void* wk, const Params& p, int t_in, const int64_t* sx,
            cudaStream_t stream) {
-  using T = Tile<BN>;
+  using T = Tile<BN, A>;
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
-  // x: dims (w, h, t, c, b), w innermost; boxes of [64 c][1][1][1 h][88 w],
-  // unswizzled (the consumers read them with any one-column shift)
   CUtensorMap tx, tw;
-  const cuuint64_t xdim[5] = {(cuuint64_t)p.w, (cuuint64_t)p.h, (cuuint64_t)t_in,
-                              (cuuint64_t)p.ci, (cuuint64_t)p.b};
-  const cuuint64_t xstride[4] = {(cuuint64_t)sx[3] * 2, (cuuint64_t)sx[2] * 2,
-                                 (cuuint64_t)sx[1] * 2, (cuuint64_t)sx[0] * 2};
-  const cuuint32_t xbox[5] = {kBoxW, 1, 1, kBK, 1};
-  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  CUresult r = encode(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(x), xdim,
-                      xstride, xbox, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  CUresult r = encode_x<A>(encode, &tx, x, p, t_in, sx);
   if (r != CUDA_SUCCESS) return 1000 + (int)r;
   // weight [27, co, ci]: boxes of [BN co][64 ci]
   const cuuint64_t wdim[3] = {(cuuint64_t)p.ci, (cuuint64_t)p.co, 27};
   const cuuint64_t wstride[2] = {(cuuint64_t)p.ci * 2, (cuuint64_t)p.ci * p.co * 2};
   const cuuint32_t wbox[3] = {kBK, BN, 1};
+  const cuuint32_t ones[3] = {1, 1, 1};
   r = encode(&tw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(wk), wdim, wstride,
              wbox, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return 1000 + (int)r;
 
-  auto kernel = conv3d_igemm_wgmma<BN>;
+  auto kernel = conv3d_igemm_wgmma<BN, A>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          T::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
@@ -659,65 +622,53 @@ int launch(const void* x, const void* wk, const Params& p, int t_in, const int64
 
 }  // namespace
 
-// Kernels conv3d_igemm_gather (dtype 1 = bfloat16) and conv3d_igemm_f32
-// (dtype 0 = float32) on a channels-last copy. Pointers are device pointers
-// of contiguous tensors: x [b, t_in, h, w, ci], wr [27*ci, co] ((kt, kh, kw,
-// ci) rows), bias [co], y [b, co, t_out, h, w]; all in one dtype. Requires
-// ci, co multiples of 128, even h and w, time_pad 0 or 2 and
-// t_out = t_in + time_pad - 2 >= 1. Launches on `stream` and returns
-// cudaGetLastError().
-extern "C" int deepv_conv3d_igemm(const void* x, const void* wr, const void* bias, void* y,
-                                  int b, int ci, int co, int t_in, int t_out, int h, int w,
-                                  int time_pad, int dtype, void* stream) {
+// Kernel conv3d_igemm_f32 on a channels-last copy. Pointers are device
+// pointers of contiguous float32 tensors: x [b, t_in, h, w, ci], wr [27*ci,
+// co] ((kt, kh, kw, ci) rows), bias [co], y [b, co, t_out, h, w]. Requires
+// ci, co multiples of 128, even h and w, time_pad 0 or 2 and t_out = t_in +
+// time_pad - 2 >= 1. Launches on `stream` and returns cudaGetLastError().
+extern "C" int deepv_conv3d_igemm_f32(const void* x, const void* wr, const void* bias, void* y,
+                                      int b, int ci, int co, int t_in, int t_out, int h, int w,
+                                      int time_pad, void* stream) {
   if (b <= 0 || ci <= 0 || co <= 0 || h <= 0 || w <= 0 || ci % 128 || co % 128 || h % 2 ||
       w % 2 || (time_pad != 0 && time_pad != 2) || t_out < 1 ||
-      t_out != t_in + time_pad - 2 || (dtype != 0 && dtype != 1) ||
-      (int64_t)b * t_out > 65535)
+      t_out != t_in + time_pad - 2 || (int64_t)b * t_out > 65535)
     return (int)cudaErrorInvalidValue;
   const Shape s{b, ci, co, t_in, t_out, h, w, time_pad};
   const int64_t hw = (int64_t)h * w;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    cudaError_t err = cudaFuncSetAttribute(conv3d_igemm_gather,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)kSmemBf16);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((unsigned)((hw + kBM - 1) / kBM), co / kBN, b * t_out);
-    conv3d_igemm_gather<<<grid, kThreads, kSmemBf16, st>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(wr),
-        static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(y), s);
-  } else {
-    const dim3 grid((unsigned)((hw + kFBM - 1) / kFBM), co / kFBN, b * t_out);
-    conv3d_igemm_f32<<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(x), static_cast<const float*>(wr),
-        static_cast<const float*>(bias), static_cast<float*>(y), s);
-  }
+  const dim3 grid((unsigned)((hw + kFBM - 1) / kFBM), co / kFBN, b * t_out);
+  conv3d_igemm_f32<<<grid, kFThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(wr),
+      static_cast<const float*>(bias), static_cast<float*>(y), s);
   return (int)cudaGetLastError();
 }
 
-// Kernel conv3d_igemm_wgmma, bfloat16 only. x [b, ci, t_in, h, w] with
-// element strides sx = (b, c, t, h) and unit stride along w; wk [27, co, ci]
-// contiguous (tap-major, ci innermost); bias [co]; y [b, co, t_out, h, w]
-// contiguous. The tile is 128 pixels x bn (128 or 256) channels. The grid
-// and the tile's runs follow ops/conv_igemm.py::make_plan: runs_per_row =
-// ceil(w / 64), m_tiles = ceil(h * runs_per_row / 2). Requires ci, co multiples of 128
-// (co of bn), even h, w % 8 == 0, 16-byte aligned x and y, x's strides
-// multiples of 8 elements, time_pad 0 or 2 and t_out = t_in + time_pad - 2
-// >= 1. Launches on `stream`; returns a cudaError_t, or 1000 + the CUresult
-// of a tensor map that could not be encoded.
+// Kernel conv3d_igemm_wgmma, bfloat16 only. `a_source` says how x is laid
+// out and read: 0 (kNcdhw), x [b, ci, t_in, h, w] with unit stride along w
+// and element strides sx = (b, c, t, h); 1 (kCl), x with unit stride along
+// ci and element strides sx = (b, t, h, w). wk [27, co, ci] contiguous
+// (tap-major, ci innermost); bias [co]; y [b, co, t_out, h, w] contiguous.
+// The tile is 128 pixels x bn channels: bn 256 or 128 for a_source 0, 128
+// for 1. The grid and the tile's runs follow ops/conv_igemm.py::make_plan:
+// runs_per_row = ceil(w / 64), m_tiles = ceil(h * runs_per_row / 2). Requires ci, co multiples of 128 (co of
+// bn), even h and w, w % 8 == 0 for a_source 0, 16-byte aligned x, wk and y,
+// x's strides multiples of 8 elements, time_pad 0 or 2 and t_out = t_in +
+// time_pad - 2 >= 1. Launches on `stream`; returns a cudaError_t, or 1000 +
+// the CUresult of a tensor map that could not be encoded.
 extern "C" int deepv_conv3d_igemm_wgmma(const void* x, const void* wk, const void* bias,
                                         void* y, int b, int ci, int co, int t_in, int t_out,
-                                        int h, int w, int time_pad, int64_t sx_b,
-                                        int64_t sx_c, int64_t sx_t, int64_t sx_h, int bn,
-                                        void* stream) {
-  const int64_t sx[4] = {sx_b, sx_c, sx_t, sx_h};
+                                        int h, int w, int time_pad, int64_t sx_0,
+                                        int64_t sx_1, int64_t sx_2, int64_t sx_3, int bn,
+                                        int a_source, void* stream) {
+  const int64_t sx[4] = {sx_0, sx_1, sx_2, sx_3};
   bool strides_ok = true;
   for (int i = 0; i < 4; ++i) strides_ok = strides_ok && sx[i] > 0 && sx[i] % 8 == 0;
+  const bool tile_ok = (a_source == wg::kNcdhw && (bn == 256 || bn == 128) && w % 8 == 0) ||
+                       (a_source == wg::kCl && bn == 128);
   if (b <= 0 || ci <= 0 || co <= 0 || h <= 0 || w <= 0 || ci % 128 || co % 128 || h % 2 ||
-      w % 8 || (time_pad != 0 && time_pad != 2) || t_out < 1 ||
-      t_out != t_in + time_pad - 2 || (int64_t)b * t_out > 65535 ||
-      (bn != 128 && bn != 256) || co % bn || !strides_ok ||
-      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(y) % 16 ||
+      w % 2 || (time_pad != 0 && time_pad != 2) || t_out < 1 ||
+      t_out != t_in + time_pad - 2 || (int64_t)b * t_out > 65535 || !tile_ok || co % bn ||
+      !strides_ok || reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(y) % 16 ||
       reinterpret_cast<uintptr_t>(wk) % 16)
     return (int)cudaErrorInvalidValue;
   wg::Params p;
@@ -727,6 +678,7 @@ extern "C" int deepv_conv3d_igemm_wgmma(const void* x, const void* wk, const voi
   p.bias = static_cast<const __nv_bfloat16*>(bias);
   p.y = static_cast<__nv_bfloat16*>(y);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (bn == 256) return wg::launch<256>(x, wk, p, t_in, sx, st);
-  return wg::launch<128>(x, wk, p, t_in, sx, st);
+  if (a_source == wg::kCl) return wg::launch<128, wg::kCl>(x, wk, p, t_in, sx, st);
+  return bn == 256 ? wg::launch<256, wg::kNcdhw>(x, wk, p, t_in, sx, st)
+                   : wg::launch<128, wg::kNcdhw>(x, wk, p, t_in, sx, st);
 }

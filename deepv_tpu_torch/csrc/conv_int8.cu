@@ -7,7 +7,8 @@
 //
 // quantize_k3_input: x [b, ci, t, h, w] (bf16 or f32) and the f32 scale sx
 // (one reduction over x, made by the wrapper) -> x8 [b, t, h, w, ci_pad]
-// int8, channels-last, zero channels up to a multiple of 32:
+// int8, channels-last, zero channels up to ci_pad (32 for ci <= 16, else a
+// multiple of 128; ops/conv_int8.py::ci_pad_of):
 //
 //   x8[b, t, h, w, c] = round_half_even(f32(x[b, c, t, h, w]) / sx)   (c < ci)
 //
@@ -18,18 +19,19 @@
 // channels) a thread along ci. Bound by bytes: it reads x once and writes
 // x8 once.
 //
-// the conv (conv3d_int8_wgmma, or conv3d_int8_mma for narrow channels): for
-// x8, the K-major quantised weight wk [27, co_pad, ci_pad] (tap-major, built
-// once when the VAE is built), sx, the per-channel weight scales sw [co] and
-// the bias [co] (bf16, f32 or none):
+// the conv (conv3d_int8_wgmma, or conv3d_int8_packed for ci <= 16): for x8,
+// the quantised weight (K-major: wk [27, co_pad, ci_pad], tap-major, for
+// the wgmma kernel; the packed [co_pad, K_pad] for the packed one; both
+// built once when the VAE is built), sx, the per-channel weight scales sw
+// [co] and the bias [co] (bf16, f32 or none):
 //
-//   acc[b, co, t, h, w] = sum_{kt,kh,kw,ci} wk[kt*9 + kh*3 + kw, co, ci]
+//   acc[b, co, t, h, w] = sum_{kt,kh,kw,ci} w8[co, ci, kt, kh, kw]
 //                           * x8[b, t + kt - time_pad, h + kh - 1, w + kw - 1, ci]
 //   y = (float(acc) * (sx * sw[co])) + bias[co]   (three f32 roundings, no FMA)
 //
 // with zeros outside the input (time_pad = 2: two causal zero frames in the
 // past; time_pad = 0: the context frames are already in x8). The int32 sum
-// is exact (at most 256 * 27 * 127^2 < 2^31 per output), so the
+// is exact (at most 2048 * 27 * 127^2 < 2^31 per output), so the
 // accumulators equal the plain version's bit for bit, and y is rounded to
 // the output type (bf16 or f32) once. A non-null `acc` makes the kernel
 // store the int32 accumulators instead of y (the exactness check).
@@ -41,8 +43,8 @@
 // cores bound those; the 3-channel layers (encoder conv_in, decoder
 // conv_out) move more bytes than they compute and are bound by bytes.
 //
-// conv3d_int8_wgmma (ci_pad a multiple of 128: 128->128, 256->128, 256->512
-// and conv_out's 128->3), TMA-fed s8 wgmma:
+// conv3d_int8_wgmma (ci > 16, ci_pad a multiple of 128: 128->128, 256->128,
+// 256->512 and conv_out's 128->3), TMA-fed s8 wgmma:
 //   * GEMM view: M = output pixels of one row segment (b, t, h, w0..w0+BM),
 //     N = BN output channels (128, or 16 where co is not a multiple of 128:
 //     conv_out's 3, zero-padded), K = 27 taps x ci_pad, walked in units of
@@ -81,30 +83,48 @@
 //     multiple of the vector; padding channels are not stored; 64-bit
 //     offsets.
 //
-// conv3d_int8_mma (ci_pad not a multiple of 128: encoder conv_in, ci = 3,
-// ci_pad = 32), simple first: mma.sync m16n8k32 s8 with int32 accumulators
-// and a cp.async ring, no TMA.
-//   * GEMM view: M = output pixels of one frame (a CTA takes 128 of them),
-//     N = output channels (a CTA takes 128, or 16 for narrow co such as 3),
-//     K = 27 taps x ci_pad, walked 32 channels at a time.
-//   * A 4-stage cp.async ring: each stage holds the A tile [128 px][32 ci]
-//     (one 16-byte copy per thread; pixels whose tap falls outside x, in the
-//     causal past or the spatial halo, get zeros from cp.async's zero fill)
-//     and the B tile [BN co][32 ci]. Rows are 48 bytes apart, so the 32-bit
-//     fragment reads of a warp hit 32 distinct banks.
-//   * 8 warps: 4 x 2 warp tiles of 32 px x 64 co (BN = 128) or 8 x 1 of
-//     16 px x 16 co (BN = 16); fragments are read as 32-bit words straight
-//     in the m16n8k32 layouts (A row-major, B column-major).
-//   * Taps whose input frame lies wholly in the causal past are skipped.
-//   * Epilogue: the int32 tile goes through shared memory to [co][pixel], so
-//     a warp stores 32 consecutive pixels of one channel into y [b, co, t, h,
-//     w]; 64-bit offsets.
-//   * The fast rollout runs only BN = 128 here (conv_in, 3 -> 128). BN = 16
-//     stays because supports_int8 admits any ci and co at h >= MIN_H, and a
-//     conv with neither ci_pad nor co a multiple of 128 (3 -> 3, say) has
-//     no other kernel; chip_smoke.py's 3 -> 3 case holds it to the plain
-//     version. Whether the wgmma kernel, with conv_in's ci padded to 128,
-//     is no slower than this kernel (and could replace it) is not measured.
+// conv3d_int8_packed (ci <= 16: encoder conv_in, ci = 3; any conv this
+// narrow), persistent s8 wgmma with K packed as (tap, channel). It replaces
+// an earlier cp.async + mma.sync kernel, which padded conv_in's 3 channels
+// to 32 (each of its 27 K steps 29/32 zeros), re-read the A tile from L2
+// for every tap and stored each tile before starting the next, at 14x the
+// bound below.
+//   * What bounds it: conv_in does 2*27*3*128 ~ 21 k operations per pixel
+//     against the 256 bytes of its bf16 output: the output write, 0.031 ms
+//     for 2 frames at 384x512.
+//   * K packed: row k = (kt*9 + kh*3 + kw)*cpk + c, cpk = ci rounded up to 4
+//     (conv_in: 3 channels and one zero, 108 bytes), zero-padded to K_pad, a
+//     multiple of 128 (K_pad <= 512): one or more 128-byte K-major rows a
+//     pixel with the 128-byte swizzle, so an output tile is 4 * K_pad / 128
+//     wgmma.m64nBNk32 s8 steps (conv_in: 4) instead of 27 padded taps.
+//   * A operand: for a work item of 64 output pixels (one row segment of
+//     one frame), one TMA box of [3 kt][3 kh][66 px][16 B] from the 5-D map
+//     over x8 (b and t apart; zero fill gives the halo and the causal past,
+//     so no tap is skipped or branched on). The consumer warpgroup then
+//     copies each pixel's words (cpk / 4 of them for each of the 27 taps,
+//     from box row (kt, kh) at pixel m + kw) into its packed A tile in
+//     shared memory, 4 bytes at a time, and fences them for the async proxy.
+//   * B operand: the packed weight [co_pad, K_pad] (ops/conv_int8.py::
+//     packed_weight, made once), one [BN co][K_pad] slice loaded once per
+//     CTA by TMA with the 128-byte swizzle.
+//   * Persistent: a grid of about one CTA an SM per BN-channel slice, each
+//     walking work items; one producer thread streams the item boxes
+//     through a 2-stage ring; consumer warpgroups 1 and 2 take alternate
+//     items, so one's epilogue overlaps the other's packing and products.
+//     The ring's stage count must be even: consumer c takes items c, c + 2,
+//     ..., so then each stage serves one consumer alone, and its parity
+//     waits cannot run two phases ahead. With an odd count a stage passes
+//     between the consumers, and one could see the other's older phase
+//     complete and read a box that has not landed. Two stages are one box
+//     a consumer: the producer refills it as soon as the consumer has
+//     packed it, during that item's products and epilogue (four stages do
+//     not fit beside the 128-wide tile's weight and staging).
+//   * Epilogue: the wgmma kernel's dequant arithmetic; bf16 y (w % 8 == 0)
+//     goes through an unswizzled [BN co][64 px] bf16 tile in shared memory,
+//     two a warpgroup in turn, and one TMA store a tile (the map clips at w
+//     and co), so no thread spends instructions on the 256 bytes a pixel
+//     that bound the kernel; f32 y, the int32 sums and w % 8 != 0 go
+//     through a [co][pixel] tile of 32-bit words and 16-byte stores.
 //
 // ops/conv_int8.py::plan picks the kernel and its tile for each call.
 
@@ -116,17 +136,6 @@
 #include "hopper.cuh"
 
 namespace {
-
-// y = (float(a) * (sx * sw[c])) + bias[c], each product and sum rounded
-// apart, as the plain version's f32 ops (no FMA).
-__device__ __forceinline__ float dequant(int32_t a, float sx, const float* __restrict__ sw,
-                                         const void* __restrict__ bias, int bias_bf16, int c) {
-  float v = __fmul_rn(__int2float_rn(a), __fmul_rn(sx, sw[c]));
-  if (bias != nullptr)
-    v = __fadd_rn(v, bias_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(bias)[c])
-                               : static_cast<const float*>(bias)[c]);
-  return v;
-}
 
 // ---------------------------------------------------------------------------
 // the quantise pass: x [b, ci, t, h, w] -> x8 [b, t, h, w, ci_pad]
@@ -223,209 +232,6 @@ quantize_k3_input(const T* __restrict__ x, const float* __restrict__ sx_ptr,
     }
   }
 }
-
-// ---------------------------------------------------------------------------
-// conv3d_int8_mma: cp.async + mma.sync m16n8k32 (ci_pad not a multiple of 128)
-// ---------------------------------------------------------------------------
-
-constexpr int kBM = 128;          // output pixels per CTA
-constexpr int kBK = 32;           // int8 input channels per K step (one mma k)
-constexpr int kLd = kBK + 16;     // bytes between shared rows
-constexpr int kStages = 4;
-constexpr int kThreads = 256;
-
-struct Shape {
-  int b, ci_pad, co, co_pad, t_in, t_out, h, w, time_pad;
-};
-
-template <int BN>
-struct Tile {
-  static constexpr int kWarpsN = BN >= 64 ? 2 : 1;
-  static constexpr int kWarpsM = 8 / kWarpsN;
-  static constexpr int kWM = kBM / kWarpsM;     // pixels of a warp tile
-  static constexpr int kWN = BN / kWarpsN;      // channels of a warp tile
-  static constexpr int kMT = kWM / 16;
-  static constexpr int kNT = kWN / 8;
-  static constexpr int kLdC = kBM + 4;          // int32 row stride of the epilogue tile
-  static constexpr size_t kSmemPipe = (size_t)kStages * (kBM + BN) * kLd;
-  static constexpr size_t kSmemEpi = (size_t)BN * kLdC * sizeof(int32_t);
-  static constexpr size_t kSmem = kSmemPipe > kSmemEpi ? kSmemPipe : kSmemEpi;
-};
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int src_bytes = valid ? 16 : 0;   // 0: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(gmem), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-__device__ __forceinline__ uint32_t ld32(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// d += a * b, m16n8k32, s8 inputs, s32 accumulators.
-__device__ __forceinline__ void mma_s8(int32_t (&d)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-template <int BN>
-__global__ void __launch_bounds__(kThreads)
-conv3d_int8_mma(const int8_t* __restrict__ x, const int8_t* __restrict__ wk,
-                const float* __restrict__ sx, const float* __restrict__ sw,
-                const void* __restrict__ bias, int bias_bf16, void* __restrict__ y,
-                int32_t* __restrict__ acc_out, int out_bf16, Shape s) {
-  using T = Tile<BN>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  int8_t* sa = reinterpret_cast<int8_t*>(smem);
-  int8_t* sb = sa + kStages * kBM * kLd;
-
-  const int hw = s.h * s.w;
-  const int m0 = blockIdx.x * kBM;
-  const int n0 = blockIdx.y * BN;
-  const int bi = blockIdx.z / s.t_out;
-  const int to = blockIdx.z % s.t_out;
-  const int tid = threadIdx.x;
-
-  // this thread's copies: A row (pixel) a_row, B row (channel) b_row, both
-  // the 16-byte half `half` of the stage's 32 channels
-  const int a_row = tid >> 1, half = tid & 1, b_row = tid >> 1;
-  const int p = m0 + a_row;
-  const bool p_ok = p < hw;
-  const int ph = p_ok ? p / s.w : 0;
-  const int pw = p_ok ? p % s.w : 0;
-  const bool b_on = tid < 2 * BN;
-
-  const int kc_steps = s.ci_pad / kBK;
-  const int it0 = max(0, s.time_pad - to) * 9 * kc_steps;   // skip taps in the causal past
-  const int it1 = 27 * kc_steps;
-
-  auto load = [&](int stage, int it) {
-    const int tap = it / kc_steps;
-    const int c0 = (it - tap * kc_steps) * kBK + half * 16;
-    const int kt = tap / 9, kh = (tap / 3) % 3, kw = tap % 3;
-    const int ti = to + kt - s.time_pad, hi = ph + kh - 1, wi = pw + kw - 1;
-    const bool ok = p_ok && ti >= 0 && ti < s.t_in && hi >= 0 && hi < s.h && wi >= 0 &&
-                    wi < s.w;
-    const int8_t* src =
-        ok ? x + ((((int64_t)bi * s.t_in + ti) * s.h + hi) * s.w + wi) * s.ci_pad + c0 : x;
-    cp_async16(sa + (stage * kBM + a_row) * kLd + half * 16, src, ok);
-    if (b_on)
-      cp_async16(sb + (stage * BN + b_row) * kLd + half * 16,
-                 wk + ((int64_t)tap * s.co_pad + n0 + b_row) * s.ci_pad + c0, true);
-  };
-
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int wm = (warp % T::kWarpsM) * T::kWM;
-  const int wn = (warp / T::kWarpsM) * T::kWN;
-  int32_t acc[T::kMT][T::kNT][4];
-#pragma unroll
-  for (int i = 0; i < T::kMT; ++i)
-#pragma unroll
-    for (int j = 0; j < T::kNT; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
-
-#pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (it0 + st < it1) load(st, it0 + st);
-    cp_async_commit();
-  }
-
-  for (int it = it0; it < it1; ++it) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();                       // stage `it` landed; stage it-1 fully consumed
-    const int nxt = it + kStages - 1;
-    if (nxt < it1) load((nxt - it0) % kStages, nxt);
-    cp_async_commit();
-
-    const int stage = (it - it0) % kStages;
-    const int8_t* ta = sa + stage * kBM * kLd;
-    const int8_t* tb = sb + stage * BN * kLd;
-    uint32_t af[T::kMT][4], bf[T::kNT][2];
-#pragma unroll
-    for (int i = 0; i < T::kMT; ++i) {
-      const int8_t* r = ta + (wm + i * 16 + g) * kLd + tig * 4;
-      af[i][0] = ld32(r);                  // row g,     k 0..15
-      af[i][1] = ld32(r + 8 * kLd);        // row g + 8, k 0..15
-      af[i][2] = ld32(r + 16);             // row g,     k 16..31
-      af[i][3] = ld32(r + 8 * kLd + 16);   // row g + 8, k 16..31
-    }
-#pragma unroll
-    for (int j = 0; j < T::kNT; ++j) {
-      const int8_t* r = tb + (wn + j * 8 + g) * kLd + tig * 4;
-      bf[j][0] = ld32(r);                  // column g, k 0..15
-      bf[j][1] = ld32(r + 16);             // column g, k 16..31
-    }
-#pragma unroll
-    for (int i = 0; i < T::kMT; ++i)
-#pragma unroll
-      for (int j = 0; j < T::kNT; ++j) mma_s8(acc[i][j], af[i], bf[j]);
-  }
-  cp_async_wait<0>();
-  __syncthreads();                         // the ring is free: reuse it for the epilogue
-
-  int32_t* sc = reinterpret_cast<int32_t*>(smem);   // [co][pixel]
-#pragma unroll
-  for (int i = 0; i < T::kMT; ++i)
-#pragma unroll
-    for (int j = 0; j < T::kNT; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int row = wm + i * 16 + g + (r >= 2 ? 8 : 0);
-        const int col = wn + j * 8 + tig * 2 + (r & 1);
-        sc[col * T::kLdC + row] = acc[i][j][r];
-      }
-  __syncthreads();
-
-  const float sxv = *sx;
-  for (int idx = tid; idx < BN * kBM; idx += kThreads) {
-    const int n = idx / kBM, m = idx % kBM;
-    const int c = n0 + n, px = m0 + m;
-    if (c >= s.co || px >= hw) continue;
-    const int64_t off = (((int64_t)bi * s.co + c) * s.t_out + to) * hw + px;
-    const int32_t a = sc[n * T::kLdC + m];
-    if (acc_out != nullptr) {
-      acc_out[off] = a;
-      continue;
-    }
-    const float v = dequant(a, sxv, sw, bias, bias_bf16, c);
-    if (out_bf16)
-      static_cast<__nv_bfloat16*>(y)[off] = __float2bfloat16_rn(v);
-    else
-      static_cast<float*>(y)[off] = v;
-  }
-}
-
-template <int BN>
-int launch(const int8_t* x8, const int8_t* wk, const float* sx, const float* sw, const void* bias,
-           int bias_bf16, void* y, int32_t* acc, int out_bf16, const Shape& s, cudaStream_t st) {
-  using T = Tile<BN>;
-  cudaError_t err = cudaFuncSetAttribute(conv3d_int8_mma<BN>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)T::kSmem);
-  if (err != cudaSuccess) return (int)err;
-  const int64_t hw = (int64_t)s.h * s.w;
-  const dim3 grid((unsigned)((hw + kBM - 1) / kBM), s.co_pad / BN, s.b * s.t_out);
-  conv3d_int8_mma<BN><<<grid, kThreads, T::kSmem, st>>>(x8, wk, sx, sw, bias, bias_bf16, y, acc,
-                                                        out_bf16, s);
-  return (int)cudaGetLastError();
-}
-
 
 // ---------------------------------------------------------------------------
 // conv3d_int8_wgmma: TMA-fed s8 wgmma (ci_pad a multiple of 128)
@@ -535,17 +341,41 @@ __device__ __forceinline__ void consumer_sync() {   // the two consumer warpgrou
   asm volatile("bar.sync 1, %0;\n" :: "n"(kConsumers) : "memory");
 }
 
+// sx * sw[c] and the bias of output channel c in f32, each read once; a
+// channel at or past co is padding (on = false) and is neither dequantised
+// nor stored. deq = false: the int32 sums are stored as they are.
+template <typename P>
+__device__ __forceinline__ void channel_factors(const P& p, int c, float sxv, bool deq, float& sc,
+                                                float& bv, bool& on) {
+  on = deq && c < p.co;
+  sc = on ? __fmul_rn(sxv, p.sw[c]) : 0.f;
+  bv = on && p.bias != nullptr
+           ? (p.bias_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p.bias)[c])
+                          : static_cast<const float*>(p.bias)[c])
+           : 0.f;
+}
+
+// One accumulator as the 32-bit word the epilogue tile holds: (f32(a) *
+// (sx * sw)) + bias with each product and sum rounded apart (no FMA), as
+// the plain version's f32 ops, or the int32 sum itself.
+__device__ __forceinline__ uint32_t epilogue_word(int32_t a, float sc, float bv, bool has_bias,
+                                                  bool on) {
+  float v = __fmul_rn(__int2float_rn(a), sc);
+  if (has_bias) v = __fadd_rn(v, bv);
+  return on ? __float_as_uint(v) : (uint32_t)a;
+}
+
 // The [BN co][BM px] tile of 32-bit words (f32 values, or int32 sums) from
 // shared memory into y or acc [b, co, t, h, w]: VEC elements (16 bytes of
-// output) a thread, coalesced along w, scalar where w is not a multiple of
-// VEC; channels at or past co are padding and are not stored.
-template <int BM, int BN, int VEC>
-__device__ __forceinline__ void store_tile(const uint32_t* st, int ld, const Params& p, int n0,
+// output) a thread of NT, coalesced along w, scalar where w is not a
+// multiple of VEC; channels at or past co are padding and are not stored.
+template <int BM, int BN, int VEC, int NT, typename P>
+__device__ __forceinline__ void store_tile(const uint32_t* st, int ld, const P& p, int n0,
                                            int bi, int to, int hh, int w0, int ct) {
   constexpr int kGroups = BM / VEC;
   const int64_t plane = (int64_t)p.h * p.w;
   const bool aligned = p.w % VEC == 0;
-  for (int idx = ct; idx < BN * kGroups; idx += kConsumers) {
+  for (int idx = ct; idx < BN * kGroups; idx += NT) {
     const int n = idx / kGroups;
     const int px = (idx - n * kGroups) * VEC;
     const int pw = w0 + px;
@@ -717,33 +547,23 @@ conv3d_int8_wgmma(const __grid_constant__ CUtensorMap tmap_x,
       float sc[2], bv[2];
       bool on[2];
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c = n0 + n + j;
-        on[j] = deq && c < p.co;
-        sc[j] = on[j] ? __fmul_rn(sxv, p.sw[c]) : 0.f;
-        bv[j] = on[j] && p.bias != nullptr
-                    ? (p.bias_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p.bias)[c])
-                                   : static_cast<const float*>(p.bias)[c])
-                    : 0.f;
-      }
+      for (int j = 0; j < 2; ++j) channel_factors(p, n0 + n + j, sxv, deq, sc[j], bv[j], on[j]);
 #pragma unroll
       for (int mb = 0; mb < MB; ++mb) {
         const int px = run * T::kRun + mb * 64 + warp * 16 + (lane >> 2);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int j = e & 1;
-          const int32_t a = acc[mb][4 * i8 + e];
-          float v = __fmul_rn(__int2float_rn(a), sc[j]);
-          if (p.bias != nullptr) v = __fadd_rn(v, bv[j]);       // as dequant() rounds it
-          st[(n + j) * T::kLdE + px + (e >> 1) * 8] = on[j] ? __float_as_uint(v) : (uint32_t)a;
+          st[(n + j) * T::kLdE + px + (e >> 1) * 8] =
+              epilogue_word(acc[mb][4 * i8 + e], sc[j], bv[j], p.bias != nullptr, on[j]);
         }
       }
     }
     consumer_sync();
     if (p.out == 1)
-      store_tile<T::kBM, BN, 8>(st, T::kLdE, p, n0, bi, to, hh, w0, ct);
+      store_tile<T::kBM, BN, 8, kConsumers>(st, T::kLdE, p, n0, bi, to, hh, w0, ct);
     else
-      store_tile<T::kBM, BN, 4>(st, T::kLdE, p, n0, bi, to, hh, w0, ct);
+      store_tile<T::kBM, BN, 4, kConsumers>(st, T::kLdE, p, n0, bi, to, hh, w0, ct);
   }
 }
 
@@ -787,6 +607,326 @@ int launch(const void* x8, const void* wk, const Params& p, int t_in, cudaStream
 
 }  // namespace wg
 
+
+// ---------------------------------------------------------------------------
+// conv3d_int8_packed: persistent s8 wgmma with K packed as (tap, channel), ci <= 16
+// ---------------------------------------------------------------------------
+
+namespace pk {
+
+using namespace hopper;
+
+constexpr int kBM = 64;                          // pixels of a work item: a row segment, one m64 block
+constexpr int kBoxW = kBM + 2;                   // w0 - 1 .. w0 + 64
+constexpr int kBoxCh = 16;                       // bytes of a pixel the box reads: channels 0..15
+constexpr int kBoxBytes = 9 * kBoxW * kBoxCh;    // [3 kt][3 kh][66 px][16 B]
+constexpr int kStage = (kBoxBytes + 127) / 128 * 128;
+constexpr int kStages = 2;                       // even: see the note at the top
+constexpr int kChunk = 128;                      // K bytes of one swizzled row
+constexpr int kMaxChunks = 4;                    // K_pad <= 512, so ci <= 16
+constexpr int kAPack = kMaxChunks * kBM * kChunk;   // one consumer's packed A: [nK][64 px][128 B]
+constexpr int kThreads = 384;                    // warpgroup 0: producer; 1, 2: consumers
+constexpr int kWgThreads = 128;
+
+template <int BN>
+struct Tile {
+  static constexpr int kBRegion = kMaxChunks * BN * kChunk;   // the weight: [nK][BN co][128 B]
+  static constexpr int kLdE = kBM + 4;                         // words between rows of a word tile
+  static constexpr int kTile16 = BN * kBM * 2;                 // a bf16 [BN co][64 px] tile
+  static constexpr int kWords = BN * kLdE * 4;                 // a [BN co][64 px] word tile
+  // one consumer's epilogue staging: two bf16 tiles for the TMA store, or
+  // one word tile for the other outputs; 1024-byte aligned
+  static constexpr int kStaging =
+      ((kWords > 2 * kTile16 ? kWords : 2 * kTile16) + 1023) / 1024 * 1024;
+  static constexpr int kAOff = kBRegion;
+  static constexpr int kEOff = kAOff + 2 * kAPack;
+  static constexpr int kROff = kEOff + 2 * kStaging;
+  static constexpr int kBarOff = kROff + kStages * kStage;
+  static constexpr int kSmemBytes = kBarOff + (2 * kStages + 1) * 8 + 1024;   // + alignment
+  static_assert(kTile16 % 128 == 0, "TMA store sources want 128-byte alignment");
+  static_assert(kSmemBytes <= 232448, "more shared memory than a block may use");
+};
+
+struct Params {
+  int b, co, t_out, h, w, time_pad;
+  int segs, items;                             // row segments of kBM pixels; b * t_out * h * segs
+  int cpk, chunks;                             // bytes of a tap's channels (ci rounded to 4); K_pad / 128
+  int out;                                     // 0: f32 y, 1: bf16 y, 2: the int32 sums
+  int tma_store;                               // bf16 y with w % 8 == 0: stored by TMA
+  const float* sx;
+  const float* sw;
+  const void* bias;
+  int bias_bf16;
+  void* y;
+};
+
+// Work item `item`: batch, output frame, row and first column.
+__device__ __forceinline__ void item_origin(const Params& p, int item, int& bi, int& to, int& hh,
+                                            int& w0) {
+  const int seg = item % p.segs;
+  const int r = item / p.segs;
+  hh = r % p.h;
+  const int f = r / p.h;
+  bi = f / p.t_out;
+  to = f - bi * p.t_out;
+  w0 = seg * kBM;
+}
+
+__device__ __forceinline__ void wg_sync(int c) {    // consumer warpgroup c alone
+  asm volatile("bar.sync %0, %1;\n" :: "r"(2 + c), "n"(kWgThreads) : "memory");
+}
+
+// Half HALF of pixel m's packed K row: 16-byte chunks c; word i of chunk c
+// is K bytes 16c + 4i .. + 3, that is word (16c + 4i - tap * CPK) / 4 of
+// tap = (16c + 4i) / CPK, read from box row tap / 3 (kt, kh) at pixel m +
+// tap % 3 (kw); zero past the 27 taps. The chunk goes to 16-byte unit (c %
+// 8) ^ (m % 8) of row m in 128-byte row block c / 8 (the 128-byte swizzle).
+template <int CPK, int HALF>
+__device__ __forceinline__ void pack_half(const unsigned char* box, unsigned char* apack, int m) {
+  constexpr int kCh16 = (27 * CPK + kChunk - 1) / kChunk * (kChunk / 16);
+  const unsigned char* src = box + m * kBoxCh;
+#pragma unroll
+  for (int c = HALF * kCh16 / 2; c < (HALF + 1) * kCh16 / 2; ++c) {
+    uint32_t v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      constexpr int kTaps = 27;
+      const int kb = 16 * c + 4 * i;
+      const int tap = kb / CPK;
+      v[i] = tap < kTaps ? *reinterpret_cast<const uint32_t*>(
+                               src + ((tap / 3) * kBoxW + tap % 3) * kBoxCh + (kb - tap * CPK))
+                         : 0u;
+    }
+    *reinterpret_cast<uint4*>(apack + (c >> 3) * (kBM * kChunk) + m * kChunk +
+                              (((c & 7) ^ (m & 7)) << 4)) = make_uint4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// The consumer warpgroup's packed A from one item's box: threads 0-63 the
+// first half of pixel ct's row, 64-127 the second half of pixel ct - 64's.
+template <int CPK>
+__device__ __forceinline__ void pack(const unsigned char* box, unsigned char* apack, int ct) {
+  if (ct < kBM)
+    pack_half<CPK, 0>(box, apack, ct);
+  else
+    pack_half<CPK, 1>(box, apack, ct - kBM);
+}
+
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+conv3d_int8_packed(const __grid_constant__ CUtensorMap tmap_x,
+                   const __grid_constant__ CUtensorMap tmap_w,
+                   const __grid_constant__ CUtensorMap tmap_y, const Params p) {
+  using T = Tile<BN>;
+  extern __shared__ __align__(1024) unsigned char pk_smem[];
+  // swizzled operands want 1024-byte aligned blocks
+  const uint32_t raw = smem_u32(pk_smem);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = pk_smem + (base - raw);
+  const uint32_t ring = base + T::kROff;                       // kStages x one item's box
+  const uint32_t full = base + T::kBarOff;                     // barriers, 8 bytes each
+  const uint32_t empty = full + kStages * 8;
+  const uint32_t b_full = empty + kStages * 8;
+  const int n0 = blockIdx.y * BN;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);                                // the producer's expect_tx
+      mbar_init(empty + 8 * s, kWgThreads);                      // the item's consumer warpgroup
+    }
+    mbar_init(b_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wgi = threadIdx.x / 128;
+  if (wgi == 0) {
+    // ---- producer: the weight once, then one box per work item ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(b_full, p.chunks * BN * kChunk);
+      for (int kc = 0; kc < p.chunks; ++kc)
+        tma_load_3d(base + kc * BN * kChunk, &tmap_w, b_full, kc * kChunk, n0, 0);
+      for (int k = 0, item = blockIdx.x; item < p.items; ++k, item += gridDim.x) {
+        const int s = k % kStages;
+        mbar_wait(empty + 8 * s, ((k / kStages) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, kBoxBytes);
+        int bi, to, hh, w0;
+        item_origin(p, item, bi, to, hh, w0);
+        // frames to - time_pad .. + 2 (the three kt), rows hh - 1 .. hh + 1,
+        // pixels w0 - 1 .. w0 + 64; zeros outside x8, the causal past included
+        tma_load_5d(ring + s * kStage, &tmap_x, full + 8 * s, 0, w0 - 1, hh - 1,
+                    to - p.time_pad, bi);
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup 1 takes the CTA's even items, warpgroup 2 the odd ones ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int c = wgi - 1;
+    const int ct = threadIdx.x - 128 * wgi;             // 0..127
+    const int warp = ct >> 5, lane = ct & 31;
+    const uint32_t apack = base + T::kAOff + c * kAPack;
+    unsigned char* apack_p = smem + T::kAOff + c * kAPack;
+    unsigned char* staging = smem + T::kEOff + c * T::kStaging;
+    // this thread's output channels are the same in every item: sx * sw and
+    // the bias read once
+    const bool deq = p.out != 2;
+    const float sxv = deq ? *p.sx : 0.f;
+    float sc[BN / 8][2], bv[BN / 8][2];
+    bool on[BN / 8][2];
+#pragma unroll
+    for (int i8 = 0; i8 < BN / 8; ++i8)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wg::channel_factors(p, n0 + i8 * 8 + (lane & 3) * 2 + j, sxv, deq, sc[i8][j], bv[i8][j],
+                            on[i8][j]);
+    int32_t acc[BN / 2];
+    mbar_wait(b_full, 0);
+
+    for (int k = c, item = blockIdx.x + c * gridDim.x, n_done = 0; item < p.items;
+         k += 2, item += 2 * gridDim.x, ++n_done) {
+      const int s = k % kStages;
+      int bi, to, hh, w0;
+      item_origin(p, item, bi, to, hh, w0);
+      // the staging tile this item writes was stored two items ago
+      if (p.tma_store && ct == 0) bulk_wait_read<1>();
+      wg_sync(c);                 // this warpgroup's previous item: products and stores read
+      mbar_wait(full + 8 * s, (k / kStages) & 1);
+      const unsigned char* box = smem + T::kROff + s * kStage;
+      switch (p.cpk) {
+        case 4: pack<4>(box, apack_p, ct); break;
+        case 8: pack<8>(box, apack_p, ct); break;
+        case 12: pack<12>(box, apack_p, ct); break;
+        default: pack<16>(box, apack_p, ct); break;
+      }
+      mbar_arrive(empty + 8 * s);                      // the box is read
+      fence_proxy_async();                             // the packed A is for wgmma
+      wg_sync(c);
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+      fence_acc(acc);
+      wgmma_fence();
+      for (int kc = 0; kc < p.chunks; ++kc) {
+#pragma unroll
+        for (int kk = 0; kk < kChunk / 32; ++kk) {
+          // A [64 px][128 B] and B [BN co][128 B] of chunk kc, both K-major
+          // with the 128-byte swizzle: k32 slices 32 bytes apart in a row
+          wg::wgmma_tile<BN>(acc, smem_desc(apack + kc * kBM * kChunk + kk * 32, 16, 1024),
+                             smem_desc(base + kc * BN * kChunk + kk * 32, 16, 1024));
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(acc);
+      // epilogue: dequant (wg::epilogue_word's arithmetic); this thread
+      // holds pixels px and px + 8 of channels n, n + 1 in each group of 8
+      const int px = warp * 16 + (lane >> 2);
+      if (p.tma_store) {
+        // a bf16 [BN co][64 px] tile, 128-byte rows, which the TMA store
+        // reads; two tiles alternate. Unswizzled: with the 128-byte swizzle
+        // on y's map the store hung at 4 or more output frames on the H100
+        // (a long enough call), where this layout passes.
+        unsigned char* tile = staging + (n_done & 1) * T::kTile16;
+#pragma unroll
+        for (int i8 = 0; i8 < BN / 8; ++i8) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int j = e & 1, n = i8 * 8 + (lane & 3) * 2 + j, q = px + (e >> 1) * 8;
+            const uint32_t v = wg::epilogue_word(acc[4 * i8 + e], sc[i8][j], bv[i8][j],
+                                                 p.bias != nullptr, on[i8][j]);
+            *reinterpret_cast<__nv_bfloat16*>(tile + n * 128 + q * 2) =
+                __float2bfloat16_rn(__uint_as_float(v));
+          }
+        }
+        fence_proxy_async();                           // the tile is for the TMA store
+        wg_sync(c);
+        if (ct == 0) {
+          // y's map clips the tile at w and at co
+          tma_store_5d(&tmap_y, smem_u32(tile), w0, hh, to, n0, bi);
+          bulk_commit();
+        }
+      } else {
+        // f32 y, int32 sums, or w % 8 != 0: a [co][pixel] word tile, stored
+        // 16 bytes a thread
+        uint32_t* st = reinterpret_cast<uint32_t*>(staging);
+#pragma unroll
+        for (int i8 = 0; i8 < BN / 8; ++i8) {
+          const int n = i8 * 8 + (lane & 3) * 2;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int j = e & 1;
+            st[(n + j) * T::kLdE + px + (e >> 1) * 8] =
+                wg::epilogue_word(acc[4 * i8 + e], sc[i8][j], bv[i8][j], p.bias != nullptr,
+                                  on[i8][j]);
+          }
+        }
+        wg_sync(c);
+        if (p.out == 1)
+          wg::store_tile<kBM, BN, 8, kWgThreads>(st, T::kLdE, p, n0, bi, to, hh, w0, ct);
+        else
+          wg::store_tile<kBM, BN, 4, kWgThreads>(st, T::kLdE, p, n0, bi, to, hh, w0, ct);
+      }
+    }
+    if (p.tma_store && ct == 0) bulk_wait<0>();        // the last stores are done
+  }
+}
+
+template <int BN>
+int launch(const void* x8, const void* wp, const Params& p, int ci_pad, int t_in, int k_pad,
+           int co_pad, int ctas, cudaStream_t stream) {
+  using T = Tile<BN>;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  // x8: dims (ci, w, h, t, b), ci innermost; one box per item of [3 t][3 h]
+  // [66 w][16 ci], unswizzled
+  CUtensorMap tx, tw, ty;
+  const cuuint64_t ci = (cuuint64_t)ci_pad;
+  const cuuint64_t xdim[5] = {ci, (cuuint64_t)p.w, (cuuint64_t)p.h, (cuuint64_t)t_in,
+                              (cuuint64_t)p.b};
+  const cuuint64_t xstride[4] = {ci, ci * p.w, ci * p.w * p.h, ci * p.w * p.h * t_in};
+  const cuuint32_t xbox[5] = {kBoxCh, kBoxW, 3, 3, 1};
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  CUresult r = encode(&tx, CU_TENSOR_MAP_DATA_TYPE_UINT8, 5, const_cast<void*>(x8), xdim,
+                      xstride, xbox, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return 1000 + (int)r;
+  // the packed weight [co_pad, k_pad]: boxes of [BN co][128 B], 128-byte swizzle
+  const cuuint64_t wdim[3] = {(cuuint64_t)k_pad, (cuuint64_t)co_pad, 1};
+  const cuuint64_t wstride[2] = {(cuuint64_t)k_pad, (cuuint64_t)k_pad * co_pad};
+  const cuuint32_t wbox[3] = {kChunk, BN, 1};
+  r = encode(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(wp), wdim, wstride, wbox,
+             ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return 1000 + (int)r;
+  if (p.tma_store) {
+    // y [b, co, t, h, w] bf16: dims (w, h, t, co, b); boxes of [BN co][64 w],
+    // unswizzled; elements past w or co are not written
+    const cuuint64_t ydim[5] = {(cuuint64_t)p.w, (cuuint64_t)p.h, (cuuint64_t)p.t_out,
+                                (cuuint64_t)p.co, (cuuint64_t)p.b};
+    const cuuint64_t plane = (cuuint64_t)p.w * p.h * 2;
+    const cuuint64_t ystride[4] = {(cuuint64_t)p.w * 2, plane, plane * p.t_out,
+                                   plane * p.t_out * p.co};
+    const cuuint32_t ybox[5] = {kBM, 1, 1, BN, 1};
+    r = encode(&ty, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, p.y, ydim, ystride, ybox, ones,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (r != CUDA_SUCCESS) return 1000 + (int)r;
+  } else {
+    ty = tx;                                           // not read
+  }
+
+  auto kernel = conv3d_int8_packed<BN>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         T::kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)ctas, (unsigned)(co_pad / BN));
+  kernel<<<grid, kThreads, T::kSmemBytes, stream>>>(tx, tw, ty, p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace pk
+
 }  // namespace
 
 // Kernel quantize_k3_input. x [b, ci, t, h, w] contiguous, in f32 (in_dtype
@@ -822,36 +962,58 @@ extern "C" int deepv_quantize_k3(const void* x, int in_dtype, const void* sx, vo
   return (int)cudaGetLastError();
 }
 
-// Kernel conv3d_int8_mma. x8 [b, t_in, h, w, ci_pad] int8, wk [27, co_pad,
-// ci_pad] int8, sx one f32, sw [co] f32, bias [co] in f32 (bias_dtype 0) or
-// bf16 (1), or null; y [b, co, t_out, h, w] in f32 (out_dtype 0) or bf16
-// (1), or, when acc is not null, acc [b, co, t_out, h, w] int32 instead of
-// y. bn is the CTA's channel width, 128 or 16, and divides co_pad. Returns a
-// CUDA error code (0 on success); a refused launch is reported, not run.
-extern "C" int deepv_conv3d_int8(const void* x8, const void* wk, const void* sx, const void* sw,
-                                 const void* bias, int bias_dtype, void* y, void* acc, int b,
-                                 int ci_pad, int co, int co_pad, int t_in, int t_out, int h,
-                                 int w, int time_pad, int out_dtype, int bn, void* stream) {
-  if (b <= 0 || ci_pad <= 0 || ci_pad % kBK || co <= 0 || co > co_pad || h <= 0 || w <= 0 ||
-      (bn != 128 && bn != 16) || co_pad % bn || (time_pad != 0 && time_pad != 2) ||
-      t_out < 1 || t_out != t_in + time_pad - 2 || (int64_t)b * t_out > 65535 ||
+// Kernel conv3d_int8_packed. x8 [b, t_in, h, w, ci_pad] int8 (ci <= 16,
+// ci_pad a multiple of 16); wp [co_pad, k_pad] int8, the packed weight
+// (row k = (kt*9 + kh*3 + kw) * round_up(ci, 4) + c; k_pad =
+// round_up(27 * round_up(ci, 4), 128)); sx one f32, sw [co] f32, bias [co]
+// in f32 (bias_dtype 0) or bf16 (1), or null; y [b, co, t_out, h, w] in f32
+// (out_dtype 0) or bf16 (1), or, when acc is not null, acc [b, co, t_out, h,
+// w] int32 instead of y. bn (128 or 16) is the CTA's channel width and
+// divides co_pad; the grid is (ctas, co_pad / bn), each CTA walking the
+// 64-pixel row segments ctas apart. x8, wp and y or acc 16-byte aligned.
+// Returns a cudaError_t, or 1000 + the CUresult of a tensor map that could
+// not be encoded.
+extern "C" int deepv_conv3d_int8_packed(const void* x8, const void* wp, const void* sx,
+                                        const void* sw, const void* bias, int bias_dtype,
+                                        void* y, void* acc, int b, int ci, int ci_pad, int co,
+                                        int co_pad, int k_pad, int t_in, int t_out, int h, int w,
+                                        int time_pad, int out_dtype, int bn, int ctas,
+                                        void* stream) {
+  void* out = acc != nullptr ? acc : y;
+  const int cpk = (ci + 3) / 4 * 4;
+  const int64_t segs = (w + pk::kBM - 1) / pk::kBM;
+  const int64_t items = (int64_t)b * t_out * h * segs;
+  if (b <= 0 || ci <= 0 || ci > 16 || ci_pad < 16 || ci_pad % 16 || co <= 0 || co > co_pad ||
+      (bn != 128 && bn != 16) || co_pad % bn || co_pad / bn > 65535 ||
+      k_pad != (27 * cpk + pk::kChunk - 1) / pk::kChunk * pk::kChunk || h <= 0 || w <= 0 ||
+      (time_pad != 0 && time_pad != 2) || t_out < 1 || t_out != t_in + time_pad - 2 ||
+      items > 0x7fffffff - 2 * 65535 || ctas < 1 || ctas > 65535 || ctas > items ||
       (out_dtype != 0 && out_dtype != 1) || (bias_dtype != 0 && bias_dtype != 1) ||
-      (acc == nullptr && y == nullptr) || reinterpret_cast<uintptr_t>(x8) % 16 ||
-      reinterpret_cast<uintptr_t>(wk) % 16)
+      out == nullptr || reinterpret_cast<uintptr_t>(x8) % 16 ||
+      reinterpret_cast<uintptr_t>(wp) % 16 || reinterpret_cast<uintptr_t>(out) % 16)
     return (int)cudaErrorInvalidValue;
-  const Shape s{b, ci_pad, co, co_pad, t_in, t_out, h, w, time_pad};
+  pk::Params p;
+  p.b = b; p.co = co; p.t_out = t_out; p.h = h; p.w = w; p.time_pad = time_pad;
+  p.segs = (int)segs;
+  p.items = (int)items;
+  p.cpk = cpk;
+  p.chunks = k_pad / pk::kChunk;
+  p.out = acc != nullptr ? 2 : out_dtype;
+  p.tma_store = p.out == 1 && w % 8 == 0;
+  p.sx = static_cast<const float*>(sx);
+  p.sw = static_cast<const float*>(sw);
+  p.bias = bias;
+  p.bias_bf16 = bias_dtype;
+  p.y = out;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int8_t* xp = static_cast<const int8_t*>(x8);
-  const int8_t* wp = static_cast<const int8_t*>(wk);
-  const float* sxp = static_cast<const float*>(sx);
-  const float* swp = static_cast<const float*>(sw);
-  int32_t* ap = static_cast<int32_t*>(acc);
-  if (bn == 128) return launch<128>(xp, wp, sxp, swp, bias, bias_dtype, y, ap, out_dtype, s, st);
-  return launch<16>(xp, wp, sxp, swp, bias, bias_dtype, y, ap, out_dtype, s, st);
+  if (bn == 128) return pk::launch<128>(x8, wp, p, ci_pad, t_in, k_pad, co_pad, ctas, st);
+  return pk::launch<16>(x8, wp, p, ci_pad, t_in, k_pad, co_pad, ctas, st);
 }
 
-// Kernel conv3d_int8_wgmma. Arguments as deepv_conv3d_int8's; ci_pad a
-// multiple of 128; bn (128 or 16) the CTA's output channels, dividing co_pad;
+// Kernel conv3d_int8_wgmma. x8 [b, t_in, h, w, ci_pad] int8, ci_pad a
+// multiple of 128; wk [27, co_pad, ci_pad] int8; sx, sw, bias, bias_dtype,
+// y, acc and out_dtype as deepv_conv3d_int8_packed's; bn (128 or 16) the
+// CTA's output channels, dividing co_pad;
 // mb (1 or 2) sets the CTA's pixels, 128 * mb along one output row, and segs,
 // the CTAs along a row, must be ceil(w / (128 * mb)) (ops/conv_int8.py::plan).
 // x8, wk and y or acc 16-byte aligned. Returns a cudaError_t, or 1000 + the

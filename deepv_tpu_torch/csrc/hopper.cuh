@@ -73,9 +73,39 @@ __device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map
          "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4) : "memory");
 }
 
+// TMA tensor store from shared memory (the tile as the tensor map lays it
+// out, swizzle included), tracked by the issuing thread's bulk groups.
+__device__ __forceinline__ void tma_store_5d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5, %6}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+         "r"(c4) : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
+// Wait until at most N of this thread's bulk groups are incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
 // wgmma shared-memory matrix descriptor, 128-byte swizzle. Offsets in bytes:
 // lbo, the leading byte offset; sbo, the stride byte offset (between 8-row
-// groups, 1024 bytes for 128-byte rows).
+// groups, 1024 bytes for 128-byte rows). The swizzle is applied to the
+// absolute shared-memory address (bits 4-6 XOR bits 7-9), as TMA writes it,
+// so a start some 128-byte rows into a 1024-byte aligned box reads that box
+// shifted by those rows with the base offset field left 0 (measured on the
+// H100; setting it to the start's row within the atom reads wrong values).
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
          ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
@@ -89,6 +119,13 @@ __device__ __forceinline__ uint64_t smem_desc_noswizzle(uint32_t addr, uint32_t 
                                                         uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
          ((uint64_t)(sbo >> 4) << 32);
+}
+
+// Makes this thread's generic writes to shared memory visible to the async
+// proxy, so that a wgmma issued after a barrier reads an operand that
+// threads have just written.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {

@@ -19,20 +19,32 @@ call does 1e3-1e4 operations per byte moved, far above the H100's bf16
 ridge point, so the products bound it. ``kernel_for`` picks one by dtype,
 width and strides:
 
-  * ``wgmma`` (bf16, w % 8 == 0, every conv of the rollout): TMA loads
-    ``[64 ci][88 pixel]`` halo boxes straight from x in its own ``[b, ci, t,
-    h, w]`` layout, one per (kt, kh, 64-channel chunk) and 64-pixel run
-    (TMA's zero fill supplies the causal and spatial halo), and ``[co, 64
-    ci]`` boxes of the weight, re-laid out to ``[27, co, ci]`` on every call
-    (``relayout_weight``). Two consumer warpgroups read the three
+  * ``wgmma`` (bf16, w % 8 == 0, every conv of the rollout but one): TMA
+    loads ``[64 ci][88 pixel]`` halo boxes straight from x in its own ``[b,
+    ci, t, h, w]`` layout, one per (kt, kh, 64-channel chunk) and 64-pixel
+    run (TMA's zero fill supplies the causal and spatial halo), and ``[co,
+    64 ci]`` boxes of the weight, re-laid out to ``[27, co, ci]`` on every
+    call (``relayout_weight``). Two consumer warpgroups read the three
     kw-shifted A operands of each box into registers and run ``wgmma`` on
-    them; one producer thread keeps both rings full. ``tile_plan`` picks
-    the tile width so that calls with few tiles fill the card. No copy of x.
-  * ``gather`` (bf16 that TMA cannot describe: w % 8 != 0, or a view whose
-    strides or start are not 16-byte multiples) and ``fma_f32``
-    (float32, the exactness check on the card): cp.async kernels on a
+    them; one producer thread keeps both rings full. No copy of x.
+  * ``cl`` (bf16 that the ``wgmma`` path's map cannot read along w: x
+    channels-last, as the encoder's mid block hands it on after its
+    attention, or w % 8 != 0, or a view whose strides or start are not
+    16-byte multiples): the same kernel template with its A operand read
+    K-major from shared memory: per unit and run one 128-byte-swizzled TMA
+    box of ``[66 px][64 ci]`` over x channels-last (the view itself, else
+    one channels-last copy), read for tap kw from row kw on. It replaces
+    an earlier ``cp.async`` gather kernel, which ran WMMA on sm_80 fragments,
+    walked the causal past and re-laid the weight out a second way; this
+    path shares the ``wgmma`` path's weight, K walk (causal-past units
+    skipped), 128-wide tile and epilogue.
+  * ``fma_f32`` (float32, the exactness check on the card): plain FMA on a
     channels-last copy of x and a ``[(kt, kh, kw, ci), co]`` weight.
 
+``tile_plan`` picks the ``wgmma`` path's tile so that calls with few tiles
+fill the card; the ``cl`` path has one tile, 128 x 128. A 64-wide ``cl``
+tile, two CTAs an SM, filled the card at the encoder's call but ran slower
+there (each CTA re-reads the run's A for half the products; PERF.md).
 ``conv3d_igemm`` takes the plain version only for tensors on the CPU; for
 CUDA tensors it launches a kernel or raises.
 """
@@ -53,8 +65,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 #: launches of the ``wgmma`` kernel since the count was last set to 0
 launches = 0
-#: launches of the ``gather`` and ``fma_f32`` kernels, counted apart
-gather_launches = 0
+#: launches of the ``cl`` and ``fma_f32`` kernels, counted apart
+cl_launches = 0
 f32_launches = 0
 
 _library: Optional[ctypes.CDLL] = None
@@ -68,6 +80,8 @@ BK = 64
 #: to each other, fitted to tools/conv_igemm_plans.py on the H100: where
 #: both fill the card, the 128-wide tile ran 3-9% slower than the 256-wide one
 TILES = {256: 1.0, 128: 0.94}
+#: the ``cl`` path's tile width
+CL_BN = 128
 
 
 def supports_igemm(weight_shape: Tuple[int, ...], stride: Tuple[int, int, int],
@@ -84,50 +98,61 @@ def supports_igemm(weight_shape: Tuple[int, ...], stride: Tuple[int, int, int],
 
 def kernel_for(x: torch.Tensor) -> str:
     """The kernel a supported call on x runs: ``wgmma`` for bf16 when TMA
-    can describe x (w % 8 == 0 and ``_tma_strides``), ``gather`` for the
+    can read x along w (w % 8 == 0 and ``_tma_strides``), ``cl`` for the
     other bf16 inputs, ``fma_f32`` for float32."""
     if x.dtype == torch.float32:
         return "fma_f32"
-    return "wgmma" if x.shape[-1] % 8 == 0 and _tma_strides(x) is not None else "gather"
+    return "wgmma" if x.shape[-1] % 8 == 0 and _tma_strides(x) is not None else "cl"
 
 
 @dataclass(frozen=True)
 class TilePlan:
-    """How the ``wgmma`` kernel covers one call. An M tile is ``RUNS``
-    runs of 64 pixels; run ``r`` of a frame is row ``r // runs_per_row``,
-    columns from ``(r % runs_per_row) * 64``. The grid is ``(m_tiles, co //
-    bn, b * t_out)``."""
+    """How the ``wgmma`` kernel template covers one call. An M tile is
+    ``RUNS`` runs of 64 pixels; run ``r`` of a frame is row ``r //
+    runs_per_row``, columns from ``(r % runs_per_row) * 64``. The grid is
+    ``(m_tiles, co // bn, b * t_out)``. ``channels_last``: A is read
+    from x channels-last (the ``cl`` path), else from x ``[b, c, t, h, w]``
+    (the ``wgmma`` path)."""
 
     bn: int
     runs_per_row: int
     m_tiles: int
     co: int
     frames: int
+    channels_last: bool = False
 
     @property
     def grid(self) -> Tuple[int, int, int]:
         return (self.m_tiles, self.co // self.bn, self.frames)
 
+    @property
+    def ctas(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
 
-def make_plan(bn: int, co: int, frames: int, h: int, w: int) -> TilePlan:
-    """The plan of one tile width (the kernel's own arithmetic:
-    csrc/conv_igemm.cu, ``deepv_conv3d_igemm_wgmma``)."""
+
+def make_plan(bn: int, co: int, frames: int, h: int, w: int,
+              channels_last: bool = False) -> TilePlan:
+    """The plan of one tile width and A source (the kernel's own
+    arithmetic: csrc/conv_igemm.cu, ``deepv_conv3d_igemm_wgmma``)."""
     runs_per_row = -(-w // RUN)
-    return TilePlan(bn, runs_per_row, -(-h * runs_per_row // RUNS), co, frames)
+    return TilePlan(bn, runs_per_row, -(-h * runs_per_row // RUNS), co, frames, channels_last)
 
 
-def tile_plan(b: int, co: int, t_out: int, h: int, w: int, sms: int) -> TilePlan:
-    """The tile width of the ``wgmma`` kernel for one call on a card with
-    ``sms`` SMs. Each CTA holds a whole SM, so a call takes ``ceil(CTAs /
-    sms)`` rounds of one tile's time, which grows with its width over its
-    rate. The cheapest plan wins; a tie goes to the wider tile."""
+def tile_plan(b: int, co: int, t_out: int, h: int, w: int, sms: int,
+              channels_last: bool = False) -> TilePlan:
+    """The tile of the ``wgmma`` path (or, ``channels_last``, the ``cl``
+    path's one tile) for one call on a card with ``sms`` SMs. The busiest
+    SM takes ``ceil(CTAs / sms)`` tiles (one CTA holds an SM), each costing
+    its width over its rate. The cheapest plan wins; a tie goes to the
+    wider tile."""
+    if channels_last:
+        return make_plan(CL_BN, co, b * t_out, h, w, True)
     best, best_cost = None, math.inf
     for bn, rate in TILES.items():
         if co % bn:
             continue
         plan = make_plan(bn, co, b * t_out, h, w)
-        ctas = plan.grid[0] * plan.grid[1] * plan.grid[2]
-        cost = -(-ctas // sms) * bn / rate
+        cost = -(-plan.ctas // sms) * bn / rate
         if cost < best_cost:
             best, best_cost = plan, cost
     return best
@@ -209,12 +234,12 @@ def load_library() -> ctypes.CDLL:
     if _library is None:
         from ..utils.cuda_build import build
         lib = build("conv_igemm.cu").lib
-        fn = lib.deepv_conv3d_igemm
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        fn = lib.deepv_conv3d_igemm_f32
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fn = lib.deepv_conv3d_igemm_wgmma
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_int64] * 4
-                       + [ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _library = lib
     return _library
@@ -242,19 +267,40 @@ def _check_kernel_inputs(x: torch.Tensor, weight: torch.Tensor, bias, time_pad: 
             raise ValueError(f"{name} must lie on x's CUDA device, got {t.device}")
 
 
+def _dense_strides(sizes, order) -> list:
+    """Element strides of a dense tensor of ``sizes`` whose dimensions are
+    laid out in ``order``, innermost first."""
+    dense, acc = [0] * len(sizes), 1
+    for d in order:
+        dense[d] = acc
+        acc *= sizes[d]
+    return dense
+
+
 def _tma_strides(x: torch.Tensor) -> Optional[Tuple[int, int, int, int]]:
     """x's (b, c, t, h) element strides as a TMA tensor map takes them, or
     None when the view cannot be described (w not unit-stride, a stride or
     the address not a 16-byte multiple). A size-1 dimension is never
     stepped, so it gets the stride a contiguous tensor would have."""
     sizes, strides = x.shape, x.stride()
-    dense = [0] * 5
-    acc = 1
-    for d in range(4, -1, -1):
-        dense[d] = acc
-        acc *= sizes[d]
+    dense = _dense_strides(sizes, (4, 3, 2, 1, 0))
     out = tuple(strides[d] if sizes[d] > 1 else dense[d] for d in range(4))
     if strides[4] != 1 and sizes[4] > 1:
+        return None
+    if any(s % 8 for s in out) or x.data_ptr() % 16:
+        return None
+    return out
+
+
+def _tma_strides_cl(x: torch.Tensor) -> Optional[Tuple[int, int, int, int]]:
+    """x's (b, t, h, w) element strides as the ``cl`` path's tensor map
+    takes them (ci innermost), or None when x is not channels-last or a
+    stride or the address is not a 16-byte multiple. A size-1 dimension
+    gets the stride a dense channels-last tensor would have."""
+    sizes, strides = x.shape, x.stride()
+    dense = _dense_strides(sizes, (1, 4, 3, 2, 0))
+    out = tuple(strides[d] if sizes[d] > 1 else dense[d] for d in (0, 2, 3, 4))
+    if strides[1] != 1 and sizes[1] > 1:
         return None
     if any(s % 8 for s in out) or x.data_ptr() % 16:
         return None
@@ -270,17 +316,19 @@ def conv3d_igemm(x: torch.Tensor, p, time_pad: int = 2) -> torch.Tensor:
     _check_kernel_inputs(x, p.weight, getattr(p, "bias", None), time_pad)
     co, ci = p.weight.shape[:2]
     b, _, t_in, h, w = x.shape
+    kernel = kernel_for(x)
     plan = None
-    if kernel_for(x) == "wgmma":
+    if kernel != "fma_f32":
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        plan = tile_plan(b, co, t_in + time_pad - 2, h, w, sms)
+        plan = tile_plan(b, co, t_in + time_pad - 2, h, w, sms, channels_last=kernel == "cl")
     return launch(x, p, time_pad, plan)
 
 
 def launch(x: torch.Tensor, p, time_pad: int, plan: Optional[TilePlan]) -> torch.Tensor:
-    """Launch the ``wgmma`` kernel with ``plan``, or (``plan`` None) the
-    ``gather``/``fma_f32`` kernel; ``conv3d_igemm`` checks the inputs."""
-    global launches, gather_launches, f32_launches
+    """Launch the ``wgmma`` kernel template with ``plan`` (its
+    ``channels_last`` says which path), or (``plan`` None) the ``fma_f32`` kernel;
+    ``conv3d_igemm`` checks the inputs."""
+    global launches, cl_launches, f32_launches
     lib = load_library()
     co, ci = p.weight.shape[:2]
     b, _, t_in, h, w = x.shape
@@ -288,26 +336,34 @@ def launch(x: torch.Tensor, p, time_pad: int, plan: Optional[TilePlan]) -> torch
     bv = _bias(p, co, x).contiguous()
     out = torch.empty((b, co, t_out, h, w), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if plan is not None:
-        strides = _tma_strides(x)
+    if plan is None:
+        if x.dtype != torch.float32:
+            raise TypeError(f"the fma_f32 kernel takes float32, got {x.dtype}")
+        xcl = x.permute(0, 2, 3, 4, 1).contiguous()                             # [b, t, h, w, ci]
+        wr = p.weight.to(x.dtype).permute(2, 3, 4, 1, 0).reshape(27 * ci, co).contiguous()
+        err = lib.deepv_conv3d_igemm_f32(
+            xcl.data_ptr(), wr.data_ptr(), bv.data_ptr(), out.data_ptr(),
+            b, ci, co, t_in, t_out, h, w, time_pad, stream)
+    else:
+        if not plan.channels_last:
+            strides = _tma_strides(x)
+        else:
+            if _tma_strides_cl(x) is None:                # one channels-last copy
+                x = x.permute(0, 2, 3, 4, 1).contiguous().permute(0, 4, 1, 2, 3)
+            strides = _tma_strides_cl(x)
         if strides is None:
             raise ValueError(f"the wgmma kernel cannot read x with strides {x.stride()}")
         wk = relayout_weight(p.weight, x.dtype)
         err = lib.deepv_conv3d_igemm_wgmma(
             x.data_ptr(), wk.data_ptr(), bv.data_ptr(), out.data_ptr(),
-            b, ci, co, t_in, t_out, h, w, time_pad, *strides, plan.bn, stream)
-    else:
-        xcl = x.permute(0, 2, 3, 4, 1).contiguous()                             # [b, t, h, w, ci]
-        wr = p.weight.to(x.dtype).permute(2, 3, 4, 1, 0).reshape(27 * ci, co).contiguous()
-        err = lib.deepv_conv3d_igemm(
-            xcl.data_ptr(), wr.data_ptr(), bv.data_ptr(), out.data_ptr(),
-            b, ci, co, t_in, t_out, h, w, time_pad, _DTYPE_CODE[x.dtype], stream)
+            b, ci, co, t_in, t_out, h, w, time_pad, *strides, plan.bn,
+            int(plan.channels_last), stream)
     if err != 0:
         raise RuntimeError(f"igemm conv kernel launch failed: error {err}")
-    if plan is not None:
-        launches += 1
-    elif x.dtype == torch.float32:
+    if plan is None:
         f32_launches += 1
+    elif not plan.channels_last:
+        launches += 1
     else:
-        gather_launches += 1
+        cl_launches += 1
     return out

@@ -28,12 +28,20 @@ call is two hand-written kernels after one reduction (``input_scale``):
   * ``quantize_k3_input`` (``quantize_k3``): x -> the quantised input
     channels-last, ``[b, t, h, w, ci_pad]``, in one pass (the plain version
     is ``quantize_input_k3``);
-  * the conv on it and the weight's ``[27, co_pad, ci_pad]`` layout
-    (``weight_k3``, made once by ``quantize_conv_weights``): int32 sums
-    equal to the plain version's bit for bit, and the dequant epilogue
-    reading sx, sw and the bias from the device. ``plan`` picks the kernel:
-    ``wgmma`` (TMA-fed s8 ``wgmma``) where ci_pad is a multiple of 128,
-    ``mma`` (``cp.async`` + ``mma.sync``) for the rest (conv_in, ci = 3).
+  * the conv on it: int32 sums equal to the plain version's bit for bit,
+    and the dequant epilogue reading sx, sw and the bias from the device.
+    ``plan`` picks the kernel. ``wgmma`` (TMA-fed s8 ``wgmma``, K walked
+    in 128-channel units) for ci > 16, on x8 and the weight's ``[27,
+    co_pad, ci_pad]`` layout (``weight_k3``) with ci padded to a multiple
+    of 128. ``packed`` for ci <= 16 (conv_in, ci = 3): K packed as (tap,
+    channel) into 128-byte rows of the packed weight ``[co_pad, K_pad]``
+    (``weight_k3_packed``), a persistent kernel whose two consumer
+    warpgroups overlap one item's stores with the next item's products.
+    It replaces an earlier ``cp.async`` + ``mma.sync`` kernel, which
+    padded conv_in's 3 channels to 32 and ran 27 taps; conv_in is bound by
+    its output write, which the packed kernel's persistence keeps
+    streaming.
+    ``quantize_conv_weights`` makes the layout of a conv's kernel once.
 
 ``conv3d_int8`` takes the plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernels or raises.
@@ -54,14 +62,19 @@ MIN_H = 256
 
 #: launches of the ``wgmma`` conv kernel since the count was last set to 0
 launches = 0
-#: launches of the ``mma`` conv kernel and of the quantise kernel, counted apart
-mma_launches = 0
+#: launches of the ``packed`` conv kernel and of the quantise kernel, counted apart
+packed_launches = 0
 quantize_launches = 0
 
 _library: Optional[ctypes.CDLL] = None
 _OUT_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: input channels per K step of the kernel (x8 and the weight are padded to it)
+#: x8's channels for the ``packed`` kernel's convs (the quantise kernel
+#: writes 32-channel multiples; the packed kernel reads channels 0..15)
 CI_STEP = 32
+#: the widest input the ``packed`` kernel takes: K_pad = 27 * 16 <= 512
+PACKED_MAX_CI = 16
+#: SMs of the H100, the default of ``plan`` (the wrapper passes the card's)
+SMS = 132
 
 
 def supports_int8(weight_shape: Tuple[int, ...], stride: Tuple[int, int, int], h: int) -> bool:
@@ -80,26 +93,43 @@ def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
+def ci_pad_of(ci: int) -> int:
+    """x8's channels (and ``weight_k3``'s): 32 for the ``packed`` kernel's
+    convs (ci <= 16), else ci rounded up to the ``wgmma`` kernel's 128."""
+    return CI_STEP if ci <= PACKED_MAX_CI else _round_up(ci, WG_CHUNK)
+
+
+def packed_k(ci: int) -> Tuple[int, int]:
+    """(bytes of one tap's channels, K_pad) of the packed weight: ci rounded
+    up to 4, and 27 taps of it rounded up to 128-byte rows."""
+    cpk = _round_up(ci, 4)
+    return cpk, _round_up(27 * cpk, PACKED_CHUNK)
+
+
 #: the ``wgmma`` kernel (csrc/conv_int8.cu, namespace ``wg``): input
 #: channels of a K unit (one 128-byte row of the weight's swizzled box) and
 #: channels of one A box (a 16-byte core-matrix column)
 WG_CHUNK = 128
 WG_SLOT_CH = 16
-#: the ``mma`` kernel: pixels of a CTA
-MMA_BM = 128
+#: the ``packed`` kernel (namespace ``pk``): pixels of a work item (one row
+#: segment) and K bytes of one swizzled row
+PACKED_BM = 64
+PACKED_CHUNK = 128
 
 
 @dataclass(frozen=True)
 class Plan:
-    """How one call runs on the card; ``conv_k3`` passes ``bn``, ``mb`` and
-    ``segs`` to the kernel, whose grid is ``grid``. ``wgmma``: a CTA takes
-    ``bm = 128 * mb`` pixels of one output row (two consumer warpgroups of
-    ``run = 64 * mb`` pixels, each reading boxes of ``run + 2`` pixels that
-    serve the three kw taps) and ``bn`` output channels; the grid is ``(h *
-    segs, co_pad / bn, b * t_out)``. ``mma``: 128 pixels of a frame and
-    ``bn`` channels; the grid is ``(ceil(h * w / 128), co_pad / bn, b *
-    t_out)``. The ring stages are the kernel's own compile-time choice
-    (``wg::Tile``, held to the shared memory by its static_asserts)."""
+    """How one call runs on the card; ``conv_k3`` passes ``bn``, ``mb``,
+    ``segs`` and ``grid`` to the kernel. ``wgmma``: a CTA takes ``bm = 128 *
+    mb`` pixels of one output row (two consumer warpgroups of ``run = 64 *
+    mb`` pixels, each reading boxes of ``run + 2`` pixels that serve the
+    three kw taps) and ``bn`` output channels; the grid is ``(h * segs,
+    co_pad / bn, b * t_out)``. ``packed``: work items of ``bm = 64`` pixels
+    of one output row (``segs`` a row; ``packed_items``); the grid is
+    ``(ctas, co_pad / bn, 1)``, each CTA walking the items ``ctas`` apart
+    with its ``bn`` channels. The ring stages are the kernels' own
+    compile-time choice (held to the shared memory by their
+    static_asserts)."""
 
     kernel: str
     bn: int
@@ -117,22 +147,40 @@ class Plan:
         return self.run + 2
 
 
-def plan(ci: int, co: int, h: int, w: int, b: int, t_out: int) -> Plan:
-    """The kernel and tiling of one call: ``wgmma`` where the padded input
-    channels are a multiple of 128 (at the rollout's 384x512 level 128->128,
-    256->128 and 256->512 with 128-channel CTAs, and conv_out's 128->3 with
-    16-channel ones), with 256-pixel CTAs where w > 128 (a weight tile then
-    serves twice the pixels) and 128-pixel ones on narrow frames; ``mma``
-    for the rest (conv_in, ci = 3)."""
-    ci_pad = _round_up(ci, CI_STEP)
+def plan(ci: int, co: int, h: int, w: int, b: int, t_out: int, sms: int = SMS) -> Plan:
+    """The kernel and tiling of one call: ``packed`` for ci <= 16 (conv_in),
+    with about one CTA an SM per ``bn``-channel slice; ``wgmma`` for the
+    rest (at the rollout's 384x512 level 128->128, 256->128 and 256->512
+    with 128-channel CTAs, and conv_out's 128->3 with 16-channel ones), with
+    256-pixel CTAs where w > 128 (a weight tile then serves twice the
+    pixels) and 128-pixel ones on narrow frames."""
     bn = channel_tile(co)
     co_pad = _round_up(co, bn)
-    if ci_pad % WG_CHUNK == 0:
-        mb = 2 if w > 128 else 1
-        bm = 128 * mb
-        segs = -(-w // bm)
-        return Plan("wgmma", bn, bm, mb, segs, (h * segs, co_pad // bn, b * t_out))
-    return Plan("mma", bn, MMA_BM, 0, 0, (-(-h * w // MMA_BM), co_pad // bn, b * t_out))
+    if ci <= PACKED_MAX_CI:
+        segs = -(-w // PACKED_BM)
+        items = b * t_out * h * segs
+        n_tiles = co_pad // bn
+        ctas = max(1, min(items, sms // n_tiles))
+        return Plan("packed", bn, PACKED_BM, 1, segs, (ctas, n_tiles, 1))
+    mb = 2 if w > 128 else 1
+    bm = 128 * mb
+    segs = -(-w // bm)
+    return Plan("wgmma", bn, bm, mb, segs, (h * segs, co_pad // bn, b * t_out))
+
+
+def packed_items(pl: Plan, h: int, b: int, t_out: int) -> int:
+    """Work items of a ``packed`` plan: one per 64-pixel row segment of
+    every output row and frame."""
+    return b * t_out * h * pl.segs
+
+
+def packed_item_origin(pl: Plan, h: int, t_out: int, item: int) -> Tuple[int, int, int, int]:
+    """(batch, output frame, row, first column) of work item ``item``, as
+    the kernel's ``item_origin`` computes them."""
+    r, seg = divmod(item, pl.segs)
+    f, hh = divmod(r, h)
+    bi, to = divmod(f, t_out)
+    return bi, to, hh, seg * pl.bm
 
 
 def wgmma_units(ci_pad: int, time_pad: int, to: int) -> range:
@@ -159,23 +207,46 @@ def quantize_weight(weight: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def k3_weight(w8: torch.Tensor) -> torch.Tensor:
-    """int8 ``[co, ci, 3, 3, 3]`` -> the kernel's ``[27, co_pad, ci_pad]``:
-    tap-major, input channels contiguous, zero-padded to the kernel's
-    channel tile and to a multiple of 32 input channels."""
+    """int8 ``[co, ci, 3, 3, 3]`` -> the ``wgmma`` kernel's ``[27, co_pad,
+    ci_pad]``: tap-major, input channels contiguous, zero-padded to the
+    kernel's channel tile and to ``ci_pad_of(ci)`` input channels."""
     co, ci = w8.shape[:2]
-    out = w8.new_zeros((27, _round_up(co, channel_tile(co)), _round_up(ci, CI_STEP)))
+    out = w8.new_zeros((27, _round_up(co, channel_tile(co)), ci_pad_of(ci)))
     out[:, :co, :ci] = w8.permute(2, 3, 4, 0, 1).reshape(27, co, ci)
+    return out
+
+
+def packed_weight(w8: torch.Tensor) -> torch.Tensor:
+    """int8 ``[co, ci, 3, 3, 3]`` (ci <= 16) -> the ``packed`` kernel's
+    ``[co_pad, K_pad]``: row co holds, tap after tap (kt, kh, kw; kw
+    fastest), the tap's ci channels and zeros up to ``cpk`` (ci rounded up
+    to 4), then zeros up to K_pad (``packed_k``); padding channels are zero
+    rows."""
+    co, ci = w8.shape[:2]
+    if ci > PACKED_MAX_CI:
+        raise ValueError(f"the packed weight takes at most {PACKED_MAX_CI} input channels, "
+                         f"got {ci}")
+    cpk, k_pad = packed_k(ci)
+    taps = w8.new_zeros((co, 27, cpk))
+    taps[:, :, :ci] = w8.permute(0, 2, 3, 4, 1).reshape(co, 27, ci)
+    out = w8.new_zeros((_round_up(co, channel_tile(co)), k_pad))
+    out[:co, :27 * cpk] = taps.reshape(co, 27 * cpk)
     return out
 
 
 def quantize_conv_weights(conv: nn.Module) -> nn.Module:
     """Register the int8 weight (``weight_int8``, deepv_tpu's layout), its
-    scales (``weight_scale``) and the kernel's layout (``weight_k3``) as
-    buffers of ``conv``, made once; ``conv3d_int8`` reads them."""
+    scales (``weight_scale``) and the layout of the kernel ``plan`` routes
+    the conv to, the ``packed`` kernel's (``weight_k3_packed``) for convs of
+    at most 16 input channels, else the ``wgmma`` kernel's (``weight_k3``),
+    as buffers of ``conv``, made once; ``conv3d_int8`` reads them."""
     w8, sw = quantize_weight(conv.weight)
     conv.register_buffer("weight_int8", w8)
     conv.register_buffer("weight_scale", sw)
-    conv.register_buffer("weight_k3", k3_weight(w8))
+    if w8.shape[1] <= PACKED_MAX_CI:
+        conv.register_buffer("weight_k3_packed", packed_weight(w8))
+    else:
+        conv.register_buffer("weight_k3", k3_weight(w8))
     return conv
 
 
@@ -215,11 +286,11 @@ def quantize_input(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def quantize_input_k3(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's input: (x8 [b, t, h, w, ci_pad] int8, sx), the same
     values as ``quantize_input`` laid out channels-last with zero channels
-    appended up to a multiple of 32."""
+    appended up to ``ci_pad_of(ci)``."""
     b, ci, t, h, w = x.shape
     sx = input_scale(x)
     q = x.to(torch.float32, copy=True).div_(sx).round_()
-    ci_pad = _round_up(ci, CI_STEP)
+    ci_pad = ci_pad_of(ci)
     if ci_pad == ci:
         return q.permute(0, 2, 3, 4, 1).to(torch.int8, memory_format=torch.contiguous_format), sx
     x8 = torch.zeros((b, t, h, w, ci_pad), dtype=torch.int8, device=x.device)
@@ -263,13 +334,14 @@ def load_library() -> ctypes.CDLL:
         lib.deepv_quantize_k3.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                                            ctypes.c_void_p] + [ctypes.c_int] * 6
                                           + [ctypes.c_void_p])
-        lib.deepv_conv3d_int8.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
-                                          + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 11
-                                          + [ctypes.c_void_p])
+        lib.deepv_conv3d_int8_packed.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
+                                                 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 14
+                                                 + [ctypes.c_void_p])
         lib.deepv_conv3d_int8_wgmma.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
                                                 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 13
                                                 + [ctypes.c_void_p])
-        for fn in (lib.deepv_quantize_k3, lib.deepv_conv3d_int8, lib.deepv_conv3d_int8_wgmma):
+        for fn in (lib.deepv_quantize_k3, lib.deepv_conv3d_int8_packed,
+                   lib.deepv_conv3d_int8_wgmma):
             fn.restype = ctypes.c_int
         _library = lib
     return _library
@@ -314,7 +386,7 @@ def quantize_k3(x: torch.Tensor, sx: Optional[torch.Tensor] = None
     sx = input_scale(x) if sx is None else sx
     if sx.dtype != torch.float32 or sx.numel() != 1 or sx.device != x.device:
         raise ValueError("sx must be one float32 on x's device")
-    ci_pad = _round_up(ci, CI_STEP)
+    ci_pad = ci_pad_of(ci)
     x8 = torch.empty((b, t, h, w, ci_pad), dtype=torch.int8, device=x.device)
     err = lib.deepv_quantize_k3(x.data_ptr(), _OUT_CODE[x.dtype], sx.data_ptr(), x8.data_ptr(),
                                 b, ci, ci_pad, t, h, w, _stream(x))
@@ -329,12 +401,20 @@ def conv_k3(x8: torch.Tensor, sx: torch.Tensor, p, time_pad: int, dtype: torch.d
     """The conv kernel ``plan`` picks, on a quantised input (``quantize_k3``'s
     x8 [b, t_in, h, w, ci_pad] and sx): [b, co, t_in + time_pad - 2, h, w],
     dequantised in ``dtype``, or (``acc_only``) the int32 accumulators."""
-    global launches, mma_launches
+    global launches, packed_launches
     if x8.device.type != "cuda":
         raise ValueError(f"the int8 conv kernel runs on CUDA tensors, got {x8.device}")
     lib = load_library()
     w8, sw = _weights(p)
-    wk = p.weight_k3 if hasattr(p, "weight_k3") else k3_weight(w8)
+    co, ci = p.weight.shape[:2]
+    b, t_in, h, w, ci_pad = x8.shape
+    t_out = t_in + time_pad - 2
+    sms = torch.cuda.get_device_properties(x8.device).multi_processor_count
+    pl = plan(ci, co, h, w, b, t_out, sms)
+    if pl.kernel == "packed":
+        wk = p.weight_k3_packed if hasattr(p, "weight_k3_packed") else packed_weight(w8)
+    else:
+        wk = p.weight_k3 if hasattr(p, "weight_k3") else k3_weight(w8)
     bias = getattr(p, "bias", None)
     if bias is not None and bias.dtype not in _OUT_CODE:
         bias = bias.to(torch.float32)
@@ -343,13 +423,9 @@ def conv_k3(x8: torch.Tensor, sx: torch.Tensor, p, time_pad: int, dtype: torch.d
             raise ValueError(f"{name} must be contiguous on x's CUDA device, got {t.device}")
     if sw.dtype != torch.float32 or sx.dtype != torch.float32:
         raise TypeError(f"scales must be float32, got {sw.dtype} and {sx.dtype}")
-    co, ci = p.weight.shape[:2]
-    b, t_in, h, w, ci_pad = x8.shape
-    if x8.dtype != torch.int8 or not x8.is_contiguous() or ci_pad != _round_up(ci, CI_STEP):
-        raise ValueError(f"x8 must be contiguous int8 [b, t, h, w, {_round_up(ci, CI_STEP)}], "
+    if x8.dtype != torch.int8 or not x8.is_contiguous() or ci_pad != ci_pad_of(ci):
+        raise ValueError(f"x8 must be contiguous int8 [b, t, h, w, {ci_pad_of(ci)}], "
                          f"got {x8.dtype} {tuple(x8.shape)}")
-    t_out = t_in + time_pad - 2
-    pl = plan(ci, co, h, w, b, t_out)
     shape = (b, co, t_out, h, w)
     if acc_only:
         acc, out = torch.empty(shape, dtype=torch.int32, device=x8.device), None
@@ -359,19 +435,20 @@ def conv_k3(x8: torch.Tensor, sx: torch.Tensor, p, time_pad: int, dtype: torch.d
             None if bias is None else bias.data_ptr(),
             _OUT_CODE[bias.dtype] if bias is not None else 0,
             None if out is None else out.data_ptr(), None if acc is None else acc.data_ptr())
-    if pl.kernel == "wgmma":
+    if pl.kernel == "packed":
+        err = lib.deepv_conv3d_int8_packed(*ptrs, b, ci, ci_pad, co, wk.shape[0], wk.shape[1],
+                                           t_in, t_out, h, w, time_pad, _OUT_CODE[dtype], pl.bn,
+                                           pl.grid[0], _stream(x8))
+    else:
         err = lib.deepv_conv3d_int8_wgmma(*ptrs, b, ci_pad, co, wk.shape[1], t_in, t_out, h, w,
                                           time_pad, _OUT_CODE[dtype], pl.bn, pl.mb, pl.segs,
                                           _stream(x8))
-    else:
-        err = lib.deepv_conv3d_int8(*ptrs, b, ci_pad, co, wk.shape[1], t_in, t_out, h, w,
-                                    time_pad, _OUT_CODE[dtype], pl.bn, _stream(x8))
     if err != 0:
         raise RuntimeError(f"int8 conv kernel ({pl.kernel}) launch failed: error {err}")
     if pl.kernel == "wgmma":
         launches += 1
     else:
-        mma_launches += 1
+        packed_launches += 1
     return acc if acc_only else out
 
 

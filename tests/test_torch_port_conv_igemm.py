@@ -5,8 +5,10 @@ tests/test_conv_igemm.py); the port's wrapper takes its plain version for
 CPU tensors. Inputs come from numpy seeds and everything is float32, the
 kernel's exactness dtype:
 
-  * ``conv3d_igemm`` at tests/test_conv_igemm.py's shapes, atol 2e-4 /
-    rtol 1e-4 (its tolerance: both sides accumulate in f32, in other orders);
+  * ``conv3d_igemm`` at tests/test_conv_igemm.py's shapes, and with x
+    channels-last and with w % 8 != 0 (the two inputs of the ``cl`` path),
+    atol 2e-4 / rtol 1e-4 (its tolerance: both sides accumulate in f32, in
+    other orders);
   * ``supports_igemm``, the dispatch rule, against deepv_tpu's;
   * ``causal_conv3d(impl="igemm")`` in its four modes, outputs and caches;
   * the VAE encode at a config whose blocks have 128-multiple channels
@@ -73,18 +75,30 @@ def jax_params(p):
     return {k: jnp.asarray(v) for k, v in p.items()}
 
 
-@pytest.mark.parametrize("b,ci,co,t,h,w,time_pad", [
-    (1, 128, 128, 2, 8, 8, 2),
-    (2, 128, 256, 1, 4, 8, 2),
-    (1, 256, 128, 3, 8, 16, 2),
-    (1, 128, 128, 4, 8, 8, 0),      # cont: the 2 cache frames already concatenated
-])
-def test_conv3d_igemm_matches_deepv_tpu(b, ci, co, t, h, w, time_pad):
+IGEMM_CASES = [
+    (1, 128, 128, 2, 8, 8, 2, "contiguous"),
+    (2, 128, 256, 1, 4, 8, 2, "contiguous"),
+    (1, 256, 128, 3, 8, 16, 2, "contiguous"),
+    (1, 128, 128, 4, 8, 8, 0, "contiguous"),      # cont: the 2 cache frames already concatenated
+    # x channels-last, as the encoder's mid block hands it on (the cl path)
+    (2, 128, 128, 2, 4, 8, 2, "channels_last"),
+    # w % 8 != 0: the cl path through a channels-last copy
+    (1, 128, 128, 4, 6, 10, 0, "contiguous"),
+]
+
+
+@pytest.mark.parametrize("b,ci,co,t,h,w,time_pad,layout", IGEMM_CASES,
+                         ids=["-".join(map(str, c[:7])) + ("" if c[7] == "contiguous" else f"-{c[7]}")
+                              for c in IGEMM_CASES])
+def test_conv3d_igemm_matches_deepv_tpu(b, ci, co, t, h, w, time_pad, layout):
     p = conv_params(0, ci, co)
     x = np.random.default_rng(1).standard_normal((b, ci, t, h, w)).astype(np.float32)
     ref = np.asarray(jax_igemm.conv3d_igemm(jnp.asarray(x), jax_params(p), time_pad=time_pad))
-    plain = port_igemm.conv3d_igemm_plain(torch.from_numpy(x), port_params(p), time_pad)
-    wrapped = port_igemm.conv3d_igemm(torch.from_numpy(x), port_params(p), time_pad)
+    xt = torch.from_numpy(x)
+    if layout == "channels_last":
+        xt = xt.to(memory_format=torch.channels_last_3d)
+    plain = port_igemm.conv3d_igemm_plain(xt, port_params(p), time_pad)
+    wrapped = port_igemm.conv3d_igemm(xt, port_params(p), time_pad)
     assert tuple(plain.shape) == ref.shape == (b, co, t + time_pad - 2, h, w)
     np.testing.assert_allclose(plain.numpy(), ref, atol=ATOL, rtol=RTOL)
     # on the CPU the wrapper is the plain version, and launches nothing

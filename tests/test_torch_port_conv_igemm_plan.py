@@ -12,9 +12,17 @@ version:
     (the same products, summed in another order) at deepv_tpu's four shapes
     of tests/test_conv_igemm.py and one 80-wide shape, with every tile the
     kernel has;
+  * a float32 emulation of the ``cl`` path's walk (x channels-last, as
+    the encoder's mid block hands it on, or copied channels-last because w
+    % 8 != 0): per output frame its (kt, kh, 64-channel chunk) units in
+    kernel order with the causal-past units skipped, each run's box of
+    ``[66 px][64 ci]`` read under TMA's zero fill and started
+    kw rows in for the three taps, times the ``[27, co, ci]`` weight. It must equal
+    ``conv3d_igemm_plain`` to atol 1e-5 in ``full``, ``init`` and ``cont``;
   * the plan covers every output element exactly once and every K index
     once per output tile, at all 14 conv classes of the full-width rollout
-    and at the edge shapes;
+    and at the edge shapes; the ``cl`` path's tile at its rollout call and
+    at the edge shapes;
   * the choice of kernel by dtype, width and strides.
 """
 
@@ -112,6 +120,77 @@ def test_emulated_kernel_order_matches_plain(shape, bn):
     torch.testing.assert_close(got, want, atol=1e-10, rtol=0)
 
 
+def cl_box(x, bi, c0, t, hh, w0):
+    """``[66 px][64 ci]``: the channels-last path's A load for one run, the
+    pixels w0 - 1 .. w0 + 64 of row hh of frame t, channels c0..c0+63, with
+    TMA's zero fill outside x (a negative t never reads another batch)."""
+    _, _, t_in, h, w = x.shape
+    out = torch.zeros((cig.RUN + 2, cig.BK), dtype=x.dtype)
+    if 0 <= t < t_in and 0 <= hh < h:
+        lo, hi = max(w0 - 1, 0), min(w0 + cig.RUN + 1, w)
+        if lo < hi:
+            out[lo - w0 + 1:hi - w0 + 1] = x[bi, c0:c0 + cig.BK, t, hh, lo:hi].T
+    return out
+
+
+def emulate_cl(x, weight, bias, time_pad, plan):
+    """The ``cl`` path's arithmetic in its order: per CTA (M tile, N tile,
+    frame) the units of ``k_iterations`` (causal past skipped), one box per
+    unit and run serving kw = 0, 1, 2 as rows kw .. kw + 63."""
+    co, ci = weight.shape[:2]
+    b, _, t_in, h, w = x.shape
+    t_out = t_in + time_pad - 2
+    wk = cig.relayout_weight(weight, x.dtype)
+    y = torch.full((b, co, t_out, h, w), float("nan"), dtype=x.dtype)
+    for m in range(plan.m_tiles):
+        for n0 in range(0, co, plan.bn):
+            for bi in range(b):
+                for to in range(t_out):
+                    its = list(cig.k_iterations(ci, time_pad, to))
+                    for r, (hh, w0) in enumerate(cig.tile_runs(plan, m)):
+                        acc = torch.zeros((cig.RUN, plan.bn), dtype=x.dtype)
+                        for it in its[::3]:
+                            kt, kh, kw0, c0 = cig.iteration_tap(ci, it)
+                            assert kw0 == 0
+                            a = cl_box(x, bi, c0, to + kt - time_pad, hh + kh - 1, w0)
+                            for kw in range(3):
+                                bt = wk[kt * 9 + kh * 3 + kw, n0:n0 + plan.bn, c0:c0 + cig.BK]
+                                acc += a[kw:kw + cig.RUN] @ bt.T
+                        acc += bias[n0:n0 + plan.bn]
+                        n = min(cig.RUN, w - w0)
+                        if hh < h and n > 0:
+                            y[bi, n0:n0 + plan.bn, to, hh, w0:w0 + n] = acc[:n].T
+    return y
+
+
+@pytest.mark.parametrize("mode", ["full", "init", "cont"])
+@pytest.mark.parametrize("layout", ["channels_last", "w_not_8"])
+def test_emulated_cl_order_matches_plain(mode, layout):
+    """b = 2 (a negative t must read zeros, not the other batch's frames);
+    ci = 128 (two chunks); channels-last x at w = 8, or a contiguous x at
+    w = 10, which the wrapper copies channels-last."""
+    rng = np.random.default_rng(2)
+    b, ci, co, h, n = 2, 128, 128, 4, 2
+    w = 8 if layout == "channels_last" else 10
+    t_in = n if mode == "full" else n + 2
+    x = torch.from_numpy(rng.standard_normal((b, ci, t_in, h, w)).astype(np.float32))
+    if mode == "init":
+        x[:, :, :2] = 0.0
+    if layout == "channels_last":
+        x = x.to(memory_format=torch.channels_last_3d)
+        assert cig._tma_strides_cl(x) is not None and cig._tma_strides(x) is None
+    time_pad = 2 if mode == "full" else 0
+    weight = torch.from_numpy((0.02 * rng.standard_normal((co, ci, 3, 3, 3))).astype(np.float32))
+    bias = torch.from_numpy((0.1 * rng.standard_normal(co)).astype(np.float32))
+    assert cig.kernel_for(x.to(torch.bfloat16)) == "cl"
+    plan = cig.tile_plan(b, co, n, h, w, SMS, channels_last=True)
+    assert plan.channels_last and plan.bn == cig.CL_BN
+    got = emulate_cl(x, weight, bias, time_pad, plan)
+    want = cig.conv3d_igemm_plain(x, type("P", (), {"weight": weight, "bias": bias}), time_pad)
+    assert not torch.isnan(got).any(), "an output element was never stored"
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
 def check_coverage(plan, b, ci, co, t_out, h, w, time_pad):
     """Every output element stored once; every K index once per output
     tile, the skipped ones all in the causal past."""
@@ -154,7 +233,7 @@ def test_plan_covers_edge_shape(case):
 
 @pytest.mark.parametrize("dtype,w,kernel", [
     ("bfloat16", 512, "wgmma"), ("bfloat16", 64, "wgmma"), ("bfloat16", 80, "wgmma"),
-    ("bfloat16", 8, "wgmma"), ("bfloat16", 10, "gather"), ("bfloat16", 6, "gather"),
+    ("bfloat16", 8, "wgmma"), ("bfloat16", 10, "cl"), ("bfloat16", 6, "cl"),
     ("float32", 512, "fma_f32"), ("float32", 10, "fma_f32"),
 ])
 def test_kernel_choice_by_dtype_and_width(dtype, w, kernel):
@@ -163,12 +242,18 @@ def test_kernel_choice_by_dtype_and_width(dtype, w, kernel):
 
 
 def test_kernel_choice_of_views_tma_cannot_read():
-    """A bf16 view whose strides or start TMA cannot describe takes the
-    gather kernel; a frame slice of a contiguous x stays on wgmma."""
+    """A bf16 view whose strides or start TMA cannot describe along w takes
+    the ``cl`` path (through a channels-last copy where the view is not
+    channels-last either); a frame slice of a contiguous x stays on wgmma,
+    and a channels-last x is read as it is."""
     x = torch.zeros((1, 128, 5, 8, 16), dtype=torch.bfloat16)
     assert cig.kernel_for(x[:, :, 1:3]) == "wgmma"
-    assert cig.kernel_for(x[..., 2:10]) == "gather"
-    assert cig.kernel_for(x.transpose(3, 4)[..., :8, :]) == "gather"
+    assert cig.kernel_for(x[..., 2:10]) == "cl"
+    assert cig.kernel_for(x.transpose(3, 4)[..., :8, :]) == "cl"
+    xcl = x.to(memory_format=torch.channels_last_3d)
+    assert cig.kernel_for(xcl) == "cl"
+    assert cig._tma_strides_cl(xcl) == (5 * 8 * 16 * 128, 8 * 16 * 128, 16 * 128, 128)
+    assert cig._tma_strides_cl(x[..., 2:10]) is None
 
 
 @pytest.mark.parametrize("sms,bn", [(132, 128), (48, 256)])
@@ -178,6 +263,23 @@ def test_small_calls_fill_the_card(sms, bn):
     CTAs, one round). On a card of 48 SMs the 96 narrow tiles would take two
     rounds, and the wide tile wins."""
     assert cig.tile_plan(1, 512, 1, 48, 64, sms).bn == bn
+
+
+@pytest.mark.parametrize("case", [
+    ((1, 512, 1, 48, 64), 96),      # the encoder's mid-block resnet: the rollout's one cl call
+    ((1, 128, 1, 6, 10), 3),        # chip_smoke.py's w % 8 != 0 edge
+    ((1, 256, 2, 96, 128), 384),    # a large call: every SM takes several tiles
+], ids=["onpath_512x48x64", "edge_6x10", "large_96x128"])
+def test_cl_plan_by_the_busiest_sm(case):
+    """The cl path's one tile, 128 x 128, one CTA an SM. At the rollout's
+    call its 96 CTAs leave 36 of 132 SMs idle; a 64-wide tile, two CTAs an
+    SM, filled them (192 CTAs) but ran slower there, since each of its CTAs
+    re-reads the run's A for half the products (PERF.md), and was dropped."""
+    (b, co, t_out, h, w), ctas = case
+    plan = cig.tile_plan(b, co, t_out, h, w, SMS, channels_last=True)
+    assert (plan.bn, plan.channels_last, plan.ctas) == (128, True, ctas), plan
+    assert plan == cig.make_plan(128, co, b * t_out, h, w, channels_last=True)
+    check_coverage(plan, b, 512, co, t_out, h, w, 2)
 
 
 def test_relayout_weight_is_k_major():

@@ -54,12 +54,14 @@ def test_weight_quantisation_is_bit_equal(case):
     _, conv, ref_p, _ = case
     np.testing.assert_array_equal(conv.weight_int8.numpy(), np.asarray(ref_p["weight_int8"]))
     np.testing.assert_array_equal(conv.weight_scale.numpy(), np.asarray(ref_p["weight_scale"]))
-    # K3's layout holds the same integers: [27, co_pad, ci_pad], zero padding
-    k3 = conv.weight_k3.numpy()
-    assert k3.shape == (27, 16, 32)
+    # K3's layout for 8 input channels (the packed kernel's) holds the same
+    # integers: [co_pad, K_pad], each tap's 8 channels in turn, zero padding
+    assert not hasattr(conv, "weight_k3")
+    k3 = conv.weight_k3_packed.numpy()
+    assert k3.shape == (16, 256)
     np.testing.assert_array_equal(
-        k3[:, :8, :8], conv.weight_int8.numpy().transpose(2, 3, 4, 0, 1).reshape(27, 8, 8))
-    assert not k3[:, 8:].any() and not k3[:, :, 8:].any()
+        k3[:8, :27 * 8], conv.weight_int8.numpy().transpose(0, 2, 3, 4, 1).reshape(8, 27 * 8))
+    assert not k3[8:].any() and not k3[:, 27 * 8:].any()
 
 
 @pytest.mark.parametrize("time_pad", [2, 0])
@@ -146,5 +148,6 @@ def test_vae_convs_get_the_int8_buffers():
     convs = [m for m in vae.modules() if isinstance(m, torch.nn.Conv3d)]
     assert any(tuple(m.weight.shape[2:]) == (1, 1, 1) for m in convs)
     for m in convs:
-        assert hasattr(m, "weight_k3") == (tuple(m.weight.shape[2:]) == (3, 3, 3))
-    assert vae.decoder.conv_out.weight_k3.shape == (27, 16, 32)
+        k3 = "weight_k3_packed" if m.weight.shape[1] <= tci.PACKED_MAX_CI else "weight_k3"
+        assert hasattr(m, k3) == (tuple(m.weight.shape[2:]) == (3, 3, 3))
+    assert vae.decoder.conv_out.weight_k3_packed.shape == (16, 256)     # 8 channels: packed

@@ -14,6 +14,13 @@ mirrors it, and is tested here:
     epilogue's clips at w and co) equals ``accumulate_plain`` exactly: each
     product of integers is exact in f64 (|sum| < 2^53) and the sums are
     int64;
+  * the ``packed`` kernel's weight layout (tap-major, the tap's channels
+    rounded up to 4, zeros in every padding byte), and an emulation of its
+    walk (its persistent CTAs' work items from ``packed_item_origin``, one
+    TMA box of [3 kt][3 kh][66 px][16 B] each with out-of-bounds reads as
+    zeros, the K row packed tap by tap, unwritten padding bytes of A left as
+    garbage, the epilogue's clips at w and co) equals ``accumulate_plain``
+    exactly, in ``full``, ``init`` and ``cont``;
   * the quantise step rounds half to even: ``quantize_input_k3`` equals
     deepv_tpu's x8 (captured from its ``conv3d_int8``), channels-last, on
     inputs built to tie (amax 127, so sx = 1 and x / sx = x).
@@ -55,20 +62,27 @@ CASES = [c + (1,) for c in chip_smoke.K3_CASES] + list(chip_smoke.K3_EDGE_CASES)
 
 @pytest.mark.parametrize("case", CASES, ids=[f"{c[2]}-{c[3]}-{c[1]}-w{c[5]}" for c in CASES])
 def test_plan_routes_every_class(case):
-    """wgmma for ci_pad a multiple of 128 (128- or 16-channel CTAs), mma
-    for conv_in (ci = 3); the grid covers every output pixel and channel
-    (the ring stages are the kernel's, checked by its static_asserts)."""
+    """wgmma for ci > 16 (ci_pad a multiple of 128; 128- or 16-channel
+    CTAs), packed for ci <= 16 (conv_in, ci = 3; the 3 -> 3 edge); the
+    grid covers every output pixel and channel (the ring stages are the
+    kernels', checked by their static_asserts)."""
     layer, mode, ci, co, h, w, n, b = case
     pl = tci.plan(ci, co, h, w, b, n)
-    assert pl.kernel == ("wgmma" if ci % 128 == 0 else "mma"), (layer, pl)
+    assert pl.kernel == ("wgmma" if ci > 16 else "packed"), (layer, pl)
     assert pl.bn == (128 if co % 128 == 0 else 16)
-    assert pl.grid[1] == -(-co // pl.bn) and pl.grid[2] == b * n
+    assert pl.grid[1] == -(-co // pl.bn)
+    assert pl.segs * pl.bm >= w > (pl.segs - 1) * pl.bm
     if pl.kernel == "wgmma":
+        assert tci.ci_pad_of(ci) % tci.WG_CHUNK == 0 and pl.grid[2] == b * n
         assert pl.mb == (2 if w > 128 else 1) and pl.bm == 128 * pl.mb
         assert pl.grid[0] == h * pl.segs
-        assert pl.segs * pl.bm >= w > (pl.segs - 1) * pl.bm
     else:
-        assert pl.grid[0] * pl.bm >= h * w
+        items = tci.packed_items(pl, h, b, n)
+        assert tci.ci_pad_of(ci) == tci.CI_STEP and pl.bm == tci.PACKED_BM
+        assert pl.grid[2] == 1 and 1 <= pl.grid[0] <= min(items, tci.SMS)
+        origins = {tci.packed_item_origin(pl, h, n, i) for i in range(items)}
+        assert origins == {(bi, to, hh, s * pl.bm) for bi in range(b) for to in range(n)
+                           for hh in range(h) for s in range(pl.segs)}
 
 
 def tma_box(x8, c, w, h, t, b, box_w):
@@ -146,6 +160,92 @@ def test_wgmma_walk_equals_the_plain_sums(convs, mode, w, co):
     got = emulate_wgmma(x8.numpy(), conv.weight_k3.numpy(), co, time_pad, pl)
     ref = tci.accumulate_plain(tci.quantize_input(x)[0], conv.weight_int8, time_pad)
     assert got.shape == tuple(ref.shape)
+    np.testing.assert_array_equal(got, ref.numpy().astype(np.int64))
+
+
+@pytest.mark.parametrize("ci, co", [(3, 3), (3, 128), (8, 8)])
+def test_packed_weight_layout(ci, co):
+    """Row n of the packed weight: for each tap (kt, kh, kw), kw fastest,
+    the tap's ci channels and zeros up to cpk = ci rounded up to 4; zeros
+    up to K_pad; zero rows for the padding channels up to co_pad."""
+    rng = np.random.default_rng(3)
+    w8 = torch.from_numpy(rng.integers(-127, 128, (co, ci, 3, 3, 3)).astype(np.int8))
+    wp = tci.packed_weight(w8).numpy()
+    cpk, k_pad = tci.packed_k(ci)
+    assert cpk % 4 == 0 and k_pad % tci.PACKED_CHUNK == 0 and k_pad >= 27 * cpk
+    assert wp.shape == (-(-co // tci.channel_tile(co)) * tci.channel_tile(co), k_pad)
+    assert wp.dtype == np.int8
+    for kt in range(3):
+        for kh in range(3):
+            for kw in range(3):
+                k0 = (kt * 9 + kh * 3 + kw) * cpk
+                np.testing.assert_array_equal(wp[:co, k0:k0 + ci], w8[:, :, kt, kh, kw].numpy())
+                assert not wp[:, k0 + ci:k0 + cpk].any()
+    assert not wp[:, 27 * cpk:].any() and not wp[co:].any()
+    if ci == 3:
+        assert (cpk, k_pad) == (4, 128)          # conv_in: one 128-byte row a pixel
+
+
+def emulate_packed(x8, wp, ci, co, time_pad, pl, rng):
+    """The int32 sums of csrc/conv_int8.cu's ``conv3d_int8_packed`` for x8
+    [b, t_in, h, w, 32] and the packed weight [co_pad, K_pad], walked as
+    the kernel walks them: each CTA of each channel slice takes the items
+    ``grid[0]`` apart."""
+    b, t_in, h, w, _ = x8.shape
+    t_out = t_in + time_pad - 2
+    cpk, k_pad = tci.packed_k(ci)
+    assert wp.shape[1] == k_pad
+    out = np.zeros((b, co, t_out, h, w), np.int64)
+    items = tci.packed_items(pl, h, b, t_out)
+    seen = set()
+    for nt in range(pl.grid[1]):
+        n0 = nt * pl.bn
+        bt = wp[n0:n0 + pl.bn].astype(np.int64)
+        for cta in range(pl.grid[0]):
+            for item in range(cta, items, pl.grid[0]):
+                bi, to, hh, w0 = tci.packed_item_origin(pl, h, t_out, item)
+                seen.add((nt, item))
+                # the producer's box: frames to - time_pad .. + 2, rows hh - 1 .. + 1
+                box = [[tma_box(x8, 0, w0 - 1, hh + kh - 1, to + kt - time_pad, bi,
+                                tci.PACKED_BM + 2) for kh in range(3)] for kt in range(3)]
+                # the packed A: bytes past 27 * cpk are never written
+                a = rng.integers(-128, 128, (tci.PACKED_BM, k_pad)).astype(np.int64)
+                for kt in range(3):
+                    for kh in range(3):
+                        for kw in range(3):
+                            k0 = (kt * 9 + kh * 3 + kw) * cpk
+                            a[:, k0:k0 + cpk] = box[kt][kh][kw:kw + tci.PACKED_BM, :cpk]
+                acc = a @ bt.T
+                keep, nk = min(tci.PACKED_BM, w - w0), min(pl.bn, co - n0)
+                out[bi, n0:n0 + nk, to, hh, w0:w0 + keep] = acc[:keep, :nk].T
+    assert len(seen) == pl.grid[1] * items, "a work item was taken twice or never"
+    return out
+
+
+@pytest.mark.parametrize("mode", ["full", "init", "cont"])
+@pytest.mark.parametrize("ci, co", [(3, 16), (8, 128)])
+def test_packed_walk_equals_the_plain_sums(mode, ci, co):
+    """b = 2 (a negative t must read zeros, not the other batch's frames),
+    w = 70 (a second row segment mostly past w), a grid of 5 CTAs so that
+    each walks several items; 8 -> 128 packs two 128-byte K rows."""
+    rng = np.random.default_rng(4)
+    conv = torch.nn.Conv3d(ci, co, 3).requires_grad_(False)
+    conv.weight.copy_(torch.from_numpy((rng.standard_normal((co, ci, 3, 3, 3)) * 0.05)
+                                       .astype(np.float32)))
+    tci.quantize_conv_weights(conv)
+    b, h, w, n = 2, 3, 70, 2
+    x = torch.from_numpy(rng.standard_normal((b, ci, n if mode == "full" else n + 2, h, w))
+                         .astype(np.float32))
+    if mode == "init":
+        x[:, :, :2] = 0.0
+    time_pad = 2 if mode == "full" else 0
+    pl = tci.plan(ci, co, h, w, b, n, sms=5)
+    assert pl.kernel == "packed" and pl.grid[0] == 5
+    x8, _ = tci.quantize_input_k3(x)
+    assert x8.shape[-1] == tci.CI_STEP
+    got = emulate_packed(x8.numpy(), conv.weight_k3_packed.numpy(), ci, co, time_pad, pl,
+                         rng)
+    ref = tci.accumulate_plain(tci.quantize_input(x)[0], conv.weight_int8, time_pad)
     np.testing.assert_array_equal(got, ref.numpy().astype(np.int64))
 
 

@@ -86,7 +86,8 @@ def test_load_pipeline_fast_builds_the_int8_models(monkeypatch, kwargs, flow_cac
     assert not any(isinstance(m, torch.nn.Linear) for m in attn.children())
     convs = [m for m in pipe.vae.modules()
              if isinstance(m, torch.nn.Conv3d) and m.weight.shape[2:] == (3, 3, 3)]
-    assert convs and all(m.weight_k3.dtype == torch.int8 for m in convs)
+    assert convs and all(getattr(m, "weight_k3_packed" if m.weight.shape[1] <= 16
+                                 else "weight_k3").dtype == torch.int8 for m in convs)
 
 
 def test_main_writes_a_fast_video_on_the_cpu(tmp_path, monkeypatch):

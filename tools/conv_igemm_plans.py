@@ -8,7 +8,9 @@ Builds ``csrc/conv_igemm.cu`` and runs the ``wgmma`` kernel with each tile
 width (``ops/conv_igemm.TILES``) against the plain version
 (bf16 within one bf16 ulp plus 2e-4, as chip_smoke.py holds it): first at
 small shapes and the edge shapes (w not a multiple of 64, two batches, the
-causal past), plus the ``gather`` and ``fma_f32`` kernels once each; then, at
+causal past), each also channels-last through the ``cl`` path's tile,
+plus a w % 8 != 0 shape on the ``cl`` path and the
+``fma_f32`` kernel once; then, at
 every conv case of chip_smoke.py (the 14 classes of the full-width rollout
 in the modes and frame counts it checks), the time of each plan beside
 ``F.conv3d`` (cuDNN), with the plan ``tile_plan`` picks marked. The lines go
@@ -60,12 +62,16 @@ def check(device) -> bool:
         pb = types.SimpleNamespace(weight=p.weight.bfloat16(), bias=p.bias.bfloat16())
         xb = x.bfloat16()
         ref = cig.conv3d_igemm_plain(xb, pb, tp)
-        runs = [(None, cig.launch(xb, pb, tp, None))] if w % 8 else [
-            (pl, cig.launch(xb, pb, tp, pl)) for pl in plans_of(cig, b, co, t_in + tp - 2, h, w)]
+        t_out = t_in + tp - 2
+        xcl = xb.to(memory_format=torch.channels_last_3d)
+        pl = cig.make_plan(cig.CL_BN, co, b * t_out, h, w, channels_last=True)
+        runs = [(pl, cig.launch(xcl, pb, tp, pl))]
+        if w % 8 == 0:
+            runs += [(pl, cig.launch(xb, pb, tp, pl)) for pl in plans_of(cig, b, co, t_out, h, w)]
         for pl, y in runs:
             torch.cuda.synchronize()
             ex = ulp_excess(y, ref)
-            name = "gather" if pl is None else f"bn{pl.bn}"
+            name = f"{'cl' if pl.channels_last else 'wgmma'} bn{pl.bn}"
             ok &= ex <= 0
             print(f"check {ci}->{co} @{h}x{w} b{b} t_in{t_in} tp{tp} {name}: max abs "
                   f"{float((y.float() - ref.float()).abs().max()):.4g} ulp excess {ex:.3g} "
