@@ -114,6 +114,37 @@ Phases, in order; any failure exits non-zero before the last line:
      (POST /session to the first /step response) and the first step, the
      step median, the boundary step, the peak device memory, and the
      server's encode and the client's decode of one 8-frame window.
+ 14. K1's backward (attn_bwd_delta, then attn_bwd_dkdv_* and attn_bwd_dq_*,
+     f32 FMA and bf16 mma.sync) and the forward's row LSE against the plain
+     backward (torch.autograd.grad of attention_plain) on the card, TF32 off,
+     at the training layouts of stages 0-2 (b=1, unit 7 of 8 at 384x512),
+     the rollout's stage-2 2-row layout, K1's edge layouts and a ragged
+     causal S=130: the forward with the LSE equal to the inference route's
+     bit for bit, the LSE within 1e-4 + 1e-5 of the largest |LSE| of
+     torch.logsumexp over the plain masked logits, f32 gradients at atol
+     5e-5 / rtol 1e-4, bf16 gradients as accurate as the plain bf16
+     backward against an f32 evaluation of the same inputs (largest
+     deviation at most twice the plain version's plus 2^-9 of the largest
+     value; relative L2 at most 2^-7), two backward runs bit-equal, one
+     forward and one backward launch per autograd call. At the stage-2
+     training layout it times the backward call, the plain backward and
+     SDPA's backward with the same boolean mask (a yardstick the port never
+     calls) beside the bound: the five S x S x 64 products over the
+     allowed pairs at the dtype's peak, or the bytes;
+ 15. training at full width: a Trainer (pyramid objective, AdamW) on an
+     MMDiTConfig() model (24 layers, d=1536) in f32 with random weights from
+     seed 0 and a batch of 8 latent units at 384x512 ([1, 38, 8, 48, 64]),
+     77 text tokens with a mask and pooled text. Counts set to 0 just
+     before and read just after each step: one pyramid step at each stage
+     (unit 7), one single-clip step (1 frame), Trainer.train for 4 steps;
+     each with finite losses, a finite gradient for every parameter, a
+     nonzero one for every block's to_q (the attention's gradient flows),
+     K1's f32 forward and the backward 24 times a step. The trainer is saved
+     and restored into a fresh Trainer on the card: params and AdamW state
+     equal bit for bit. Then one bf16 stage-2 step (params cast to bf16):
+     K1's wgmma forward and the bf16 backward 24 times. Prints each step's
+     seconds and peak device memory, and the checkpoint's size and times.
+Phases 5, 7, 11, 12 and 13 also check that the backward never launched.
 The line before the last is a JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}. Extra detail goes to chiprun_out/.
 """
@@ -122,6 +153,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -237,6 +269,26 @@ LINEAR_CASES = (("D->D (q, k, v, out)", 2 * 2016, 1536, 1536),
 PADDED_INT_MM_CASES = ((16, 1536, 1536), (17, 12, 20))
 #: seconds any one HTTP call of phase 13 may take
 HTTP_TIMEOUT = 600
+#: phase 15's pyramid steps denoise this unit (the last of 8 latent units)
+TRAIN_UNIT = 7
+#: K1's backward in f32 against autograd of the plain version: the same
+#: products in other orders (FMA chains of 64 against a library's blocked
+#: sums) over up to S terms, on gradients of magnitude up to ~10
+BWD_F32_ATOL, BWD_F32_RTOL = 5e-5, 1e-4
+#: K1's backward in bf16 against an f32 evaluation of the same bf16 inputs.
+#: The kernel rounds P and dS to bf16 before their second products (as the
+#: forward rounds P), D comes from the bf16 output, and each gradient is
+#: rounded once; the plain bf16 backward rounds at other points. Where the
+#: terms of a sum cancel, an error of 2^-9 per term is large against the
+#: value, so a bound relative to each value does not hold (on an H100 the
+#: kernel exceeded 2e-3 + 2^-7 of the value by up to 1.1e-3, with largest
+#: deviations of the plain version's size). The kernel must be as accurate
+#: as the plain version: its largest
+#: deviation at most BWD_BF16_MAX_RATIO times the plain version's plus half
+#: a bf16 ulp of the largest value (2^-9 of it), and its relative L2
+#: deviation at most BWD_BF16_REL_L2 (one bf16 ulp; both versions measure
+#: ~0.0024, about 2^-8.7, mostly the output's rounding)
+BWD_BF16_MAX_RATIO, BWD_BF16_REL_L2 = 2.0, 2.0 ** -7
 
 
 def log(*args):
@@ -346,6 +398,34 @@ def attention_edge_layouts(device, gen):
     return out
 
 
+def training_layouts(device):
+    """(name, rows, clip shapes, ctx_valid, frame times, frame valid) of the
+    packed attention of one pyramid training step at 384x512, for each
+    stage: phase 15's shapes (8 latent units, unit_index 7, the first-frame
+    mask, one row) with an action prompt's text mask (10 of 77 tokens;
+    phase 15's batch unmasks 11)."""
+    import torch
+    from deepv_tpu_torch.actions import action_vocabulary
+    from deepv_tpu_torch.config import MMDiTConfig, PipelineConfig
+    from deepv_tpu_torch.io.text_embeds import random_text_embeds
+    from deepv_tpu_torch.pipeline import _pyramid_list, padded_conditions
+
+    mcfg, pcfg = MMDiTConfig(), PipelineConfig()
+    embeds = random_text_embeds(0, action_vocabulary(), joint_dim=8, pooled_dim=8)
+    ctx = torch.as_tensor(embeds[action_vocabulary()[1]]["prompt_attention_mask"],
+                          device=device)
+    lh, lw = HEIGHT // pcfg.vae_downsample, WIDTH // pcfg.vae_downsample
+    unit = TRAIN_UNIT
+    ctx_frames = unit * pcfg.frame_per_unit
+    clean = torch.zeros((1, mcfg.in_channels, ctx_frames, lh, lw), device=device)
+    conds = padded_conditions(pcfg, _pyramid_list(clean, len(pcfg.stages) - 1), unit, True, 1)
+    out = []
+    for s, (clips, times, valid) in enumerate(conds):
+        shapes = [tuple(c.shape[2:]) for c in clips] + [tuple(clips[-1].shape[2:])]
+        out.append((f"train_stage{s}_b1", 1, shapes, ctx, list(times), list(valid)))
+    return out
+
+
 def check_attention_bf16(name, q, k, v, valid, times, n_last=0):
     """K1 in f32 and bf16 against the plain version, at the stated
     tolerances; returns the errors."""
@@ -381,10 +461,11 @@ def check_attention_bf16(name, q, k, v, valid, times, n_last=0):
                               plain_bf16_err_vs_f32=(rb.float() - rf).abs().max().item())
 
 
-def tile_counts(valid, times):
-    """K1's tile classes at its 128 x 64 tile, counted over the call."""
+def tile_counts(valid, times, block_q=128, block_k=64):
+    """K1's tile classes, counted over the call: the forward's 128 x 64
+    tile, or the backward's 64 x 64."""
     from deepv_tpu_torch.ops import attention as att
-    cls = att.tile_classes(valid, times)
+    cls = att.tile_classes(valid, times, block_q, block_k)
     return {name: int((cls == c).sum()) for name, c in
             (("skip", att.SKIP), ("full", att.FULL), ("partial", att.PARTIAL))}
 
@@ -502,6 +583,163 @@ def check_attention(device, results):
     return rollout
 
 
+def backward_layouts(device, gen):
+    """(name, valid, times, n_last) of phase 14: the training layouts of
+    stages 0-2 (b=1), the rollout's stage-2 2-row layout, K1's edge layouts
+    (S < 64, mask-free, per-token valid, time-skipped tiles mid-sequence)
+    and a ragged last tile with a causal mask."""
+    import torch
+    from deepv_tpu_torch.config import MMDiTConfig
+    from deepv_tpu_torch.models.mmdit import PackedLayout, packed_mask
+
+    mcfg = MMDiTConfig()
+    out = []
+    rollout = [r for r in rollout_layouts(device) if r[0] == "stage2_b2"]
+    for name, b, shapes, ctx, ftimes, fvalid in training_layouts(device) + rollout:
+        layout = PackedLayout(mcfg, shapes, ctx.shape[1])
+        valid, times = packed_mask(layout, ctx, ftimes, fvalid)
+        out.append((name, valid, times, layout.clip_tokens[-1]))
+    for name, valid, times, _ in attention_edge_layouts(device, gen):
+        out.append((name, valid, times, 0))
+    s = 130                                   # ragged: two full tiles and 2 rows
+    times = torch.arange(s, device=device).div(40, rounding_mode="floor").float()
+    out.append(("edge: ragged causal S=130", torch.ones((2, s), dtype=torch.int32,
+                                                        device=device), times, 0))
+    return out
+
+
+def attention_grads(q, k, v, dout, valid, times, n_last=0):
+    """(out, dq, dk, dv) of ``attention`` through autograd, the path training
+    takes."""
+    import torch
+    from deepv_tpu_torch.ops import attention as att
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    out = att.attention(*leaves, valid, times, n_last=n_last)
+    return (out.detach(), *torch.autograd.grad(out, leaves, dout))
+
+
+def check_attention_backward(device, results):
+    """Phase 14: the backward kernels and the forward's LSE against the plain
+    backward (autograd of attention_plain) on the card, f32 and bf16, every
+    layout of ``backward_layouts``; two runs bit-equal; the launch counts;
+    at the stage-2 training layout the kernels, the plain backward and
+    SDPA's backward timed beside the bound."""
+    import torch
+    import torch.nn.functional as F
+    from deepv_tpu_torch.config import MMDiTConfig
+    from deepv_tpu_torch.ops import attention as att
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mcfg = MMDiTConfig()
+    h, d = mcfg.num_attention_heads, mcfg.attention_head_dim
+    gen = torch.Generator(device=device)
+    gen.manual_seed(14)
+    rows_out = []
+    for name, valid, times, n_last in backward_layouts(device, gen):
+        b, s = valid.shape
+        q, k, v, dout = (torch.randn((b, s, h, d), generator=gen, device=device)
+                         for _ in range(4))
+        row = dict(layout=name, b=b, S=s, tiles_64=tile_counts(valid, times, 64, 64))
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            qc, kc, vc, oc = (x.to(dtype) for x in (q, k, v, dout))
+            # the forward with the LSE equals the inference route's bit for bit
+            out, lse = att._forward_kernel(qc, kc, vc, valid, times, with_lse=True)
+            with torch.no_grad():
+                plain_route = att.attention(qc, kc, vc, valid, times, n_last=n_last)
+            assert torch.equal(out, plain_route), f"{name} {tag}: the LSE changed the output"
+            lse_ref = att.attention_lse_plain(qc, kc, valid, times)
+            lse_err = (lse - lse_ref).abs().max().item()
+            # sums of up to S exponentials in another order, exp2/log2 in bf16's
+            # kernel: f32 rounding of values up to ~10
+            assert lse_err <= 1e-4 + 1e-5 * lse_ref.abs().max().item(), (name, tag, lse_err)
+            # autograd: one forward launch of the dtype's kernel, one backward
+            before = (att.launches, att.f32_launches, att.bwd_launches)
+            got = attention_grads(qc, kc, vc, oc, valid, times, n_last)
+            torch.cuda.synchronize()
+            bf = int(dtype == torch.bfloat16)
+            after = (att.launches, att.f32_launches, att.bwd_launches)
+            assert after == (before[0] + bf, before[1] + 1 - bf, before[2] + 1), \
+                f"{name} {tag}: launches {before} -> {after}"
+            assert torch.equal(got[0], out), f"{name} {tag}: autograd forward differs"
+            again = att.attention_backward(qc, kc, vc, out, lse, oc, valid, times)
+            assert all(torch.equal(x, y) for x, y in zip(got[1:], again)), \
+                f"{name} {tag}: two backward runs differ"
+            plain = att.attention_backward_plain(qc, kc, vc, oc, valid, times)
+            errs = {f"{tag}_lse_err": lse_err}
+            for gname, x, ref in zip(("dq", "dk", "dv"), got[1:], plain):
+                assert bool(torch.isfinite(x).all()), f"{name} {tag}: non-finite {gname}"
+                errs[f"{tag}_{gname}_err"] = (x.float() - ref.float()).abs().max().item()
+            if dtype == torch.float32:
+                for gname, x, ref in zip(("dq", "dk", "dv"), got[1:], plain):
+                    torch.testing.assert_close(x, ref, atol=BWD_F32_ATOL, rtol=BWD_F32_RTOL,
+                                               msg=lambda m: f"{name} f32 {gname}: {m}")
+            else:
+                ref32 = att.attention_backward_plain(*(x.float() for x in (qc, kc, vc, oc)),
+                                                     valid, times)
+                for gname, x, r32, rb in zip(("dq", "dk", "dv"), got[1:], ref32, plain):
+                    err = (x.float() - r32).abs().max().item()
+                    plain_err = (rb.float() - r32).abs().max().item()
+                    rel = ((x.float() - r32).norm() / r32.norm()).item()
+                    errs.update({f"bf16_{gname}_err_vs_f32": err,
+                                 f"plain_bf16_{gname}_err_vs_f32": plain_err,
+                                 f"bf16_{gname}_rel_l2_vs_f32": rel,
+                                 f"plain_bf16_{gname}_rel_l2_vs_f32":
+                                     ((rb.float() - r32).norm() / r32.norm()).item()})
+                    limit = (BWD_BF16_MAX_RATIO * plain_err
+                             + r32.abs().max().item() * 2.0 ** -9)
+                    assert err <= limit and rel <= BWD_BF16_REL_L2, (
+                        f"{name} bf16 {gname}: max deviation {err} (limit {limit}), "
+                        f"relative L2 {rel} (limit {BWD_BF16_REL_L2})")
+                del ref32
+            row.update(errs)
+            del got, again, plain, out, lse, lse_ref
+        rows_out.append(row)
+        log("attention backward", json.dumps(row))
+
+    # timing at the stage-2 training layout
+    name, valid, times, n_last = backward_layouts(device, gen)[2]
+    b, s = valid.shape
+    allowed = ((valid[:, :, None] == valid[:, None, :]) & (times[:, None] >= times[None, :])[None])
+    pairs = int(allowed.sum().item())
+    timing = dict(layout=name, b=b, S=s, heads=h, head_dim=d, allowed_pairs=pairs,
+                  tiles_64=tile_counts(valid, times, 64, 64))
+    for dtype, peak in ((torch.float32, PEAK_F32_FLOPS), (torch.bfloat16, PEAK_BF16_FLOPS)):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        es = 4 if dtype == torch.float32 else 2
+        q, k, v, dout = (torch.randn((b, s, h, d), generator=gen, device=device).to(dtype)
+                         for _ in range(4))
+        out, lse = att._forward_kernel(q, k, v, valid, times, with_lse=True)
+        n0 = att.bwd_launches
+        ms = cuda_time_ms(lambda: att.attention_backward(q, k, v, out, lse, dout, valid, times),
+                          10)
+        timing_launches = att.bwd_launches - n0
+        plain_ms = cuda_time_ms(
+            lambda: att.attention_backward_plain(q, k, v, dout, valid, times), 3, 1)
+        mask = allowed[:, None]
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+        ot = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        dot = dout.transpose(1, 2)
+        library_ms = cuda_time_ms(
+            lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True), 10)
+        flops = 5 * 2 * pairs * h * d                 # five S x S x 64 products
+        nbytes = (8 * b * s * h * d * es + b * h * s * 4 + valid.numel() * 4
+                  + times.numel() * 4)                # q k v o dO in, dq dk dv out, lse
+        t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+        timing[tag] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                           bound_ms=1e3 * max(t_ops, t_bytes),
+                           bound_by="operations" if t_ops >= t_bytes else "bytes",
+                           tflops=flops / (ms * 1e-3) / 1e12, timed_launches=timing_launches)
+        del q, k, v, dout, out, lse, qt, kt, vt, ot, dot
+    del allowed
+    log("attention backward timing", json.dumps(timing))
+    results["attention_backward_layouts"] = rows_out
+    results["attention_backward_timing"] = timing
+    torch.cuda.empty_cache()
+    return rows_out, timing
+
+
 def rollout_batch():
     """The rollout's input: a smooth 384x512 test image with seeded noise and
     the 11-action prompt. The image holds float16 values, so it reaches a
@@ -548,7 +786,7 @@ def drive_rollout(pipe, setup_s: float, hook: "FrameHook | None" = None):
     pipe.timer.sync = True
     resident = torch.cuda.memory_allocated() / 2 ** 30      # weights and buffers
     torch.cuda.reset_peak_memory_stats()
-    att.launches = att.f32_launches = 0
+    att.launches = att.f32_launches = att.bwd_launches = 0
     for name in K2_COUNTERS:
         setattr(cig, name, 0)
     ci8.launches = ci8.packed_launches = ci8.quantize_launches = li8.calls = 0
@@ -565,6 +803,7 @@ def drive_rollout(pipe, setup_s: float, hook: "FrameHook | None" = None):
     wall = time.perf_counter() - t0
     launches = att.launches
     assert att.f32_launches == 0, "the bf16 rollout launched the f32 attention kernel"
+    assert att.bwd_launches == 0, "the rollout launched the attention backward"
     conv_launches = {name: getattr(cig, name) for name in K2_COUNTERS}
     assert conv_launches["f32_launches"] == 0, "the bf16 rollout launched the f32 kernel"
     int8_counts = dict(conv_int8_launches=ci8.launches + ci8.packed_launches,
@@ -1266,7 +1505,7 @@ def run_fast_path(device, results, ref_frames):
     batch = rollout_batch()
     actions = serve.InteractiveSession.actions_from_prompt_list(pipe.cfg, list(batch["prompt"]))
     calls[0], narrow[0], forwards, steps = 0, 0, 0, []
-    att.launches = att.f32_launches = 0
+    att.launches = att.f32_launches = att.bwd_launches = 0
     for name in K2_COUNTERS:
         setattr(cig, name, 0)
     ci8.launches = ci8.packed_launches = ci8.quantize_launches = li8.calls = 0
@@ -1284,6 +1523,7 @@ def run_fast_path(device, results, ref_frames):
         causal_conv.conv3d_int8 = orig
     served = dict(wall_s=served_s, forwards=forwards, attention_launches=att.launches,
                   attention_f32_launches=att.f32_launches,
+                  attention_bwd_launches=att.bwd_launches,
                   conv_igemm_launches={name: getattr(cig, name) for name in K2_COUNTERS},
                   conv_int8_launches=ci8.launches + ci8.packed_launches,
                   conv_int8_packed_launches=ci8.packed_launches,
@@ -1295,7 +1535,7 @@ def run_fast_path(device, results, ref_frames):
         "the served --fast session's frames differ from the --fast rollout's")
     assert forwards == summary["forwards"], (forwards, summary["forwards"])
     assert served["attention_launches"] == forwards * mcfg.num_layers, served
-    assert served["attention_f32_launches"] == 0, served
+    assert served["attention_f32_launches"] == served["attention_bwd_launches"] == 0, served
     assert not any(served["conv_igemm_launches"].values()), served
     assert served["conv_int8_launches"] == served["quantize_k3_launches"] == calls[0] \
         > FAST_CONV_INT8_CALLS, served
@@ -1404,7 +1644,7 @@ def run_serving_path(device, results, ref_frames, ref_disparity, main_launches: 
     boundary = pipe.cfg.max_temporal_length - 1         # step 8, the chunk boundary
 
     torch.cuda.reset_peak_memory_stats()
-    att.launches = att.f32_launches = 0
+    att.launches = att.f32_launches = att.bwd_launches = 0
     for name in K2_COUNTERS:
         setattr(cig, name, 0)
     ci8.launches = ci8.packed_launches = ci8.quantize_launches = li8.calls = 0
@@ -1449,6 +1689,7 @@ def run_serving_path(device, results, ref_frames, ref_disparity, main_launches: 
             complete.append(out["chunk_complete"])
             totals.append(out["frames_total"])
         launches = dict(attention=att.launches, attention_f32=att.f32_launches,
+                        attention_bwd=att.bwd_launches,
                         **{f"conv_igemm_{k}": getattr(cig, k) for k in K2_COUNTERS},
                         conv_int8=ci8.launches + ci8.packed_launches,
                         quantize_k3=ci8.quantize_launches, int_mm=li8.calls)
@@ -1529,6 +1770,169 @@ def run_serving_path(device, results, ref_frames, ref_disparity, main_launches: 
     return summary
 
 
+def training_batch(device, dtype):
+    """Phase 15's batch: 8 latent units at 384x512 ([1, 38, 8, 48, 64]), 77
+    text tokens (11 of them unmasked) and pooled text, from a seeded
+    generator."""
+    import torch
+    from deepv_tpu_torch.config import MMDiTConfig, PipelineConfig
+
+    mcfg, pcfg = MMDiTConfig(), PipelineConfig()
+    g = torch.Generator(device=device)
+    g.manual_seed(15)
+    lh, lw = HEIGHT // pcfg.vae_downsample, WIDTH // pcfg.vae_downsample
+    draw = lambda *shape: torch.randn(shape, generator=g, device=device).to(dtype)
+    mask = torch.zeros((1, 77), dtype=torch.int32, device=device)
+    mask[:, :11] = 1
+    return {"latents": draw(1, mcfg.in_channels, (TRAIN_UNIT + 1) * pcfg.frame_per_unit, lh, lw),
+            "text_embeds": draw(1, 77, mcfg.joint_attention_dim), "text_mask": mask,
+            "pooled": draw(1, mcfg.pooled_projection_dim)}
+
+
+def checked_step(name, step, model, dtype, n_steps=1):
+    """Runs ``step()`` (one or more train steps) with K1's counts set to 0
+    just before and read just after: a finite loss, a finite gradient for
+    every parameter, a nonzero one for every block's to_q (the attention's
+    gradient flowed), K1's forward of the dtype and the backward once per
+    block of each step. Returns the step's row."""
+    import torch
+    from deepv_tpu_torch.ops import attention as att
+
+    n_layers = len(model.transformer_blocks)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    att.launches = att.f32_launches = att.bwd_launches = 0
+    t0 = time.perf_counter()
+    losses = step()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(attn_fwd_wgmma=att.launches, attn_fwd_f32=att.f32_launches,
+                  attn_bwd=att.bwd_launches)
+    losses = [float(x) for x in (losses if isinstance(losses, list) else [losses])]
+    assert all(map(math.isfinite, losses)), f"{name}: loss {losses}"
+    params = list(model.named_parameters())
+    finite = torch.stack([torch.isfinite(p.grad).all() if p.grad is not None
+                          else torch.zeros((), dtype=torch.bool, device=p.device)
+                          for _, p in params])
+    bad = [n for (n, _), ok in zip(params, finite.tolist()) if not ok]
+    assert not bad, f"{name}: no finite gradient for {bad[:5]} ({len(bad)} parameters)"
+    dead = [i for i, blk in enumerate(model.transformer_blocks)
+            if not bool((blk.attn.to_q.weight.grad != 0).any())]
+    assert not dead, f"{name}: to_q of blocks {dead} got a zero gradient"
+    fwd = "attn_fwd_wgmma" if dtype == torch.bfloat16 else "attn_fwd_f32"
+    want = dict(attn_fwd_wgmma=0, attn_fwd_f32=0, attn_bwd=n_layers * n_steps)
+    want[fwd] = n_layers * n_steps
+    assert counts == want, f"{name}: K1 launches {counts}, expected {want}"
+    row = dict(step=name, losses=losses, seconds=seconds,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30, launches=counts,
+               params_with_grad=len(params))
+    log("training", json.dumps(row))
+    return row
+
+
+def run_training_path(device, results):
+    """Phase 15: training at full width through the port's entry points:
+    Trainer on an MMDiT from random_mmdit_params (f32, seed 0), one pyramid
+    step at each stage (unit 7), one single-clip step, Trainer.train for 4
+    steps, save and restore into a fresh Trainer (equal bit for bit), then
+    one bf16 stage-2 step. Returns the launch counts of the f32 and the
+    bf16 steps."""
+    import shutil
+    import tempfile
+    import torch
+    from deepv_tpu_torch.config import MMDiTConfig, PipelineConfig
+    from deepv_tpu_torch.io.weights import params_from_numpy, random_mmdit_params
+    from deepv_tpu_torch.models.mmdit import MMDiT
+    from deepv_tpu_torch.pipeline import TorchNoise
+    from deepv_tpu_torch.training.flow_matching import make_train_step
+    from deepv_tpu_torch.training.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mcfg, pcfg = MMDiTConfig(), PipelineConfig()
+    f32 = torch.float32
+    t0 = time.perf_counter()
+    model = params_from_numpy(MMDiT(mcfg), random_mmdit_params(mcfg, f32, seed=0, device=device))
+    trainer = Trainer(mcfg, model, learning_rate=1e-4, weight_decay=0.01, pcfg=pcfg,
+                      device=device)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"training: f32 Trainer with {n_params / 1e9:.3f} B parameters and its AdamW state "
+        f"ready in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the card")
+    batch = training_batch(device, f32)
+    rows, counts = [], dict(attn_fwd_f32=0, attn_bwd_f32=0)
+    noise = TorchNoise(15, device)
+    for stage in range(len(pcfg.stages)):
+        rows.append(checked_step(
+            f"pyramid stage {stage}, unit {TRAIN_UNIT}, f32",
+            lambda: trainer.step_fn(batch, noise, stage, TRAIN_UNIT), model, f32))
+    single = make_train_step(model, trainer.optimizer)
+    clip = dict(batch, latents=batch["latents"][:, :, :1])
+    rows.append(checked_step("single clip, 1 frame, f32", lambda: single(clip, noise), model, f32))
+    rows.append(checked_step("Trainer.train, 4 pyramid steps, f32",
+                             lambda: trainer.train([batch] * 4, noise, log_every=1, log_fn=log),
+                             model, f32, n_steps=4))
+    for r in rows:
+        counts["attn_fwd_f32"] += r["launches"]["attn_fwd_f32"]
+        counts["attn_bwd_f32"] += r["launches"]["attn_bwd"]
+
+    # save, then restore into a fresh trainer (other random weights)
+    ckpt_dir = tempfile.mkdtemp(prefix="_train_ckpt_", dir=HERE)
+    try:
+        t = time.perf_counter()
+        path = trainer.save(os.path.join(ckpt_dir, f"step_{trainer.step:08d}"))
+        save_s = time.perf_counter() - t
+        trainer.optimizer.zero_grad(set_to_none=True)
+        fresh = Trainer(mcfg, params_from_numpy(MMDiT(mcfg), random_mmdit_params(
+            mcfg, f32, seed=1, device=device)), learning_rate=1e-4, weight_decay=0.01, pcfg=pcfg,
+            device=device)
+        t = time.perf_counter()
+        fresh.restore(path)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        ckpt_gb = sum(os.path.getsize(os.path.join(dp, f)) for dp, _, fs in os.walk(ckpt_dir)
+                      for f in fs) / 1e9
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    assert fresh.step == trainer.step == 4, (fresh.step, trainer.step)
+    differ = []
+    for (name, a), b in zip(model.named_parameters(), fresh.model.parameters()):
+        sa, sb = trainer.optimizer.state[a], fresh.optimizer.state[b]
+        if not (torch.equal(a, b) and torch.equal(sa["exp_avg"], sb["exp_avg"])
+                and torch.equal(sa["exp_avg_sq"], sb["exp_avg_sq"])
+                and torch.equal(sa["step"], sb["step"])):
+            differ.append(name)
+    assert not differ, f"restored state differs from the saved one: {differ[:5]}"
+    log(f"training: checkpoint of {ckpt_gb:.2f} GB saved in {save_s:.1f} s, restored into a "
+        f"fresh Trainer in {restore_s:.1f} s; params and AdamW state equal bit for bit")
+    bf16_params = {k: v.detach().to(torch.bfloat16) for k, v in model.named_parameters()}
+    del fresh, trainer, model, single
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one bf16 stage-2 step: K1's wgmma forward and the bf16 backward
+    bf16 = torch.bfloat16
+    model = params_from_numpy(MMDiT(mcfg), bf16_params)
+    del bf16_params
+    trainer = Trainer(mcfg, model, learning_rate=1e-4, weight_decay=0.01, pcfg=pcfg,
+                      device=device)
+    batch = training_batch(device, bf16)
+    row = checked_step(f"pyramid stage 2, unit {TRAIN_UNIT}, bf16",
+                       lambda: trainer.step_fn(batch, TorchNoise(16, device), 2, TRAIN_UNIT),
+                       model, bf16)
+    rows.append(row)
+    counts["attn_fwd_wgmma"] = row["launches"]["attn_fwd_wgmma"]
+    counts["attn_bwd_bf16"] = row["launches"]["attn_bwd"]
+    del trainer, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary = dict(params=n_params, steps=rows, checkpoint_gb=ckpt_gb, save_s=save_s,
+                   restore_s=restore_s, launches=counts)
+    results["training_path"] = summary
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -1589,6 +1993,10 @@ def main() -> int:
     run_adaptive_boundary_path(device, results, ref_frames)
     run_serving_path(device, results, ref_frames, ref_disparity, launches)
     del ref_frames, ref_disparity
+    gc.collect()
+    torch.cuda.empty_cache()
+    bwd_rows, bwd_timing = check_attention_backward(device, results)
+    training = run_training_path(device, results)
 
     assert launches == sum(r["launches_per_rollout"] for r in rows), (
         "K1's launches per layout do not add up to the rollout's")
@@ -1607,6 +2015,46 @@ def main() -> int:
         "library_ms": head["library_ms"],
         "shape": f"stage 2, b={head['b']}, S={head['S']}, h={head['heads']}, d={head['head_dim']}, bf16",
     }]
+    # K1's f32 forward and the backward kernels: launches from phase 15's
+    # training steps, errors from phase 14, times at the stage-2 training
+    # layout (phase 14); the f32 forward's time at the rollout's stage-2
+    # layout (phase 3)
+    f32_row = head["f32"]
+    kernels.append({
+        "name": "attn_fwd_f32",
+        "route": "cuda",
+        "source": "deepv_tpu_torch/csrc/attention.cu",
+        "replaces": "deepv_tpu/ops/attention.py:73",
+        "launches": training["launches"]["attn_fwd_f32"],
+        "max_abs_err": max(r["err_f32_kernel"] for r in results["attention_layouts"]),
+        "ms": f32_row["ms"],
+        "plain_ms": f32_row["plain_ms"],
+        "bound_ms": f32_row["bound_ms"],
+        "bound_by": f32_row["bound_by"],
+        "library_ms": f32_row["library_ms"],
+        "shape": (f"stage 2, b={head['b']}, S={head['S']}, h={head['heads']}, "
+                  f"d={head['head_dim']}, f32; launches: phase 15's f32 training steps"),
+    })
+    for tag, counter in (("f32", "attn_bwd_f32"), ("bf16", "attn_bwd_bf16")):
+        t = bwd_timing[tag]
+        kernels.append({
+            "name": f"attn_bwd_{tag}",
+            "route": "cuda",
+            "source": "deepv_tpu_torch/csrc/attention.cu",
+            "replaces": "deepv_tpu/models/mmdit.py:289",
+            "launches": training["launches"][counter],
+            "max_abs_err": max(r[f"{tag}_{g}_err"] for r in bwd_rows for g in ("dq", "dk", "dv")),
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "shape": (f"stage-2 training layout, b={bwd_timing['b']}, S={bwd_timing['S']}, "
+                      f"h={bwd_timing['heads']}, d={bwd_timing['head_dim']}, {tag}; one call = "
+                      f"attn_bwd_delta, attn_bwd_dkdv_{tag}, attn_bwd_dq_{tag}; no TPU kernel: "
+                      "deepv_tpu differentiates its jnp attention; plain_ms is autograd of "
+                      "attention_plain, library_ms autograd of SDPA's backward"),
+        })
     # K2 at the conv class with the most device time in the igemm rollout:
     # its output frames there times the kernel's ms per output frame
     bf16 = [r for r in conv_rows if r["dtype"] == "bfloat16"]

@@ -54,6 +54,40 @@
 // per (64 query rows, batch*head), 64-key tiles in shared memory, plain FMA
 // in f32, the same online softmax with the mask rebuilt per tile, and a
 // time-only tile skip.
+//
+// Both forwards write, when given an lse pointer (training), each row's
+// log-sum-exp of its masked, scaled logits in the natural log, [b, h, S]
+// f32: m + log(l) (attn_fwd_wgmma keeps m and l in base 2 and stores
+// ln 2 * (m + log2 l)). Without it (inference) nothing changes.
+//
+// Backward (no TPU kernel: deepv_tpu trains through its jnp attention,
+// models/mmdit.py:289-299, which jax.value_and_grad differentiates). With
+// scale = 1/8, P = exp(Q.K^T * scale - LSE) on allowed pairs (else 0),
+// D = rowsum(dO * O): dV = P^T dO, dS = P * (dO V^T - D), dQ = dS K * scale,
+// dK = dS^T Q * scale. Five S x S x 64 products over the allowed pairs
+// bound it (3.8e10 FLOP at the stage-2 training layout, b=1, S=2,093,
+// against 51 MB of q, k, v, O, dO in and dq, dk, dv out in bf16: ~750
+// operations a byte, past the bf16 ridge of ~295). The design is plain:
+//   * attn_bwd_delta: D, one warp per row;
+//   * attn_bwd_dkdv_*: one CTA per (64 keys, batch*head) keeps its K and V
+//     tile, walks the query tiles, recomputes P and dS and accumulates dK
+//     and dV in registers;
+//   * attn_bwd_dq_*: one CTA per (64 query rows, batch*head) keeps Q and dO,
+//     walks the key tiles, recomputes P and dS and accumulates dQ.
+//   No float atomics: each gradient row is summed by one thread in a fixed
+//   order, so two runs agree bit for bit. Recomputing P and dP in both
+//   kernels costs seven products where five would do.
+//   * Mask schedule: each CTA classifies its own 64-row tile against every
+//     64-row tile of the sequence by the forward's rule (tile_classes at
+//     (64, 64)), own tile on the key side in dK/dV and on the query side in
+//     dQ, and loads only kept tiles; only partial tiles build the mask. A
+//     row past S gets LSE = +inf, so its P is 0 in a full tile too.
+//   * f32 (`_f32`): 256 threads as 16 x 16, 4 x 4 outputs each, FMA from
+//     shared memory at a 65-float row stride.
+//   * bf16 (`_bf16`): 4 warps of mma.sync.m16n8k16 (f32 accumulate); each
+//     warp keeps its 16 own rows as A fragments in registers, the other
+//     side's tiles sit in shared memory (144-byte rows); P and dS are
+//     rounded to bf16 for the second products, as the forward rounds P.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -179,7 +213,7 @@ __global__ void __launch_bounds__(kThreads)
 attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const int* __restrict__ valid,
              const float* __restrict__ times, float* __restrict__ out,
-             int s, int h, float scale) {
+             float* __restrict__ lse, int s, int h, float scale) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   SmemF32& sm = *reinterpret_cast<SmemF32*>(smem_raw);
 
@@ -264,6 +298,7 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     float* dst = out + (((size_t)bi * s + q0 + row) * h + hi) * kD;
     dst[lane] = o0[r] * inv;
     dst[lane + 32] = o1[r] * inv;
+    if (lse != nullptr && lane == 0) lse[((size_t)bi * h + hi) * s + q0 + row] = m[r] + logf(l[r]);
   }
 }
 
@@ -295,6 +330,7 @@ constexpr int kQBytes = kBQ * kD * 2;      // 16 KB
 constexpr uint32_t kVLbo = kTileBytes;
 constexpr uint32_t kVSbo = 1024;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 enum : uint8_t { kSkip = 0, kFull = 1, kPartial = 2 };
 
@@ -402,8 +438,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 attn_fwd_wgmma(const __grid_constant__ CUtensorMap tmap_q,
                const __grid_constant__ CUtensorMap tmap_k,
                const __grid_constant__ CUtensorMap tmap_v, const int* __restrict__ valid,
-               const float* __restrict__ times, __nv_bfloat16* __restrict__ out, int s, int h,
-               float scale_log2) {
+               const float* __restrict__ times, __nv_bfloat16* __restrict__ out,
+               float* __restrict__ lse, int s, int h, float scale_log2) {
   extern __shared__ __align__(1024) unsigned char wg_smem[];
   const uint32_t raw = smem_u32(wg_smem);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -614,8 +650,15 @@ attn_fwd_wgmma(const __grid_constant__ CUtensorMap tmap_q,
       mbar_arrive(empty + 8 * st);
     }
 
-    // epilogue: 1/l, one rounding, 4-byte stores into [b, S, h, 64]
-    const float inv0 = 1.f / quad_sum(l0), inv1 = 1.f / quad_sum(l1);
+    // epilogue: 1/l, one rounding, 4-byte stores into [b, S, h, 64]; the
+    // row LSE in the natural log: ln 2 * (m + log2 l), m and l in base 2
+    const float sum0 = quad_sum(l0), sum1 = quad_sum(l1);
+    const float inv0 = 1.f / sum0, inv1 = 1.f / sum1;
+    if (lse != nullptr && (lane & 3) == 0) {
+      float* dst = lse + ((size_t)bi * h + hi) * s;
+      if (row0 < s) dst[row0] = (m0 + log2f(sum0)) * kLn2;
+      if (row1 < s) dst[row1] = (m1 + log2f(sum1)) * kLn2;
+    }
     __nv_bfloat16* dst0 = out + (((size_t)bi * s + row0) * h + hi) * kD + col_base;
     __nv_bfloat16* dst1 = out + (((size_t)bi * s + row1) * h + hi) * kD + col_base;
 #pragma unroll
@@ -644,7 +687,7 @@ CUresult encode_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int b
 }
 
 int launch(const void* q, const void* k, const void* v, const int* valid, const float* times,
-           __nv_bfloat16* out, int b, int s, int h, cudaStream_t stream) {
+           __nv_bfloat16* out, float* lse, int b, int s, int h, cudaStream_t stream) {
   if (s > kMaxTiles * kBK || (int64_t)b * h > 65535 || reinterpret_cast<uintptr_t>(q) % 16 ||
       reinterpret_cast<uintptr_t>(k) % 16 || reinterpret_cast<uintptr_t>(v) % 16)
     return (int)cudaErrorInvalidValue;
@@ -660,29 +703,669 @@ int launch(const void* q, const void* k, const void* v, const int* valid, const 
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((s + kBQ - 1) / kBQ, b * h);
   const float scale_log2 = kLog2e / sqrtf((float)kD);
-  attn_fwd_wgmma<<<grid, kThreads, kSmemBytes, stream>>>(tq, tk, tv, valid, times, out, s, h,
-                                                         scale_log2);
+  attn_fwd_wgmma<<<grid, kThreads, kSmemBytes, stream>>>(tq, tk, tv, valid, times, out, lse, s,
+                                                         h, scale_log2);
   return (int)cudaGetLastError();
 }
 
 }  // namespace wg
 
+// ---------------------------------------------------------------------------
+// backward: D = rowsum(dO * O), then dK/dV over key tiles and dQ over query
+// tiles, each recomputing P from the forward's row LSE
+// ---------------------------------------------------------------------------
+
+namespace bwd {
+
+constexpr int kT = 64;           // rows of a query tile, keys of a key tile
+constexpr int kMaxTiles = 1024;  // 64-row tiles of one sequence: S <= 65,536
+
+// The CTA's mask schedule: its own 64-row tile against every 64-row tile of
+// the sequence, by the rule of ops/attention.py::tile_classes at (64, 64),
+// the own tile on the query side (dq kernels) or the key side (dk/dv
+// kernels); the kept tiles in order, bit 15 set on partial ones.
+struct Sched {
+  uint8_t cls[kMaxTiles];
+  uint16_t list[kMaxTiles];
+  wg::Stats own;
+  int n;
+};
+
+template <int kWarpCount>
+__device__ int build_schedule(Sched& sc, const int* __restrict__ valid,
+                              const float* __restrict__ times, int bi, int s, int own0,
+                              bool own_is_query) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n_t = (s + kT - 1) / kT;
+  if (warp == 0) {
+    const wg::Stats o = wg::warp_stats(valid, times, bi, s, own0);
+    if (lane == 0) sc.own = o;
+  }
+  __syncthreads();
+  const wg::Stats own = sc.own;
+  for (int t = warp; t < n_t; t += kWarpCount) {
+    const wg::Stats o = wg::warp_stats(valid, times, bi, s, t * kT);
+    if (lane == 0) {
+      const wg::Stats& qs = own_is_query ? own : o;
+      const wg::Stats& ks = own_is_query ? o : own;
+      const int k_start = own_is_query ? t * kT : own0;
+      const bool skip = qs.tmax < ks.tmin || qs.vmax < ks.vmin || ks.vmax < qs.vmin;
+      const bool all = qs.tmin >= ks.tmax && qs.vmin == qs.vmax && ks.vmin == ks.vmax &&
+                       qs.vmin == ks.vmin && k_start + kT <= s;
+      sc.cls[t] = skip ? wg::kSkip : (all ? wg::kFull : wg::kPartial);
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int count = 0;
+    for (int t0 = 0; t0 < n_t; t0 += 32) {
+      const int t = t0 + lane;
+      const uint8_t c = t < n_t ? sc.cls[t] : wg::kSkip;
+      const unsigned kept = __ballot_sync(0xffffffffu, c != wg::kSkip);
+      if (c != wg::kSkip)
+        sc.list[count + __popc(kept & ((1u << lane) - 1u))] =
+            (uint16_t)(t | (c == wg::kPartial ? 0x8000 : 0));
+      count += __popc(kept);
+    }
+    if (lane == 0) sc.n = count;
+  }
+  __syncthreads();
+  return sc.n;
+}
+
+// valid and time of a tile's 64 rows and, for a query tile (lse != null),
+// its LSE and D; a row past S gets LSE +inf, so its P is exp(-inf) = 0
+__device__ __forceinline__ void load_row_vectors(int* sv, float* st, float* slse, float* sdel,
+                                                 const int* valid, const float* times,
+                                                 const float* lse, const float* delta, int bi,
+                                                 int hi, int s, int h, int start) {
+  const int t = threadIdx.x;
+  if (t < kT) {
+    const int r = start + t;
+    const bool in = r < s;
+    sv[t] = in ? valid[(size_t)bi * s + r] : 0;
+    st[t] = in ? times[r] : 0.f;
+    if (lse != nullptr) {
+      const size_t at = ((size_t)bi * h + hi) * s + r;
+      slse[t] = in ? lse[at] : INFINITY;
+      sdel[t] = in ? delta[at] : 0.f;
+    }
+  }
+}
+
+// P and dS of one pair of (query, key) entries: P = exp(logit - LSE) on an
+// allowed pair, else 0; dS = P (dP - D). `check` is set on partial tiles.
+__device__ __forceinline__ void p_and_ds(float& sc, float& dp, float scale, float lse, float del,
+                                         bool check, bool q_in, bool k_in, int vq, int vk,
+                                         float tq, float tk) {
+  const bool ok = !check || (q_in && k_in && vq == vk && tq >= tk);
+  const float p = ok ? expf(sc * scale - lse) : 0.f;
+  sc = p;
+  dp = p * (dp - del);
+}
+
+// D[b, h, S] = sum over the head dim of dO * O, one warp per row
+template <typename T>
+__device__ __forceinline__ float to_f32(T x);
+template <>
+__device__ __forceinline__ float to_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+attn_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout, float* __restrict__ delta,
+               int rows, int s, int h) {
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5);    // over [b, S, h] in memory order
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const T* po = o + (size_t)row * kD;
+  const T* pd = dout + (size_t)row * kD;
+  float x = to_f32(po[lane]) * to_f32(pd[lane]) + to_f32(po[lane + 32]) * to_f32(pd[lane + 32]);
+  x = warp_sum(x);
+  if (lane == 0) {
+    const int hi = row % h, bs = row / h;
+    delta[((size_t)(bs / s) * h + hi) * s + bs % s] = x;
+  }
+}
+
+// ---- f32: plain FMA. 256 threads as 16 x 16, each 4 x 4 outputs at rows
+// ty + 16 r and columns tx + 16 c (conflict-free shared reads at stride 65)
+
+constexpr int kFThreads = 256;
+constexpr int kFWarps = kFThreads / 32;
+constexpr int kLd = kD + 1;
+constexpr int kTile = kT * kLd;
+
+__device__ __forceinline__ void load_rows_f32(float* dst, const float* src, int bi, int hi,
+                                              int start, int s, int h) {
+  for (int i = threadIdx.x; i < kT * kD; i += kFThreads) {
+    const int r = i >> 6, c = i & 63;
+    dst[r * kLd + c] = start + r < s ? row_ptr(src, bi, hi, start + r, s, h)[c] : 0.f;
+  }
+}
+
+// S = Q.K^T and dP = dO.V^T for rows ty + 16 r (of Q, dO) and columns
+// tx + 16 c (rows of K, V)
+__device__ __forceinline__ void products_f32(const float* sq, const float* sdo, const float* sk,
+                                             const float* sv, float (&sc)[4][4],
+                                             float (&dp)[4][4], int tx, int ty) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) { sc[r][c] = 0.f; dp[r][c] = 0.f; }
+  for (int d = 0; d < kD; ++d) {
+    float qa[4], oa[4], kb[4], vb[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      qa[r] = sq[(ty + 16 * r) * kLd + d];
+      oa[r] = sdo[(ty + 16 * r) * kLd + d];
+      kb[r] = sk[(tx + 16 * r) * kLd + d];
+      vb[r] = sv[(tx + 16 * r) * kLd + d];
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        sc[r][c] = fmaf(qa[r], kb[c], sc[r][c]);
+        dp[r][c] = fmaf(oa[r], vb[c], dp[r][c]);
+      }
+  }
+}
+
+struct SmemDkdvF32 {
+  float k[kTile], v[kTile], q[kTile], dout[kTile], p[kTile], ds[kTile];
+  int vq[kT], vk[kT];
+  float tq[kT], tk[kT], lse[kT], del[kT];
+  Sched sched;
+};
+
+struct SmemDqF32 {
+  float q[kTile], dout[kTile], k[kTile], v[kTile], ds[kTile];
+  int vq[kT], vk[kT];
+  float tq[kT], tk[kT], lse[kT], del[kT];
+  Sched sched;
+};
+
+// dK and dV of one 64-key tile, over the query tiles its schedule keeps
+__global__ void __launch_bounds__(kFThreads)
+attn_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ dout,
+                  const float* __restrict__ lse, const float* __restrict__ delta,
+                  const int* __restrict__ valid, const float* __restrict__ times,
+                  float* __restrict__ dk, float* __restrict__ dv, int s, int h, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  SmemDkdvF32& sm = *reinterpret_cast<SmemDkdvF32*>(smem_raw);
+  const int k0 = blockIdx.x * kT;
+  const int bi = blockIdx.y / h, hi = blockIdx.y % h;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+
+  load_rows_f32(sm.k, k, bi, hi, k0, s, h);
+  load_rows_f32(sm.v, v, bi, hi, k0, s, h);
+  load_row_vectors(sm.vk, sm.tk, nullptr, nullptr, valid, times, nullptr, nullptr, bi, hi, s, h,
+                   k0);
+  const int n = build_schedule<kFWarps>(sm.sched, valid, times, bi, s, k0, false);
+
+  float adk[4][4], adv[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) { adk[r][c] = 0.f; adv[r][c] = 0.f; }
+
+  for (int j = 0; j < n; ++j) {
+    const int entry = sm.sched.list[j];
+    const int q0 = (entry & 0x7fff) * kT;
+    const bool partial = entry & 0x8000;
+    __syncthreads();                                  // the last tile's readers are done
+    load_rows_f32(sm.q, q, bi, hi, q0, s, h);
+    load_rows_f32(sm.dout, dout, bi, hi, q0, s, h);
+    load_row_vectors(sm.vq, sm.tq, sm.lse, sm.del, valid, times, lse, delta, bi, hi, s, h, q0);
+    __syncthreads();
+
+    // rows: queries ty + 16 r; columns: keys tx + 16 c
+    float sc[4][4], dp[4][4];
+    products_f32(sm.q, sm.dout, sm.k, sm.v, sc, dp, tx, ty);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = ty + 16 * r;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int kj = tx + 16 * c;
+        p_and_ds(sc[r][c], dp[r][c], scale, sm.lse[i], sm.del[i], partial, q0 + i < s,
+                 k0 + kj < s, sm.vq[i], sm.vk[kj], sm.tq[i], sm.tk[kj]);
+        sm.p[i * kLd + kj] = sc[r][c];
+        sm.ds[i * kLd + kj] = dp[r][c];
+      }
+    }
+    __syncthreads();
+
+    // dV[key][c] += sum_i P[i][key] dO[i][c], dK[key][c] += sum_i dS[i][key] Q[i][c];
+    // keys ty + 16 r, head-dim columns tx + 16 c
+    for (int i = 0; i < kT; ++i) {
+      float pk[4], sk[4], oc[4], qc[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        pk[r] = sm.p[i * kLd + ty + 16 * r];
+        sk[r] = sm.ds[i * kLd + ty + 16 * r];
+        oc[r] = sm.dout[i * kLd + tx + 16 * r];
+        qc[r] = sm.q[i * kLd + tx + 16 * r];
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          adv[r][c] = fmaf(pk[r], oc[c], adv[r][c]);
+          adk[r][c] = fmaf(sk[r], qc[c], adk[r][c]);
+        }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int key = k0 + ty + 16 * r;
+    if (key >= s) continue;
+    float* pk = dk + (((size_t)bi * s + key) * h + hi) * kD;
+    float* pv = dv + (((size_t)bi * s + key) * h + hi) * kD;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      pk[tx + 16 * c] = adk[r][c] * scale;
+      pv[tx + 16 * c] = adv[r][c];
+    }
+  }
+}
+
+// dQ of one 64-row query tile, over the key tiles its schedule keeps
+__global__ void __launch_bounds__(kFThreads)
+attn_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                const int* __restrict__ valid, const float* __restrict__ times,
+                float* __restrict__ dq, int s, int h, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  SmemDqF32& sm = *reinterpret_cast<SmemDqF32*>(smem_raw);
+  const int q0 = blockIdx.x * kT;
+  const int bi = blockIdx.y / h, hi = blockIdx.y % h;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+
+  load_rows_f32(sm.q, q, bi, hi, q0, s, h);
+  load_rows_f32(sm.dout, dout, bi, hi, q0, s, h);
+  load_row_vectors(sm.vq, sm.tq, sm.lse, sm.del, valid, times, lse, delta, bi, hi, s, h, q0);
+  const int n = build_schedule<kFWarps>(sm.sched, valid, times, bi, s, q0, true);
+
+  float adq[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) adq[r][c] = 0.f;
+
+  for (int j = 0; j < n; ++j) {
+    const int entry = sm.sched.list[j];
+    const int k0 = (entry & 0x7fff) * kT;
+    const bool partial = entry & 0x8000;
+    __syncthreads();
+    load_rows_f32(sm.k, k, bi, hi, k0, s, h);
+    load_rows_f32(sm.v, v, bi, hi, k0, s, h);
+    load_row_vectors(sm.vk, sm.tk, nullptr, nullptr, valid, times, nullptr, nullptr, bi, hi, s,
+                     h, k0);
+    __syncthreads();
+
+    float sc[4][4], dp[4][4];
+    products_f32(sm.q, sm.dout, sm.k, sm.v, sc, dp, tx, ty);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = ty + 16 * r;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int kj = tx + 16 * c;
+        p_and_ds(sc[r][c], dp[r][c], scale, sm.lse[i], sm.del[i], partial, q0 + i < s,
+                 k0 + kj < s, sm.vq[i], sm.vk[kj], sm.tq[i], sm.tk[kj]);
+        sm.ds[i * kLd + kj] = dp[r][c];
+      }
+    }
+    __syncthreads();
+
+    // dQ[i][c] += sum_key dS[i][key] K[key][c]; rows ty + 16 r, columns tx + 16 c
+    for (int kj = 0; kj < kT; ++kj) {
+      float si[4], kc[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        si[r] = sm.ds[(ty + 16 * r) * kLd + kj];
+        kc[r] = sm.k[kj * kLd + tx + 16 * r];
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) adq[r][c] = fmaf(si[r], kc[c], adq[r][c]);
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = q0 + ty + 16 * r;
+    if (row >= s) continue;
+    float* pq = dq + (((size_t)bi * s + row) * h + hi) * kD;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) pq[tx + 16 * c] = adq[r][c] * scale;
+  }
+}
+
+// ---- bf16: mma.sync.m16n8k16 with f32 accumulation. 4 warps; warp w owns
+// rows 16 w .. 16 w + 15 of the CTA's own tile (thread: rows g and g + 8,
+// g = lane / 4; columns 2 t, 2 t + 1 of each 8-wide n-tile, t = lane % 4).
+// The own tile's operands stay in registers as A fragments; the other
+// side's tiles sit in shared memory at a 144-byte row stride. P and dS are
+// rounded to bf16 for the second products, as the forward rounds P.
+
+constexpr int kBThreads = 128;
+constexpr int kBWarps = kBThreads / 32;
+constexpr int kLdB = kD + 8;                  // bf16 row stride: 144 bytes
+constexpr int kTileB = kT * kLdB;
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// two bf16 of one column from consecutive rows, the lower row in the low half
+__device__ __forceinline__ uint32_t ld_pair_col(const __nv_bfloat16* p) {
+  return (uint32_t)__bfloat16_as_ushort(p[0]) | ((uint32_t)__bfloat16_as_ushort(p[kLdB]) << 16);
+}
+
+__device__ __forceinline__ void load_rows_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                               int bi, int hi, int start, int s, int h) {
+  for (int i = threadIdx.x; i < kT * 8; i += kBThreads) {
+    const int r = i >> 3, c = (i & 7) * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (start + r < s)
+      val = *reinterpret_cast<const uint4*>(row_ptr(src, bi, hi, start + r, s, h) + c);
+    *reinterpret_cast<uint4*>(dst + r * kLdB + c) = val;
+  }
+}
+
+// A fragments of the warp's 16 rows of a shared [64][kLdB] tile, k16 slices kk
+__device__ __forceinline__ void a_fragments(uint32_t (&a)[4][4], const __nv_bfloat16* tile,
+                                            int row0, int t) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const __nv_bfloat16* p = tile + row0 * kLdB + 16 * kk + 2 * t;
+    a[kk][0] = ld_u32(p);
+    a[kk][1] = ld_u32(p + 8 * kLdB);
+    a[kk][2] = ld_u32(p + 8);
+    a[kk][3] = ld_u32(p + 8 * kLdB + 8);
+  }
+}
+
+// acc[n-tile][4] = A (the warp's 16 rows x 64) . B^T, B a shared [64 rows][64]
+// tile read as the col-major k x n operand (n = B's rows)
+__device__ __forceinline__ void rows_dot(float (&acc)[8][4], const uint32_t (&a)[4][4],
+                                         const __nv_bfloat16* tile, int g, int t) {
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+    const __nv_bfloat16* p = tile + (8 * nt + g) * kLdB + 2 * t;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) mma_bf16(acc[nt], a[kk], ld_u32(p + 16 * kk), ld_u32(p + 16 * kk + 8));
+  }
+}
+
+// acc[d n-tile][4] += X (the warp's 16 rows x 64, in accumulator layout,
+// rounded to bf16) . B, B a shared [64 rows][64] tile (k = B's rows)
+__device__ __forceinline__ void acc_times_rows(float (&acc)[8][4], const float (&x)[8][4],
+                                               const __nv_bfloat16* tile, int g, int t) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t a[4];
+    a[0] = wg::pack_bf16(x[2 * kk][0], x[2 * kk][1]);
+    a[1] = wg::pack_bf16(x[2 * kk][2], x[2 * kk][3]);
+    a[2] = wg::pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+    a[3] = wg::pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+    const __nv_bfloat16* p = tile + (16 * kk + 2 * t) * kLdB + g;
+#pragma unroll
+    for (int nd = 0; nd < 8; ++nd)
+      mma_bf16(acc[nd], a, ld_pair_col(p + 8 * nd), ld_pair_col(p + 8 * kLdB + 8 * nd));
+  }
+}
+
+struct SmemDkdvBf16 {
+  __nv_bfloat16 own_a[kTileB], own_b[kTileB], q[kTileB], dout[kTileB];
+  int vq[kT], vk[kT];
+  float tq[kT], tk[kT], lse[kT], del[kT];
+  Sched sched;
+};
+
+struct SmemDqBf16 {
+  __nv_bfloat16 own_a[kTileB], own_b[kTileB], k[kTileB], v[kTileB];
+  int vq[kT], vk[kT];
+  float tq[kT], tk[kT], lse[kT], del[kT];
+  Sched sched;
+};
+
+// dK and dV of one 64-key tile: warp w's 16 keys hold S^T = K.Q^T and
+// dP^T = V.dO^T for each kept query tile, then dV += P^T.dO, dK += dS^T.Q
+__global__ void __launch_bounds__(kBThreads)
+attn_bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+                   const float* __restrict__ lse, const float* __restrict__ delta,
+                   const int* __restrict__ valid, const float* __restrict__ times,
+                   __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int s, int h,
+                   float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  SmemDkdvBf16& sm = *reinterpret_cast<SmemDkdvBf16*>(smem_raw);
+  const int k0 = blockIdx.x * kT;
+  const int bi = blockIdx.y / h, hi = blockIdx.y % h;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp + g;                       // the thread's keys: r0 and r0 + 8
+
+  load_rows_bf16(sm.own_a, k, bi, hi, k0, s, h);
+  load_rows_bf16(sm.own_b, v, bi, hi, k0, s, h);
+  load_row_vectors(sm.vk, sm.tk, nullptr, nullptr, valid, times, nullptr, nullptr, bi, hi, s, h,
+                   k0);
+  const int n = build_schedule<kBWarps>(sm.sched, valid, times, bi, s, k0, false);
+  uint32_t ka[4][4], va[4][4];
+  a_fragments(ka, sm.own_a, r0, t);
+  a_fragments(va, sm.own_b, r0, t);
+  const int vk[2] = {sm.vk[r0], sm.vk[r0 + 8]};
+  const float tk[2] = {sm.tk[r0], sm.tk[r0 + 8]};
+  const bool k_in[2] = {k0 + r0 < s, k0 + r0 + 8 < s};
+
+  float adk[8][4], adv[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) { adk[nt][e] = 0.f; adv[nt][e] = 0.f; }
+
+  for (int j = 0; j < n; ++j) {
+    const int entry = sm.sched.list[j];
+    const int q0 = (entry & 0x7fff) * kT;
+    const bool partial = entry & 0x8000;
+    __syncthreads();
+    load_rows_bf16(sm.q, q, bi, hi, q0, s, h);
+    load_rows_bf16(sm.dout, dout, bi, hi, q0, s, h);
+    load_row_vectors(sm.vq, sm.tq, sm.lse, sm.del, valid, times, lse, delta, bi, hi, s, h, q0);
+    __syncthreads();
+
+    float sc[8][4], dp[8][4];
+    rows_dot(sc, ka, sm.q, g, t);                     // S^T [keys][queries]
+    rows_dot(dp, va, sm.dout, g, t);                  // dP^T
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 8 * nt + 2 * t + (e & 1);      // the query column
+        const int kr = e >> 1;                         // key r0 or r0 + 8
+        p_and_ds(sc[nt][e], dp[nt][e], scale, sm.lse[i], sm.del[i], partial, q0 + i < s,
+                 k_in[kr], sm.vq[i], vk[kr], sm.tq[i], tk[kr]);
+      }
+    acc_times_rows(adv, sc, sm.dout, g, t);          // dV += P^T . dO
+    acc_times_rows(adk, dp, sm.q, g, t);             // dK += dS^T . Q
+  }
+
+#pragma unroll
+  for (int kr = 0; kr < 2; ++kr) {
+    const int key = k0 + r0 + 8 * kr;
+    if (key >= s) continue;
+    __nv_bfloat16* pk = dk + (((size_t)bi * s + key) * h + hi) * kD + 2 * t;
+    __nv_bfloat16* pv = dv + (((size_t)bi * s + key) * h + hi) * kD + 2 * t;
+#pragma unroll
+    for (int nd = 0; nd < 8; ++nd) {
+      *reinterpret_cast<__nv_bfloat162*>(pk + 8 * nd) =
+          __floats2bfloat162_rn(adk[nd][2 * kr] * scale, adk[nd][2 * kr + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(pv + 8 * nd) =
+          __floats2bfloat162_rn(adv[nd][2 * kr], adv[nd][2 * kr + 1]);
+    }
+  }
+}
+
+// dQ of one 64-row query tile: warp w's 16 rows hold S = Q.K^T and
+// dP = dO.V^T for each kept key tile, then dQ += dS.K
+__global__ void __launch_bounds__(kBThreads)
+attn_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 const int* __restrict__ valid, const float* __restrict__ times,
+                 __nv_bfloat16* __restrict__ dq, int s, int h, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  SmemDqBf16& sm = *reinterpret_cast<SmemDqBf16*>(smem_raw);
+  const int q0 = blockIdx.x * kT;
+  const int bi = blockIdx.y / h, hi = blockIdx.y % h;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp + g;                       // the thread's rows: r0 and r0 + 8
+
+  load_rows_bf16(sm.own_a, q, bi, hi, q0, s, h);
+  load_rows_bf16(sm.own_b, dout, bi, hi, q0, s, h);
+  load_row_vectors(sm.vq, sm.tq, sm.lse, sm.del, valid, times, lse, delta, bi, hi, s, h, q0);
+  const int n = build_schedule<kBWarps>(sm.sched, valid, times, bi, s, q0, true);
+  uint32_t qa[4][4], oa[4][4];
+  a_fragments(qa, sm.own_a, r0, t);
+  a_fragments(oa, sm.own_b, r0, t);
+  const int vq[2] = {sm.vq[r0], sm.vq[r0 + 8]};
+  const float tq[2] = {sm.tq[r0], sm.tq[r0 + 8]};
+  const float lq[2] = {sm.lse[r0], sm.lse[r0 + 8]};
+  const float dq_[2] = {sm.del[r0], sm.del[r0 + 8]};
+  const bool q_in[2] = {q0 + r0 < s, q0 + r0 + 8 < s};
+
+  float adq[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adq[nt][e] = 0.f;
+
+  for (int j = 0; j < n; ++j) {
+    const int entry = sm.sched.list[j];
+    const int k0 = (entry & 0x7fff) * kT;
+    const bool partial = entry & 0x8000;
+    __syncthreads();
+    load_rows_bf16(sm.k, k, bi, hi, k0, s, h);
+    load_rows_bf16(sm.v, v, bi, hi, k0, s, h);
+    load_row_vectors(sm.vk, sm.tk, nullptr, nullptr, valid, times, nullptr, nullptr, bi, hi, s,
+                     h, k0);
+    __syncthreads();
+
+    float sc[8][4], dp[8][4];
+    rows_dot(sc, qa, sm.k, g, t);                     // S [queries][keys]
+    rows_dot(dp, oa, sm.v, g, t);                     // dP
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kj = 8 * nt + 2 * t + (e & 1);     // the key column
+        const int qr = e >> 1;                         // row r0 or r0 + 8
+        p_and_ds(sc[nt][e], dp[nt][e], scale, lq[qr], dq_[qr], partial, q_in[qr], k0 + kj < s,
+                 vq[qr], sm.vk[kj], tq[qr], sm.tk[kj]);
+      }
+    acc_times_rows(adq, dp, sm.k, g, t);             // dQ += dS . K
+  }
+
+#pragma unroll
+  for (int qr = 0; qr < 2; ++qr) {
+    const int row = q0 + r0 + 8 * qr;
+    if (row >= s) continue;
+    __nv_bfloat16* pq = dq + (((size_t)bi * s + row) * h + hi) * kD + 2 * t;
+#pragma unroll
+    for (int nd = 0; nd < 8; ++nd)
+      *reinterpret_cast<__nv_bfloat162*>(pq + 8 * nd) =
+          __floats2bfloat162_rn(adq[nd][2 * qr] * scale, adq[nd][2 * qr + 1] * scale);
+  }
+}
+
+template <typename Kernel, typename... Args>
+cudaError_t launch_smem(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStream_t stream,
+                        Args... args) {
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+int launch(const void* q, const void* k, const void* v, const void* out, const void* dout,
+           const float* lse, float* delta, const int* valid, const float* times, void* dq,
+           void* dk, void* dv, int b, int s, int h, int dtype, cudaStream_t stream) {
+  if (s > kMaxTiles * kT || (int64_t)b * h > 65535) return (int)cudaErrorInvalidValue;
+  const int rows = b * s * h;
+  const dim3 grid_rows((rows + 7) / 8), grid((s + kT - 1) / kT, b * h);
+  const float scale = 1.f / sqrtf((float)kD);
+  cudaError_t err;
+  if (dtype == 0) {
+    using F = const float*;
+    attn_bwd_delta<float><<<grid_rows, 256, 0, stream>>>(F(out), F(dout), delta, rows, s, h);
+    err = cudaGetLastError();
+    if (err == cudaSuccess)
+      err = launch_smem(attn_bwd_dkdv_f32, grid, kFThreads, sizeof(SmemDkdvF32), stream, F(q),
+                        F(k), F(v), F(dout), lse, (const float*)delta, valid, times,
+                        static_cast<float*>(dk), static_cast<float*>(dv), s, h, scale);
+    if (err == cudaSuccess)
+      err = launch_smem(attn_bwd_dq_f32, grid, kFThreads, sizeof(SmemDqF32), stream, F(q), F(k),
+                        F(v), F(dout), lse, (const float*)delta, valid, times,
+                        static_cast<float*>(dq), s, h, scale);
+    return (int)err;
+  }
+  using B = const __nv_bfloat16*;
+  attn_bwd_delta<__nv_bfloat16><<<grid_rows, 256, 0, stream>>>(B(out), B(dout), delta, rows, s,
+                                                                 h);
+  err = cudaGetLastError();
+  if (err == cudaSuccess)
+    err = launch_smem(attn_bwd_dkdv_bf16, grid, kBThreads, sizeof(SmemDkdvBf16), stream, B(q),
+                      B(k), B(v), B(dout), lse, (const float*)delta, valid, times,
+                      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), s, h,
+                      scale);
+  if (err == cudaSuccess)
+    err = launch_smem(attn_bwd_dq_bf16, grid, kBThreads, sizeof(SmemDqBf16), stream, B(q), B(k),
+                      B(v), B(dout), lse, (const float*)delta, valid, times,
+                      static_cast<__nv_bfloat16*>(dq), s, h, scale);
+  return (int)err;
+}
+
+}  // namespace bwd
+
 }  // namespace
 
 // dtype: 0 = float32 (attn_fwd_f32), 1 = bfloat16 (attn_fwd_wgmma). Pointers
 // are device pointers of contiguous tensors: q/k/v/out [b, s, h, d], valid
-// [b, s] int32, times [s] float32; bf16 q/k/v 16-byte aligned and s <=
+// [b, s] int32, times [s] float32, lse [b, h, s] float32 or null (then the
+// row log-sum-exp is not written); bf16 q/k/v 16-byte aligned and s <=
 // 65,536. Launches on `stream`; returns a cudaError_t, or 1000 + the
 // CUresult of a tensor map that could not be encoded.
 extern "C" int deepv_attention_fwd(const void* q, const void* k, const void* v,
-                                   const void* valid, const void* times, void* out,
+                                   const void* valid, const void* times, void* out, void* lse,
                                    int b, int s, int h, int d, int dtype, void* stream) {
   if (d != kD || b <= 0 || s <= 0 || h <= 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == 1)
     return wg::launch(q, k, v, static_cast<const int*>(valid), static_cast<const float*>(times),
-                      static_cast<__nv_bfloat16*>(out), b, s, h, st);
+                      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), b, s, h, st);
   const dim3 grid((s + kBQ - 1) / kBQ, b * h);
   const float scale = 1.f / sqrtf((float)d);
   cudaError_t err = allow_smem(attn_fwd_f32, sizeof(SmemF32));
@@ -690,6 +1373,25 @@ extern "C" int deepv_attention_fwd(const void* q, const void* k, const void* v,
   attn_fwd_f32<<<grid, kThreads, sizeof(SmemF32), st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const int*>(valid),
-      static_cast<const float*>(times), static_cast<float*>(out), s, h, scale);
+      static_cast<const float*>(times), static_cast<float*>(out), static_cast<float*>(lse), s,
+      h, scale);
   return (int)cudaGetLastError();
+}
+
+// The backward of deepv_attention_fwd: dq, dk, dv [b, s, h, d] of q/k/v
+// given out and dout [b, s, h, d] (q's dtype), the forward's lse [b, h, s]
+// (natural log) and a float32 scratch delta [b, h, s]; bf16 q/k/v/dout
+// 16-byte aligned. Launches attn_bwd_delta, then attn_bwd_dkdv_* and
+// attn_bwd_dq_* on `stream`; returns a cudaError_t.
+extern "C" int deepv_attention_bwd(const void* q, const void* k, const void* v, const void* out,
+                                   const void* dout, const void* lse, void* delta,
+                                   const void* valid, const void* times, void* dq, void* dk,
+                                   void* dv, int b, int s, int h, int d, int dtype,
+                                   void* stream) {
+  if (d != kD || b <= 0 || s <= 0 || h <= 0 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  return bwd::launch(q, k, v, out, dout, static_cast<const float*>(lse),
+                     static_cast<float*>(delta), static_cast<const int*>(valid),
+                     static_cast<const float*>(times), dq, dk, dv, b, s, h, dtype,
+                     reinterpret_cast<cudaStream_t>(stream));
 }

@@ -50,6 +50,51 @@ def params_from_numpy(module: nn.Module, tree, device=None) -> nn.Module:
     return module.requires_grad_(False)
 
 
+def set_adamw_state(optimizer: torch.optim.Optimizer, model: nn.Module, count,
+                    mu=None, nu=None) -> None:
+    """Give ``optimizer`` (a ``torch.optim.AdamW`` over ``model``'s
+    parameters) the state of optax's adam: ``count`` (the step count) and
+    the first and second moment trees ``mu`` and ``nu``, keyed like the
+    parameters (deepv_tpu's ``ScaleByAdamState``; numpy arrays or tensors).
+    Each moment takes its parameter's device and dtype. ``mu``/``nu`` None
+    give zeros, as ``optax.adam(...).init`` does."""
+    named = dict(model.named_parameters())
+    moments = []
+    for tree in (mu, nu):
+        flat = None if tree is None else flatten_tree(tree)
+        if flat is not None and set(flat) != set(named):
+            raise KeyError(f"moment tree keys differ from the parameters': missing "
+                           f"{sorted(set(named) - set(flat))[:3]}, extra "
+                           f"{sorted(set(flat) - set(named))[:3]}")
+        moments.append(flat)
+    for name, p in named.items():
+        state = {"step": torch.tensor(float(np.asarray(count)), dtype=torch.float32)}
+        for key, flat in zip(("exp_avg", "exp_avg_sq"), moments):
+            if flat is None:
+                state[key] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                continue
+            v = flat[name]
+            t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v))
+            if tuple(t.shape) != tuple(p.shape):
+                raise ValueError(f"{key} of {name}: {tuple(t.shape)}, parameter "
+                                 f"{tuple(p.shape)}")
+            state[key] = t.to(device=p.device, dtype=p.dtype, copy=True)
+        optimizer.state[p] = state
+
+
+def adamw_state_tree(optimizer: torch.optim.Optimizer, model: nn.Module) -> dict:
+    """``optimizer``'s state in optax's layout: ``{"count": step, "mu": {name:
+    exp_avg}, "nu": {name: exp_avg_sq}}`` keyed like ``model``'s
+    parameters. The moments are the optimizer's own tensors; ``count`` is a
+    copy of the first parameter's step."""
+    named = dict(model.named_parameters())
+    states = {name: optimizer.state[p] for name, p in named.items()}
+    first = next(iter(states.values()))
+    return {"count": first["step"].clone(),
+            "mu": {name: st["exp_avg"] for name, st in states.items()},
+            "nu": {name: st["exp_avg_sq"] for name, st in states.items()}}
+
+
 # ---------------------------------------------------------------------------
 # random weights (the distributions of deepv_tpu's init, drawn with torch)
 # ---------------------------------------------------------------------------
@@ -187,6 +232,13 @@ def _vae_tree(cfg: VAEConfig, init: _Init) -> dict:
     return {"encoder": enc, "decoder": dec}
 
 
+def random_mmdit_params(mcfg: MMDiTConfig, dtype=torch.bfloat16, seed: int = 0,
+                        device="cuda") -> dict:
+    """The MMDiT part of ``random_params``: the same tree, without drawing
+    the VAE's."""
+    return _mmdit_tree(mcfg, _Init(seed, dtype, device))
+
+
 def random_params(mcfg: MMDiTConfig, vcfg: VAEConfig, dtype=torch.bfloat16,
                   seed: int = 0, device="cuda") -> dict:
     """Full random parameter tree ``{"mmdit": ..., "vae": ...}`` drawn on
@@ -196,7 +248,7 @@ def random_params(mcfg: MMDiTConfig, vcfg: VAEConfig, dtype=torch.bfloat16,
     avoided: they make the decoded disparity constant and the rollout NaN
     from its second chunk on.) The values differ from deepv_tpu's: JAX's and
     torch's generators give different numbers for one seed."""
-    return {"mmdit": _mmdit_tree(mcfg, _Init(seed, dtype, device)),
+    return {"mmdit": random_mmdit_params(mcfg, dtype, seed, device),
             "vae": _vae_tree(vcfg, _Init(seed + 1, dtype, device))}
 
 

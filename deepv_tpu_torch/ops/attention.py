@@ -23,8 +23,24 @@ x current block is never computed) within one launch. The f32 kernel
 (``attn_fwd_f32``, plain FMA, a time-only tile skip) is the exactness check
 on the card.
 
+Backward (``attention_backward``, ``csrc/attention.cu``; no TPU kernel:
+deepv_tpu trains through its jnp attention, which ``jax.value_and_grad``
+differentiates). Under autograd on CUDA, ``attention`` is a
+``torch.autograd.Function``: its forward launches K1 with the row
+log-sum-exp (natural log, ``[b, h, S]`` f32) and saves q, k, v, out and the
+LSE; its backward launches three kernels: ``attn_bwd_delta`` (D =
+rowsum(dO * O)), ``attn_bwd_dkdv_*`` (one CTA per 64-key tile walking the
+query tiles its mask schedule keeps, accumulating dK and dV) and
+``attn_bwd_dq_*`` (one CTA per 64-row query tile walking its key tiles),
+with P = exp(Q.K^T * scale - LSE) recomputed in each. No float atomics, so
+two runs agree bit for bit. f32 runs plain FMA, bf16 ``mma.sync``. The
+plain backward, which the kernels are held to, is ``torch.autograd.grad``
+of ``attention_plain`` (``attention_backward_plain``).
+
 ``attention`` takes the plain version only for tensors on the CPU; for CUDA
-tensors it launches the kernel or raises.
+tensors it launches the kernel or raises. On inference paths (no grad
+mode, or no input requiring grad) it takes the forward alone, without the
+LSE.
 """
 
 from __future__ import annotations
@@ -51,9 +67,11 @@ KERNEL_BLOCK_Q, KERNEL_BLOCK_K = 128, 64
 MAX_SEQ = 65536
 
 #: launches of the bf16 kernel (attn_fwd_wgmma) and of the f32 kernel
-#: (attn_fwd_f32) since the counts were last set to 0
+#: (attn_fwd_f32) since the counts were last set to 0, and of the backward
+#: (its three kernels, either dtype) once per ``attention_backward`` call
 launches = 0
 f32_launches = 0
+bwd_launches = 0
 
 _library: Optional[ctypes.CDLL] = None
 
@@ -72,6 +90,29 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logits = logits.masked_fill(~allowed, MASKED)
     w = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", w.to(acc), v.to(acc)).to(v.dtype)
+
+
+def attention_lse_plain(q: torch.Tensor, k: torch.Tensor, valid: torch.Tensor,
+                        times: torch.Tensor) -> torch.Tensor:
+    """Plain version of the forward kernel's second output: the natural-log
+    log-sum-exp of every row's masked, scaled logits, ``[b, h, S]`` float32."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    same = valid[:, :, None] == valid[:, None, :]
+    causal = times[:, None] >= times[None, :]
+    logits = logits.masked_fill(~(same & causal[None])[:, None], MASKED)
+    return torch.logsumexp(logits, dim=-1)
+
+
+def attention_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             dout: torch.Tensor, valid: torch.Tensor,
+                             times: torch.Tensor):
+    """Plain version of the backward kernels: ``torch.autograd.grad`` of
+    ``attention_plain``. Returns (dq, dk, dv)."""
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        out = attention_plain(*leaves, valid, times)
+        return torch.autograd.grad(out, leaves, dout)
 
 
 def _tile_min_max(x: torch.Tensor, block: int, lowest, highest):
@@ -127,7 +168,10 @@ def load_library() -> ctypes.CDLL:
         from ..utils.cuda_build import build
         lib = build("attention.cu").lib
         fn = lib.deepv_attention_fwd
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn = lib.deepv_attention_bwd
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _library = lib
     return _library
@@ -161,6 +205,87 @@ def _check_kernel_inputs(q, k, v, valid, times) -> None:
             raise ValueError(f"{name} must be 16-byte aligned (TMA)")
 
 
+def _launch_error(what: str, err: int) -> RuntimeError:
+    return RuntimeError(f"{what} launch failed: error {err} (cudaError_t, or 1000 + the "
+                        "CUresult of a tensor map)")
+
+
+def _forward_kernel(q, k, v, valid, times, with_lse: bool):
+    """K1 on CUDA tensors: (out, lse), lse ``[b, h, S]`` f32 when
+    ``with_lse`` else None (the kernel is then given no LSE pointer)."""
+    _check_kernel_inputs(q, k, v, valid, times)
+    lib = load_library()
+    b, s, h, d = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if with_lse else None
+    err = lib.deepv_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(), times.data_ptr(),
+        out.data_ptr(), None if lse is None else lse.data_ptr(), b, s, h, d,
+        _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise _launch_error("attention kernel", err)
+    global launches, f32_launches
+    if q.dtype == torch.bfloat16:
+        launches += 1
+    else:
+        f32_launches += 1
+    return out, lse
+
+
+def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                       valid: torch.Tensor, times: torch.Tensor):
+    """(dq, dk, dv) of ``attention`` given its output ``out``, the forward's
+    row LSE ``[b, h, S]`` (natural log, f32) and the output's gradient
+    ``dout``, all but the LSE ``[b, S, h, 64]`` in q's dtype, on CUDA:
+    launches the backward kernels or raises. It serves ``_Attention``; on
+    the CPU, autograd differentiates ``attention_plain`` instead."""
+    _check_kernel_inputs(q, k, v, valid, times)
+    for name, t in (("out", out), ("dout", dout)):
+        if t.dtype != q.dtype or t.shape != q.shape or t.device != q.device:
+            raise ValueError(f"{name} must match q: {t.dtype} {tuple(t.shape)} {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (16-byte loads)")
+    b, s, h, d = q.shape
+    if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, s)
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"lse must be contiguous float32 [{b}, {h}, {s}] on q's device, got "
+                         f"{lse.dtype} {tuple(lse.shape)} {lse.device}")
+    lib = load_library()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    err = lib.deepv_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), valid.data_ptr(), times.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, h, d, _DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise _launch_error("attention backward kernels", err)
+    global bwd_launches
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class _Attention(torch.autograd.Function):
+    """K1 under autograd on CUDA: the forward with the row LSE, the backward
+    kernels; ``valid`` and ``times`` get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, valid, times):
+        out, lse = _forward_kernel(q, k, v, valid, times, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse, valid, times)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out, lse, valid, times = ctx.saved_tensors
+        dq, dk, dv = attention_backward(q, k, v, out, lse, dout.contiguous(), valid, times)
+        return dq, dk, dv, None, None
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               valid: torch.Tensor, times: torch.Tensor, n_last: int = 0) -> torch.Tensor:
     """Masked attention over a packed sequence. q/k/v [b, s, h, d]; valid
@@ -169,25 +294,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``n_last`` keeps the TPU wrapper's meaning: the last ``n_last`` tokens
     carry the strictly largest time, so no earlier token attends them. The
     kernel's mask schedule already skips every such block, so the value
-    only has to be valid; the result does not depend on it."""
+    only has to be valid; the result does not depend on it.
+
+    On CUDA, when autograd records (grad mode on and q, k or v requiring
+    grad) the call is differentiable through the backward kernels;
+    otherwise it runs the forward kernel alone."""
     if not 0 <= n_last <= q.shape[1]:
         raise ValueError(f"n_last={n_last} outside [0, {q.shape[1]}]")
     if q.device.type == "cpu":
         return attention_plain(q, k, v, valid, times)
-    _check_kernel_inputs(q, k, v, valid, times)
-    lib = load_library()
-    b, s, h, d = q.shape
-    out = torch.empty_like(q)
-    err = lib.deepv_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(), times.data_ptr(),
-        out.data_ptr(), b, s, h, d, _DTYPE_CODE[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"attention kernel launch failed: error {err} (cudaError_t, or "
-                           "1000 + the CUresult of a tensor map)")
-    global launches, f32_launches
-    if q.dtype == torch.bfloat16:
-        launches += 1
-    else:
-        f32_launches += 1
-    return out
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _Attention.apply(q, k, v, valid, times)
+    return _forward_kernel(q, k, v, valid, times, with_lse=False)[0]

@@ -50,9 +50,11 @@ from .utils.profiling import PhaseTimer
 # ---------------------------------------------------------------------------
 
 class TorchNoise:
-    """The rollout's Gaussian draws from one seeded ``torch.Generator``.
-    ``kind`` is "latents", "block" (the iid z of block noise) or
-    "posterior" (the VAE's eps); this source draws all kinds alike."""
+    """Random draws from one seeded ``torch.Generator``. The rollout's
+    ``kind`` is "latents", "block" (the iid z of block noise) or "posterior"
+    (the VAE's eps); the training objectives' are "noise" and "sigma"
+    (single clip) and "end", "prev", "block" and "ratio" (pyramid). This
+    source draws all kinds alike."""
 
     def __init__(self, seed: int, device):
         self.device = torch.device(device)
@@ -62,6 +64,12 @@ class TorchNoise:
     def normal(self, kind: str, shape, dtype) -> torch.Tensor:
         return torch.randn(tuple(shape), generator=self.generator, device=self.device,
                            dtype=dtype)
+
+    def uniform(self, kind: str, shape, low: float, high: float,
+                dtype=torch.float32) -> torch.Tensor:
+        """Uniform on [low, high)."""
+        u = torch.rand(tuple(shape), generator=self.generator, device=self.device, dtype=dtype)
+        return u * (high - low) + low
 
 
 # ---------------------------------------------------------------------------

@@ -93,6 +93,24 @@ def test_split_with_padding_frames(n_last):
     np.testing.assert_array_equal(got, port(q, k, v, valid, times))
 
 
+@pytest.mark.parametrize("layout", ["frames", "split"])
+def test_gradient_matches_reference(layout):
+    """Autograd through the port's ``attention`` on the CPU (what training
+    differentiates there) against ``jax.grad`` of ``attention_reference``,
+    the jnp attention deepv_tpu trains through; f32 on both sides, so the
+    forward's f32 tolerance."""
+    q, k, v, valid, times = make() if layout == "frames" else split_layout()
+    rng = np.random.default_rng(5)
+    dout = rng.standard_normal(q.shape).astype(np.float32)
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    out = attention(*leaves, torch.from_numpy(valid), torch.from_numpy(times))
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(dout))
+    ref = jax.grad(lambda q, k, v: jnp.sum(attention_reference(q, k, v, valid, times) * dout),
+                   argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    for name, g, r in zip("qkv", got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), **F32_TOL, err_msg=f"d{name}")
+
+
 class _CudaTensor(torch.Tensor):
     """A CPU tensor that reports a CUDA device, to reach the kernel path of
     the wrapper without a GPU."""

@@ -1,4 +1,4 @@
-"""The port stands alone: importing it pulls in neither JAX nor deepv_tpu.
+"""The port stands alone: importing it pulls in no JAX, optax, orbax or deepv_tpu.
 
 The import check runs in a fresh, isolated interpreter (this test process
 has JAX loaded by the conftest). A source scan backs it up for imports that
@@ -32,7 +32,8 @@ def test_every_module_imports_without_jax():
         f"sys.path.insert(0, {str(ROOT)!r})\n"
         f"for m in {port_modules()!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'deepv_tpu'))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'deepv_tpu', 'optax', 'orbax'))\n"
         "print(json.dumps(bad))\n")
     proc = subprocess.run([sys.executable, "-I", "-c", code], capture_output=True, text=True,
                           timeout=300, cwd=str(ROOT))
@@ -45,8 +46,9 @@ def test_every_module_imports_without_jax():
                                                                     ROOT / "tools" / "profile_port.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_no_jax_or_deepv_tpu(path):
-    """Also function-level imports: no ``import jax...`` and no import of
-    ``deepv_tpu`` (the port keeps its own copies of what it needs)."""
+    """Also function-level imports: no ``import jax...``, no optax or orbax
+    and no import of ``deepv_tpu`` (the port keeps its own copies of what it
+    needs)."""
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -56,18 +58,21 @@ def test_source_imports_no_jax_or_deepv_tpu(path):
         else:
             continue
         for name in names:
-            assert name.split(".")[0] not in ("jax", "jaxlib", "deepv_tpu"), \
+            assert name.split(".")[0] not in ("jax", "jaxlib", "deepv_tpu", "optax", "orbax"), \
                 f"{path.name}:{node.lineno} imports {name}"
 
 
 def test_source_scan_reaches_every_kernel_module():
     """The scan above covers the modules of every kernel and int8 path, and
-    the serving entry point; the import check imports it too."""
+    the serving and training entry points; the import check imports them
+    too."""
     scanned = {str(p.relative_to(PACKAGE)) for p in PACKAGE.rglob("*.py")}
     for module in ("ops/attention.py", "ops/conv_igemm.py", "ops/conv_int8.py",
-                   "ops/linear_int8.py", "models/mmdit.py", "pipeline.py", "serve.py"):
+                   "ops/linear_int8.py", "models/mmdit.py", "pipeline.py", "serve.py",
+                   "io/checkpoint.py", "training/flow_matching.py", "training/trainer.py"):
         assert module in scanned, module
-    assert "deepv_tpu_torch.serve" in port_modules()
+    for module in ("deepv_tpu_torch.serve", "deepv_tpu_torch.training.trainer"):
+        assert module in port_modules(), module
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
