@@ -63,31 +63,59 @@
 // Backward (no TPU kernel: deepv_tpu trains through its jnp attention,
 // models/mmdit.py:289-299, which jax.value_and_grad differentiates). With
 // scale = 1/8, P = exp(Q.K^T * scale - LSE) on allowed pairs (else 0),
-// D = rowsum(dO * O): dV = P^T dO, dS = P * (dO V^T - D), dQ = dS K * scale,
-// dK = dS^T Q * scale. Five S x S x 64 products over the allowed pairs
-// bound it (3.8e10 FLOP at the stage-2 training layout, b=1, S=2,093,
-// against 51 MB of q, k, v, O, dO in and dq, dk, dv out in bf16: ~750
-// operations a byte, past the bf16 ridge of ~295). The design is plain:
+// D = rowsum(dO * O): dV = P^T dO, dS = P * (dP - D) with dP = dO V^T,
+// dQ = dS K * scale, dK = dS^T Q * scale. Five S x S x 64 products over the
+// allowed pairs bound it (3.8e10 FLOP at the stage-2 training layout, b=1,
+// S=2,093, against 51 MB of q, k, v, O, dO in and dq, dk, dv out in bf16:
+// ~750 operations a byte, past the bf16 ridge of ~295). The design:
 //   * attn_bwd_delta: D, one warp per row;
-//   * attn_bwd_dkdv_*: one CTA per (64 keys, batch*head) keeps its K and V
-//     tile, walks the query tiles, recomputes P and dS and accumulates dK
-//     and dV in registers;
+//   * attn_bwd_dkdv_*: one CTA per (64 keys, batch*head) keeps its K and V,
+//     walks the query tiles its mask schedule keeps, recomputes S^T and
+//     dP^T, P^T and dS^T, and accumulates dK and dV in registers;
 //   * attn_bwd_dq_*: one CTA per (64 query rows, batch*head) keeps Q and dO,
-//     walks the key tiles, recomputes P and dS and accumulates dQ.
-//   No float atomics: each gradient row is summed by one thread in a fixed
-//   order, so two runs agree bit for bit. Recomputing P and dP in both
-//   kernels costs seven products where five would do.
-//   * Mask schedule: each CTA classifies its own 64-row tile against every
-//     64-row tile of the sequence by the forward's rule (tile_classes at
-//     (64, 64)), own tile on the key side in dK/dV and on the query side in
-//     dQ, and loads only kept tiles; only partial tiles build the mask. A
-//     row past S gets LSE = +inf, so its P is 0 in a full tile too.
-//   * f32 (`_f32`): 256 threads as 16 x 16, 4 x 4 outputs each, FMA from
-//     shared memory at a 65-float row stride.
-//   * bf16 (`_bf16`): 4 warps of mma.sync.m16n8k16 (f32 accumulate); each
-//     warp keeps its 16 own rows as A fragments in registers, the other
-//     side's tiles sit in shared memory (144-byte rows); P and dS are
-//     rounded to bf16 for the second products, as the forward rounds P.
+//     walks its key tiles, recomputes S and dP and accumulates dQ.
+//   Seven products where five would do, but no float atomics: each gradient
+//   row is summed by one thread in a fixed order, so two runs agree bit for
+//   bit. The grid is (batch*head, S / 64) and launches tile-major with the
+//   heaviest tiles first (the first keys, the last query rows), so the long
+//   CTAs of a causal mask do not finish last; the dQ kernel is launched as
+//   the dK/dV kernel's programmatic dependent, so that their CTAs share the
+//   card and their tails overlap. Two CTAs of 64 own rows share an SM;
+//   CTAs of 128 own rows (two warpgroups sharing each streamed tile) were
+//   tried on an H100 and were not faster: coarser tiles balance the
+//   triangular work worse, and one CTA an SM leaves its prologue unhidden.
+//   * Mask schedule: each CTA classifies its own tile against every 64-row
+//     tile of the sequence by the forward's rule (tile_classes at (64, 64))
+//     and walks only kept tiles; only partial tiles build the mask. A row
+//     past S gets LSE = +inf, so its P is 0 in a full tile too. P is taken
+//     in base 2: exp2(S * scale log2 e - LSE log2 e).
+//   * bf16 (attn_bwd_*_wgmma): the forward's shape. One consumer warpgroup
+//     and one producer warp; TMA loads the own tiles once and the producer
+//     streams the other side's two 64-row tiles through a 3-stage ring on
+//     mbarriers, with the rows' LSE, D, valid and times beside them. The
+//     first two products are wgmma.m64n64k16 with both operands K-major in
+//     shared memory (S^T = K.Q^T, dP^T = V.dO^T; S = Q.K^T, dP = dO.V^T); P
+//     and dS are computed in the accumulators' registers, rounded to bf16 (as
+//     the forward rounds P) and repacked in registers as the A operand of the
+//     second products (dV += P^T.dO, dK += dS^T.Q; dQ += dS.K), whose B tile
+//     [rows][64] is read MN-major through the transpose-B bit.
+//   * f32 (attn_bwd_*_tf32x3): 3xTF32 on the tensor cores. Each f32 operand
+//     x splits in registers as big = tf32(x) and small = tf32(x - big), both
+//     rounded to nearest, ties away (cvt.rna's rounding, done as (bits +
+//     0x1000) & ~0x1fff: ptxas emulates the cvt with a longer sequence);
+//     each product is three mma.sync.m16n8k8 TF32 products (small.big +
+//     big.small + big.big) with f32 accumulation, which keeps about f32
+//     accuracy (the dropped small.small term is 2^-22 of the product).
+//     wgmma takes tf32 only with both operands K-major, and three of each
+//     kernel's four products need a transposed one, so mma.sync reads its
+//     fragments from shared memory in either orientation: rows of 68 floats
+//     make both the row reads and the column reads of a fragment
+//     conflict-free. Each of 4 warps owns 16 rows; all threads feed the
+//     other side's tiles through a 2-stage cp.async ring of 16-byte copies
+//     (zero fill past S). The second products take P and dS straight from
+//     the accumulators: their k order is permuted (k t <-> column 2t, k t +
+//     4 <-> column 2t + 1), so the accumulator is the A fragment, and B is
+//     read in the same order.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -717,12 +745,15 @@ int launch(const void* q, const void* k, const void* v, const int* valid, const 
 
 namespace bwd {
 
-constexpr int kT = 64;           // rows of a query tile, keys of a key tile
+using namespace hopper;
+
+constexpr int kT = 64;           // own rows of a CTA; rows of a streamed tile
 constexpr int kMaxTiles = 1024;  // 64-row tiles of one sequence: S <= 65,536
+constexpr float kLog2e = 1.4426950408889634f;
 
 // The CTA's mask schedule: its own 64-row tile against every 64-row tile of
 // the sequence, by the rule of ops/attention.py::tile_classes at (64, 64),
-// the own tile on the query side (dq kernels) or the key side (dk/dv
+// the own tile on the query side (dQ kernels) or the key side (dK/dV
 // kernels); the kept tiles in order, bit 15 set on partial ones.
 struct Sched {
   uint8_t cls[kMaxTiles];
@@ -773,33 +804,50 @@ __device__ int build_schedule(Sched& sc, const int* __restrict__ valid,
   return sc.n;
 }
 
-// valid and time of a tile's 64 rows and, for a query tile (lse != null),
-// its LSE and D; a row past S gets LSE +inf, so its P is exp(-inf) = 0
-__device__ __forceinline__ void load_row_vectors(int* sv, float* st, float* slse, float* sdel,
-                                                 const int* valid, const float* times,
-                                                 const float* lse, const float* delta, int bi,
-                                                 int hi, int s, int h, int start) {
-  const int t = threadIdx.x;
-  if (t < kT) {
-    const int r = start + t;
-    const bool in = r < s;
-    sv[t] = in ? valid[(size_t)bi * s + r] : 0;
-    st[t] = in ? times[r] : 0.f;
-    if (lse != nullptr) {
-      const size_t at = ((size_t)bi * h + hi) * s + r;
-      slse[t] = in ? lse[at] : INFINITY;
-      sdel[t] = in ? delta[at] : 0.f;
-    }
-  }
+// The CTA's own tile: grid (b * h, S / 64 tiles), launched tile-major with
+// the heaviest tiles first (under a causal mask the first keys and the last
+// query rows take the most tiles), so the long CTAs do not finish last.
+__device__ __forceinline__ int own_tile_start(bool own_is_query) {
+  return (own_is_query ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kT;
 }
 
-// P and dS of one pair of (query, key) entries: P = exp(logit - LSE) on an
-// allowed pair, else 0; dS = P (dP - D). `check` is set on partial tiles.
-__device__ __forceinline__ void p_and_ds(float& sc, float& dp, float scale, float lse, float del,
-                                         bool check, bool q_in, bool k_in, int vq, int vk,
-                                         float tq, float tk) {
-  const bool ok = !check || (q_in && k_in && vq == vk && tq >= tk);
-  const float p = ok ? expf(sc * scale - lse) : 0.f;
+// The dQ kernel needs nothing the dK/dV kernel writes, so it is launched as
+// that kernel's programmatic dependent: each dK/dV CTA lets it start at once
+// (launch_dependents), and the two kernels' CTAs share the card, each at its
+// own register count, so that their tails overlap. Every dQ thread waits for
+// the dK/dV grid before it exits (wait_primary), so the call still ends when
+// both have.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void wait_primary() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// A streamed tile's row vectors, [4][64] floats: LSE * log2 e (+inf past S,
+// so a row past S has P = 0), D, valid (as int) and time of its 64 rows
+// starting at `start`; lane `c` of the writer fills row c (lse and delta
+// null: not needed)
+__device__ __forceinline__ void write_row_vectors(float* vs, int c, int start,
+                                                  const float* __restrict__ lse,
+                                                  const float* __restrict__ delta,
+                                                  const int* __restrict__ valid,
+                                                  const float* __restrict__ times, int bi,
+                                                  int hi, int s, int h) {
+  const int row = start + c;
+  const bool in = row < s;
+  const size_t at = ((size_t)bi * h + hi) * s + row;
+  vs[c] = in && lse != nullptr ? lse[at] * kLog2e : INFINITY;
+  vs[kT + c] = in && delta != nullptr ? delta[at] : 0.f;
+  reinterpret_cast<int*>(vs)[2 * kT + c] = in ? valid[(size_t)bi * s + row] : 0;
+  vs[3 * kT + c] = in ? times[row] : 0.f;
+}
+
+// P = exp(logit * scale - LSE) on an allowed pair, else 0, taken in base 2
+// (scale_log2 = scale log2 e, lse2 = LSE log2 e); dS = P (dP - D)
+__device__ __forceinline__ void p_ds(float& sc, float& dp, bool ok, float scale_log2, float lse2,
+                                     float del) {
+  const float p = ok ? exp2f(fmaf(sc, scale_log2, -lse2)) : 0.f;
   sc = p;
   dp = p * (dp - del);
 }
@@ -831,353 +879,490 @@ attn_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout, float* __res
   }
 }
 
-// ---- f32: plain FMA. 256 threads as 16 x 16, each 4 x 4 outputs at rows
-// ty + 16 r and columns tx + 16 c (conflict-free shared reads at stride 65)
+// ---- bf16: TMA-fed wgmma. One consumer warpgroup (the 64 own rows) and one
+// producer warp. Shared memory from a 1024-byte aligned base: the own tiles,
+// a ring of the two streamed operands and their rows' vectors, the
+// mbarriers and the schedule.
 
-constexpr int kFThreads = 256;
-constexpr int kFWarps = kFThreads / 32;
-constexpr int kLd = kD + 1;
-constexpr int kTile = kT * kLd;
+constexpr int kStages = 3;                     // streamed-tile ring depth
+constexpr int kTileBytes = kT * kD * 2;        // one [64][64] bf16 box, 8 KB
+constexpr int kVecFloats = 4 * kT;             // a streamed tile's row vectors
+constexpr int kWgThreads = 128 + 32;
+constexpr int kOwnA = 0;                       // K (dK/dV) or Q (dQ)
+constexpr int kOwnB = kOwnA + kTileBytes;      // V or dO
+constexpr int kRingX = kOwnB + kTileBytes;     // Q or K, [kStages] boxes
+constexpr int kRingY = kRingX + kStages * kTileBytes;         // dO or V
+constexpr int kVec = kRingY + kStages * kTileBytes;           // float [kStages][4][64]
+constexpr int kBar = kVec + kStages * kVecFloats * 4;         // own_full, full[], empty[]
+constexpr int kSchedOff = kBar + 8 * (2 * kStages + 2);
+constexpr int kWgSmem = kSchedOff + (int)sizeof(Sched) + 1024;  // + alignment slack
 
-__device__ __forceinline__ void load_rows_f32(float* dst, const float* src, int bi, int hi,
-                                              int start, int s, int h) {
-  for (int i = threadIdx.x; i < kT * kD; i += kFThreads) {
-    const int r = i >> 6, c = i & 63;
-    dst[r * kLd + c] = start + r < s ? row_ptr(src, bi, hi, start + r, s, h)[c] : 0.f;
-  }
-}
-
-// S = Q.K^T and dP = dO.V^T for rows ty + 16 r (of Q, dO) and columns
-// tx + 16 c (rows of K, V)
-__device__ __forceinline__ void products_f32(const float* sq, const float* sdo, const float* sk,
-                                             const float* sv, float (&sc)[4][4],
-                                             float (&dp)[4][4], int tx, int ty) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) { sc[r][c] = 0.f; dp[r][c] = 0.f; }
-  for (int d = 0; d < kD; ++d) {
-    float qa[4], oa[4], kb[4], vb[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      qa[r] = sq[(ty + 16 * r) * kLd + d];
-      oa[r] = sdo[(ty + 16 * r) * kLd + d];
-      kb[r] = sk[(tx + 16 * r) * kLd + d];
-      vb[r] = sv[(tx + 16 * r) * kLd + d];
+// Barriers and the own tiles' TMA loads (thread 0), then the schedule (every
+// thread)
+__device__ __forceinline__ int wg_setup(uint32_t base, unsigned char* smem,
+                                        const CUtensorMap* own_a, const CUtensorMap* own_b,
+                                        const int* __restrict__ valid,
+                                        const float* __restrict__ times, int bi, int hi, int s,
+                                        int own0, bool own_is_query) {
+  const uint32_t own_full = base + kBar, full = own_full + 8, empty = full + 8 * kStages;
+  if (threadIdx.x == 0) {
+    mbar_init(own_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full + 8 * st, 32);                        // every producer lane
+      mbar_init(empty + 8 * st, 128);                      // every consumer thread
     }
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        sc[r][c] = fmaf(qa[r], kb[c], sc[r][c]);
-        dp[r][c] = fmaf(oa[r], vb[c], dp[r][c]);
-      }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(own_full, 2 * kTileBytes);
+    tma_load_4d(base + kOwnA, own_a, own_full, 0, hi, own0, bi);
+    tma_load_4d(base + kOwnB, own_b, own_full, 0, hi, own0, bi);
   }
+  return build_schedule<kWgThreads / 32>(*reinterpret_cast<Sched*>(smem + kSchedOff), valid,
+                                         times, bi, s, own0, own_is_query);
 }
 
-struct SmemDkdvF32 {
-  float k[kTile], v[kTile], q[kTile], dout[kTile], p[kTile], ds[kTile];
-  int vq[kT], vk[kT];
-  float tq[kT], tk[kT], lse[kT], del[kT];
-  Sched sched;
-};
-
-struct SmemDqF32 {
-  float q[kTile], dout[kTile], k[kTile], v[kTile], ds[kTile];
-  int vq[kT], vk[kT];
-  float tq[kT], tk[kT], lse[kT], del[kT];
-  Sched sched;
-};
-
-// dK and dV of one 64-key tile, over the query tiles its schedule keeps
-__global__ void __launch_bounds__(kFThreads)
-attn_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ dout,
-                  const float* __restrict__ lse, const float* __restrict__ delta,
-                  const int* __restrict__ valid, const float* __restrict__ times,
-                  float* __restrict__ dk, float* __restrict__ dv, int s, int h, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  SmemDkdvF32& sm = *reinterpret_cast<SmemDkdvF32*>(smem_raw);
-  const int k0 = blockIdx.x * kT;
-  const int bi = blockIdx.y / h, hi = blockIdx.y % h;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-
-  load_rows_f32(sm.k, k, bi, hi, k0, s, h);
-  load_rows_f32(sm.v, v, bi, hi, k0, s, h);
-  load_row_vectors(sm.vk, sm.tk, nullptr, nullptr, valid, times, nullptr, nullptr, bi, hi, s, h,
-                   k0);
-  const int n = build_schedule<kFWarps>(sm.sched, valid, times, bi, s, k0, false);
-
-  float adk[4][4], adv[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) { adk[r][c] = 0.f; adv[r][c] = 0.f; }
-
+// The producer warp: the listed 64-row tiles of two operands through the
+// ring, each stage with its rows' vectors
+__device__ __forceinline__ void wg_produce(uint32_t base, unsigned char* smem, int n,
+                                           const CUtensorMap* map_x, const CUtensorMap* map_y,
+                                           const float* __restrict__ lse,
+                                           const float* __restrict__ delta,
+                                           const int* __restrict__ valid,
+                                           const float* __restrict__ times, int bi, int hi,
+                                           int s, int h) {
+  const uint32_t full = base + kBar + 8, empty = full + 8 * kStages;
+  const uint16_t* list = reinterpret_cast<const Sched*>(smem + kSchedOff)->list;
+  const int lane = threadIdx.x & 31;
   for (int j = 0; j < n; ++j) {
-    const int entry = sm.sched.list[j];
-    const int q0 = (entry & 0x7fff) * kT;
-    const bool partial = entry & 0x8000;
-    __syncthreads();                                  // the last tile's readers are done
-    load_rows_f32(sm.q, q, bi, hi, q0, s, h);
-    load_rows_f32(sm.dout, dout, bi, hi, q0, s, h);
-    load_row_vectors(sm.vq, sm.tq, sm.lse, sm.del, valid, times, lse, delta, bi, hi, s, h, q0);
-    __syncthreads();
-
-    // rows: queries ty + 16 r; columns: keys tx + 16 c
-    float sc[4][4], dp[4][4];
-    products_f32(sm.q, sm.dout, sm.k, sm.v, sc, dp, tx, ty);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = ty + 16 * r;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int kj = tx + 16 * c;
-        p_and_ds(sc[r][c], dp[r][c], scale, sm.lse[i], sm.del[i], partial, q0 + i < s,
-                 k0 + kj < s, sm.vq[i], sm.vk[kj], sm.tq[i], sm.tk[kj]);
-        sm.p[i * kLd + kj] = sc[r][c];
-        sm.ds[i * kLd + kj] = dp[r][c];
-      }
-    }
-    __syncthreads();
-
-    // dV[key][c] += sum_i P[i][key] dO[i][c], dK[key][c] += sum_i dS[i][key] Q[i][c];
-    // keys ty + 16 r, head-dim columns tx + 16 c
-    for (int i = 0; i < kT; ++i) {
-      float pk[4], sk[4], oc[4], qc[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        pk[r] = sm.p[i * kLd + ty + 16 * r];
-        sk[r] = sm.ds[i * kLd + ty + 16 * r];
-        oc[r] = sm.dout[i * kLd + tx + 16 * r];
-        qc[r] = sm.q[i * kLd + tx + 16 * r];
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          adv[r][c] = fmaf(pk[r], oc[c], adv[r][c]);
-          adk[r][c] = fmaf(sk[r], qc[c], adk[r][c]);
-        }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int key = k0 + ty + 16 * r;
-    if (key >= s) continue;
-    float* pk = dk + (((size_t)bi * s + key) * h + hi) * kD;
-    float* pv = dv + (((size_t)bi * s + key) * h + hi) * kD;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      pk[tx + 16 * c] = adk[r][c] * scale;
-      pv[tx + 16 * c] = adv[r][c];
+    const int st = j % kStages;
+    mbar_wait(empty + 8 * st, ((j / kStages) & 1) ^ 1);
+    const int r0 = (list[j] & 0x7fff) * kT;
+    float* vs = reinterpret_cast<float*>(smem + kVec) + st * kVecFloats;
+    write_row_vectors(vs, lane, r0, lse, delta, valid, times, bi, hi, s, h);
+    write_row_vectors(vs, lane + 32, r0, lse, delta, valid, times, bi, hi, s, h);
+    if (lane == 0) {
+      mbar_expect_tx(full + 8 * st, 2 * kTileBytes);
+      tma_load_4d(base + kRingX + st * kTileBytes, map_x, full + 8 * st, 0, hi, r0, bi);
+      tma_load_4d(base + kRingY + st * kTileBytes, map_y, full + 8 * st, 0, hi, r0, bi);
+    } else {
+      mbar_arrive(full + 8 * st);
     }
   }
 }
 
-// dQ of one 64-row query tile, over the key tiles its schedule keeps
-__global__ void __launch_bounds__(kFThreads)
-attn_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, const float* __restrict__ dout,
-                const float* __restrict__ lse, const float* __restrict__ delta,
-                const int* __restrict__ valid, const float* __restrict__ times,
-                float* __restrict__ dq, int s, int h, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  SmemDqF32& sm = *reinterpret_cast<SmemDqF32*>(smem_raw);
-  const int q0 = blockIdx.x * kT;
-  const int bi = blockIdx.y / h, hi = blockIdx.y % h;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+// acc = own (64 rows, a K-major box) . streamed^T, for two (own, streamed)
+// pairs, in one commit group
+__device__ __forceinline__ void wg_two_products(float (&a)[32], uint32_t own_a, uint32_t xs,
+                                                float (&b)[32], uint32_t own_b, uint32_t ys) {
+  fence_acc(a);
+  fence_acc(b);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk)
+    wg::wgmma_ss_m64n64k16(a, smem_desc(own_a + kk * 32, 16, 1024),
+                           smem_desc(xs + kk * 32, 16, 1024), kk);
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk)
+    wg::wgmma_ss_m64n64k16(b, smem_desc(own_b + kk * 32, 16, 1024),
+                           smem_desc(ys + kk * 32, 16, 1024), kk);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(a);
+  fence_acc(b);
+}
 
-  load_rows_f32(sm.q, q, bi, hi, q0, s, h);
-  load_rows_f32(sm.dout, dout, bi, hi, q0, s, h);
-  load_row_vectors(sm.vq, sm.tq, sm.lse, sm.del, valid, times, lse, delta, bi, hi, s, h, q0);
-  const int n = build_schedule<kFWarps>(sm.sched, valid, times, bi, s, q0, true);
+// An accumulator tile rounded to bf16 as the A fragments of its four k16
+// slices (the forward's P . V repacking)
+__device__ __forceinline__ void pack_a(uint32_t (&x)[4][4], const float (&acc)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      x[kk][e] = wg::pack_bf16(acc[8 * kk + 2 * e], acc[8 * kk + 2 * e + 1]);
+}
 
-  float adq[4][4];
+// acc += A (registers) . B, B a streamed [64 rows][64] box read MN-major
+__device__ __forceinline__ void wg_acc_product(float (&acc)[32], const uint32_t (&a)[4][4],
+                                               uint32_t bs) {
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) adq[r][c] = 0.f;
+  for (int kk = 0; kk < kT / 16; ++kk)
+    wg::wgmma_rs_m64n64k16_tb(acc, a[kk], smem_desc(bs + kk * 2048, wg::kVLbo, wg::kVSbo));
+}
 
-  for (int j = 0; j < n; ++j) {
-    const int entry = sm.sched.list[j];
-    const int k0 = (entry & 0x7fff) * kT;
-    const bool partial = entry & 0x8000;
-    __syncthreads();
-    load_rows_f32(sm.k, k, bi, hi, k0, s, h);
-    load_rows_f32(sm.v, v, bi, hi, k0, s, h);
-    load_row_vectors(sm.vk, sm.tk, nullptr, nullptr, valid, times, nullptr, nullptr, bi, hi, s,
-                     h, k0);
-    __syncthreads();
-
-    float sc[4][4], dp[4][4];
-    products_f32(sm.q, sm.dout, sm.k, sm.v, sc, dp, tx, ty);
+// One row pair of a thread's accumulator tile stored as bf16 into [b, S, h, 64]
+__device__ __forceinline__ void store_rows_bf16(__nv_bfloat16* __restrict__ dst,
+                                                const float (&acc)[32], float mul, int bi, int hi,
+                                                int row0, int s, int h, int col_base) {
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = ty + 16 * r;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int kj = tx + 16 * c;
-        p_and_ds(sc[r][c], dp[r][c], scale, sm.lse[i], sm.del[i], partial, q0 + i < s,
-                 k0 + kj < s, sm.vq[i], sm.vk[kj], sm.tq[i], sm.tk[kj]);
-        sm.ds[i * kLd + kj] = dp[r][c];
-      }
-    }
-    __syncthreads();
-
-    // dQ[i][c] += sum_key dS[i][key] K[key][c]; rows ty + 16 r, columns tx + 16 c
-    for (int kj = 0; kj < kT; ++kj) {
-      float si[4], kc[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        si[r] = sm.ds[(ty + 16 * r) * kLd + kj];
-        kc[r] = sm.k[kj * kLd + tx + 16 * r];
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) adq[r][c] = fmaf(si[r], kc[c], adq[r][c]);
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = q0 + ty + 16 * r;
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + 8 * half;
     if (row >= s) continue;
-    float* pq = dq + (((size_t)bi * s + row) * h + hi) * kD;
+    __nv_bfloat16* p = dst + (((size_t)bi * s + row) * h + hi) * kD + col_base;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) pq[tx + 16 * c] = adq[r][c] * scale;
+    for (int i = 0; i < 8; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(p + 8 * i) = __floats2bfloat162_rn(
+          acc[4 * i + 2 * half] * mul, acc[4 * i + 2 * half + 1] * mul);
   }
 }
 
-// ---- bf16: mma.sync.m16n8k16 with f32 accumulation. 4 warps; warp w owns
-// rows 16 w .. 16 w + 15 of the CTA's own tile (thread: rows g and g + 8,
-// g = lane / 4; columns 2 t, 2 t + 1 of each 8-wide n-tile, t = lane % 4).
-// The own tile's operands stay in registers as A fragments; the other
-// side's tiles sit in shared memory at a 144-byte row stride. P and dS are
-// rounded to bf16 for the second products, as the forward rounds P.
+// dK and dV of 64 keys: the warpgroup holds S^T = K.Q^T and dP^T = V.dO^T of
+// each kept query tile, then dV += P^T.dO, dK += dS^T.Q
+__global__ void __launch_bounds__(kWgThreads, 2)
+attn_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tmap_q,
+                    const __grid_constant__ CUtensorMap tmap_k,
+                    const __grid_constant__ CUtensorMap tmap_v,
+                    const __grid_constant__ CUtensorMap tmap_do, const float* __restrict__ lse,
+                    const float* __restrict__ delta, const int* __restrict__ valid,
+                    const float* __restrict__ times, __nv_bfloat16* __restrict__ dk,
+                    __nv_bfloat16* __restrict__ dv, int s, int h, float scale_log2,
+                    float scale) {
+  extern __shared__ __align__(1024) unsigned char bwd_smem[];
+  const uint32_t raw = smem_u32(bwd_smem);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = bwd_smem + (base - raw);
+  launch_dependents();
+  const int own0 = own_tile_start(false);
+  const int bi = blockIdx.x / h, hi = blockIdx.x - bi * h;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n = wg_setup(base, smem, &tmap_k, &tmap_v, valid, times, bi, hi, s, own0, false);
+  if (warp == 4) {
+    wg_produce(base, smem, n, &tmap_q, &tmap_do, lse, delta, valid, times, bi, hi, s, h);
+    return;
+  }
+  const uint32_t full = base + kBar + 8, empty = full + 8 * kStages;
+  const uint16_t* list = reinterpret_cast<const Sched*>(smem + kSchedOff)->list;
+  const int key0 = own0 + 16 * warp + (lane >> 2);                 // and key0 + 8
+  const bool kin0 = key0 < s, kin1 = key0 + 8 < s;
+  const int vk0 = kin0 ? valid[(size_t)bi * s + key0] : 0;
+  const int vk1 = kin1 ? valid[(size_t)bi * s + key0 + 8] : 0;
+  const float tk0 = kin0 ? times[key0] : 0.f, tk1 = kin1 ? times[key0 + 8] : 0.f;
+  const int col_base = 2 * (lane & 3);
 
-constexpr int kBThreads = 128;
-constexpr int kBWarps = kBThreads / 32;
-constexpr int kLdB = kD + 8;                  // bf16 row stride: 144 bytes
-constexpr int kTileB = kT * kLdB;
+  float adk[32], adv[32], sc[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) { adk[i] = 0.f; adv[i] = 0.f; sc[i] = 0.f; dp[i] = 0.f; }
+  mbar_wait(base + kBar, 0);
+  for (int j = 0; j < n; ++j) {
+    const int st = j % kStages;
+    mbar_wait(full + 8 * st, (j / kStages) & 1);
+    const bool partial = list[j] & 0x8000;
+    const uint32_t xs = base + kRingX + st * kTileBytes;        // Q
+    const uint32_t ys = base + kRingY + st * kTileBytes;        // dO
+    wg_two_products(sc, base + kOwnA, xs, dp, base + kOwnB, ys);  // S^T, dP^T: [keys][queries]
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+    // P^T and dS^T; sc[4i + c] is (key0, query 8i + col_base + c), sc[4i + 2 + c] key0 + 8's
+    const float* vs = reinterpret_cast<const float*>(smem + kVec) + st * kVecFloats;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int col = 8 * i + col_base;
+      const float2 l2 = *reinterpret_cast<const float2*>(vs + col);
+      const float2 dd = *reinterpret_cast<const float2*>(vs + kT + col);
+      const int2 vq =
+          *reinterpret_cast<const int2*>(reinterpret_cast<const int*>(vs) + 2 * kT + col);
+      const float2 tq = *reinterpret_cast<const float2*>(vs + 3 * kT + col);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int vqc = c ? vq.y : vq.x;
+        const float tqc = c ? tq.y : tq.x, lc = c ? l2.y : l2.x, dc = c ? dd.y : dd.x;
+        p_ds(sc[4 * i + c], dp[4 * i + c],
+             !partial || (kin0 && vqc == vk0 && tqc >= tk0), scale_log2, lc, dc);
+        p_ds(sc[4 * i + 2 + c], dp[4 * i + 2 + c],
+             !partial || (kin1 && vqc == vk1 && tqc >= tk1), scale_log2, lc, dc);
+      }
+    }
+    uint32_t pa[4][4], da[4][4];
+    pack_a(pa, sc);
+    pack_a(da, dp);
+
+    // dV += P^T.dO, dK += dS^T.Q
+    fence_acc(adv);
+    fence_acc(adk);
+    wgmma_fence();
+    wg_acc_product(adv, pa, ys);
+    wg_acc_product(adk, da, xs);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(adv);
+    fence_acc(adk);
+    mbar_arrive(empty + 8 * st);
+  }
+  store_rows_bf16(dk, adk, scale, bi, hi, key0, s, h, col_base);
+  store_rows_bf16(dv, adv, 1.f, bi, hi, key0, s, h, col_base);
+}
+
+// dQ of 64 query rows: the warpgroup holds S = Q.K^T and dP = dO.V^T of each
+// kept key tile, then dQ += dS.K
+__global__ void __launch_bounds__(kWgThreads, 2)
+attn_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tmap_q,
+                  const __grid_constant__ CUtensorMap tmap_k,
+                  const __grid_constant__ CUtensorMap tmap_v,
+                  const __grid_constant__ CUtensorMap tmap_do, const float* __restrict__ lse,
+                  const float* __restrict__ delta, const int* __restrict__ valid,
+                  const float* __restrict__ times, __nv_bfloat16* __restrict__ dq, int s, int h,
+                  float scale_log2, float scale) {
+  extern __shared__ __align__(1024) unsigned char bwd_smem[];
+  const uint32_t raw = smem_u32(bwd_smem);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = bwd_smem + (base - raw);
+  const int own0 = own_tile_start(true);
+  const int bi = blockIdx.x / h, hi = blockIdx.x - bi * h;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n = wg_setup(base, smem, &tmap_q, &tmap_do, valid, times, bi, hi, s, own0, true);
+  if (warp == 4) {
+    wg_produce(base, smem, n, &tmap_k, &tmap_v, nullptr, nullptr, valid, times, bi, hi, s, h);
+    wait_primary();
+    return;
+  }
+  const uint32_t full = base + kBar + 8, empty = full + 8 * kStages;
+  const uint16_t* list = reinterpret_cast<const Sched*>(smem + kSchedOff)->list;
+  const int row0 = own0 + 16 * warp + (lane >> 2);                 // and row0 + 8
+  float lq[2], dq_[2], tq[2];
+  int vq[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    const bool in = row < s;
+    const size_t at = ((size_t)bi * h + hi) * s + row;
+    lq[r] = in ? lse[at] * kLog2e : INFINITY;
+    dq_[r] = in ? delta[at] : 0.f;
+    vq[r] = in ? valid[(size_t)bi * s + row] : 0;
+    tq[r] = in ? times[row] : 0.f;
+  }
+  const int col_base = 2 * (lane & 3);
+
+  float adq[32], sc[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) { adq[i] = 0.f; sc[i] = 0.f; dp[i] = 0.f; }
+  mbar_wait(base + kBar, 0);
+  for (int j = 0; j < n; ++j) {
+    const int st = j % kStages;
+    mbar_wait(full + 8 * st, (j / kStages) & 1);
+    const int entry = list[j];
+    const bool partial = entry & 0x8000;
+    const int k0 = (entry & 0x7fff) * kT;
+    const uint32_t xs = base + kRingX + st * kTileBytes;        // K
+    const uint32_t ys = base + kRingY + st * kTileBytes;        // V
+    wg_two_products(sc, base + kOwnA, xs, dp, base + kOwnB, ys);  // S, dP: [queries][keys]
+
+    // P and dS; sc[4i + c] is (row0, key 8i + col_base + c), sc[4i + 2 + c] row0 + 8's
+    const float* vs = reinterpret_cast<const float*>(smem + kVec) + st * kVecFloats;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int col = 8 * i + col_base;
+      const int2 vk =
+          *reinterpret_cast<const int2*>(reinterpret_cast<const int*>(vs) + 2 * kT + col);
+      const float2 tk = *reinterpret_cast<const float2*>(vs + 3 * kT + col);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int vkc = c ? vk.y : vk.x;
+        const float tkc = c ? tk.y : tk.x;
+        const bool kin = k0 + col + c < s;
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          p_ds(sc[4 * i + 2 * r + c], dp[4 * i + 2 * r + c],
+               !partial || (kin && vq[r] == vkc && tq[r] >= tkc), scale_log2, lq[r], dq_[r]);
+      }
+    }
+    uint32_t da[4][4];
+    pack_a(da, dp);
+
+    // dQ += dS.K
+    fence_acc(adq);
+    wgmma_fence();
+    wg_acc_product(adq, da, xs);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(adq);
+    mbar_arrive(empty + 8 * st);
+  }
+  store_rows_bf16(dq, adq, scale, bi, hi, row0, s, h, col_base);
+  wait_primary();
+}
+
+// ---- f32: 3xTF32 mma.sync.m16n8k8. 4 warps; warp w owns rows 16 w ..
+// 16 w + 15 of the CTA's own tile (thread: rows g and g + 8, g = lane / 4;
+// t = lane % 4). Tiles sit in shared memory at a 68-float row stride.
+
+constexpr int kFStages = 2;                    // streamed-tile ring depth
+constexpr int kLdF = kD + 4;                   // 272 bytes: conflict-free rows and columns
+constexpr int kTileF = kT * kLdF;              // floats of one 64-row tile
+
+constexpr int kFThreads = 128;
+constexpr int kFOwnA = 0;                               // K (dK/dV) or Q (dQ); offsets in floats
+constexpr int kFOwnB = kFOwnA + kTileF;                 // V or dO
+constexpr int kFRingX = kFOwnB + kTileF;                // Q or K, [kFStages] tiles
+constexpr int kFRingY = kFRingX + kFStages * kTileF;    // dO or V
+constexpr int kFVec = kFRingY + kFStages * kTileF;      // [kFStages][4][64]
+constexpr int kFSched = kFVec + kFStages * kVecFloats;
+constexpr int kFSmem = kFSched * 4 + (int)sizeof(Sched);
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(in ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// rows [start, start + 64) of the (b, h) slice into a [64][kLdF] tile,
+// 16-byte cp.async copies by every thread, zeros past S
+__device__ __forceinline__ void load_rows_async(float* dst, const float* __restrict__ src, int bi,
+                                                int hi, int start, int s, int h) {
+  for (int i = threadIdx.x; i < kT * (kD / 4); i += kFThreads) {
+    const int r = i >> 4, c = (i & 15) * 4;
+    const bool in = start + r < s;
+    cp_async16(dst + r * kLdF + c, in ? row_ptr(src, bi, hi, start + r, s, h) + c : src, in);
+  }
+}
+
+// x rounded to TF32 (10 stored mantissa bits) to nearest, ties away from
+// zero: what cvt.rna.tf32.f32 gives for finite x, in two integer operations
+// (ptxas emulates the cvt with a longer sequence)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small, both TF32: big = tf32(x), small = tf32(x - big)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// d += a . b to about f32 accuracy: three TF32 products of the split
+// operands, the small ones first (small . small, 2^-22 of the product, dropped)
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4], float b0, float b1) {
+  uint32_t bb0, bs0, bb1, bs1;
+  split_tf32(b0, bb0, bs0);
+  split_tf32(b1, bb1, bs1);
+  mma_tf32(d, as, bb0, bb1);
+  mma_tf32(d, ab, bs0, bs1);
+  mma_tf32(d, ab, bb0, bb1);
 }
 
-// two bf16 of one column from consecutive rows, the lower row in the low half
-__device__ __forceinline__ uint32_t ld_pair_col(const __nv_bfloat16* p) {
-  return (uint32_t)__bfloat16_as_ushort(p[0]) | ((uint32_t)__bfloat16_as_ushort(p[kLdB]) << 16);
-}
-
-__device__ __forceinline__ void load_rows_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                               int bi, int hi, int start, int s, int h) {
-  for (int i = threadIdx.x; i < kT * 8; i += kBThreads) {
-    const int r = i >> 3, c = (i & 7) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (start + r < s)
-      val = *reinterpret_cast<const uint4*>(row_ptr(src, bi, hi, start + r, s, h) + c);
-    *reinterpret_cast<uint4*>(dst + r * kLdB + c) = val;
+// acc[nt] = A . B^T over the head dim: A the warp's rows r, r + 8 of an own
+// tile, B a streamed [64 rows][kLdF] tile (n = its rows); a0 (g, t), a1
+// (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4); b0 (k t, n g), b1 (k t + 4, n g)
+__device__ __forceinline__ void rows_dot_3xtf32(float (&acc)[8][4], const float* own,
+                                                const float* tile, int r, int g, int t) {
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < kD / 8; ++ks) {
+    const float* pa = own + r * kLdF + 8 * ks + t;
+    uint32_t ab[4], as[4];
+    split_tf32(pa[0], ab[0], as[0]);
+    split_tf32(pa[8 * kLdF], ab[1], as[1]);
+    split_tf32(pa[4], ab[2], as[2]);
+    split_tf32(pa[8 * kLdF + 4], ab[3], as[3]);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const float* pb = tile + (8 * nt + g) * kLdF + 8 * ks + t;
+      mma_3xtf32(acc[nt], ab, as, pb[0], pb[4]);
+    }
   }
 }
 
-// A fragments of the warp's 16 rows of a shared [64][kLdB] tile, k16 slices kk
-__device__ __forceinline__ void a_fragments(uint32_t (&a)[4][4], const __nv_bfloat16* tile,
-                                            int row0, int t) {
+// acc[nd] += X . B: X the warp's rows in accumulator layout (x[kk] holds
+// columns 8 kk + 2t, + 1 of rows g, g + 8), B a streamed [64 rows = k][kLdF]
+// tile. The k order of each k-step is permuted, k t <-> column 2t and k t + 4
+// <-> column 2t + 1, so x[kk] is the A fragment as it stands and B is read
+// in the same order: b0 = B[8 kk + 2t][8 nd + g], b1 = B[8 kk + 2t + 1][8 nd + g]
+__device__ __forceinline__ void acc_times_rows_3xtf32(float (&acc)[8][4], const float (&x)[8][4],
+                                                      const float* tile, int g, int t) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const __nv_bfloat16* p = tile + row0 * kLdB + 16 * kk + 2 * t;
-    a[kk][0] = ld_u32(p);
-    a[kk][1] = ld_u32(p + 8 * kLdB);
-    a[kk][2] = ld_u32(p + 8);
-    a[kk][3] = ld_u32(p + 8 * kLdB + 8);
+  for (int kk = 0; kk < kT / 8; ++kk) {
+    uint32_t ab[4], as[4];
+    split_tf32(x[kk][0], ab[0], as[0]);
+    split_tf32(x[kk][2], ab[1], as[1]);
+    split_tf32(x[kk][1], ab[2], as[2]);
+    split_tf32(x[kk][3], ab[3], as[3]);
+    const float* pb = tile + (8 * kk + 2 * t) * kLdF + g;
+#pragma unroll
+    for (int nd = 0; nd < 8; ++nd) mma_3xtf32(acc[nd], ab, as, pb[8 * nd], pb[kLdF + 8 * nd]);
   }
 }
 
-// acc[n-tile][4] = A (the warp's 16 rows x 64) . B^T, B a shared [64 rows][64]
-// tile read as the col-major k x n operand (n = B's rows)
-__device__ __forceinline__ void rows_dot(float (&acc)[8][4], const uint32_t (&a)[4][4],
-                                         const __nv_bfloat16* tile, int g, int t) {
+// The warp's rows r, r + 8 (of global row0, row0 + 8) of an accumulator
+// tile times `mul` into [b, S, h, 64]
+__device__ __forceinline__ void store_rows_f32(float* __restrict__ dst, const float (&acc)[8][4],
+                                               float mul, int bi, int hi, int row0, int s, int h,
+                                               int t) {
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-    const __nv_bfloat16* p = tile + (8 * nt + g) * kLdB + 2 * t;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) mma_bf16(acc[nt], a[kk], ld_u32(p + 16 * kk), ld_u32(p + 16 * kk + 8));
-  }
-}
-
-// acc[d n-tile][4] += X (the warp's 16 rows x 64, in accumulator layout,
-// rounded to bf16) . B, B a shared [64 rows][64] tile (k = B's rows)
-__device__ __forceinline__ void acc_times_rows(float (&acc)[8][4], const float (&x)[8][4],
-                                               const __nv_bfloat16* tile, int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t a[4];
-    a[0] = wg::pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-    a[1] = wg::pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-    a[2] = wg::pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    a[3] = wg::pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-    const __nv_bfloat16* p = tile + (16 * kk + 2 * t) * kLdB + g;
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + 8 * half;
+    if (row >= s) continue;
+    float* p = dst + (((size_t)bi * s + row) * h + hi) * kD + 2 * t;
 #pragma unroll
     for (int nd = 0; nd < 8; ++nd)
-      mma_bf16(acc[nd], a, ld_pair_col(p + 8 * nd), ld_pair_col(p + 8 * kLdB + 8 * nd));
+      *reinterpret_cast<float2*>(p + 8 * nd) =
+          make_float2(acc[nd][2 * half] * mul, acc[nd][2 * half + 1] * mul);
   }
 }
 
-struct SmemDkdvBf16 {
-  __nv_bfloat16 own_a[kTileB], own_b[kTileB], q[kTileB], dout[kTileB];
-  int vq[kT], vk[kT];
-  float tq[kT], tk[kT], lse[kT], del[kT];
-  Sched sched;
-};
+// The listed tile j of two operands into ring stage j % kFStages, with its
+// rows' vectors (lse and delta null: not needed)
+__device__ __forceinline__ void f32_issue(float* sm, const uint16_t* list, int j,
+                                          const float* __restrict__ x,
+                                          const float* __restrict__ y,
+                                          const float* __restrict__ lse,
+                                          const float* __restrict__ delta,
+                                          const int* __restrict__ valid,
+                                          const float* __restrict__ times, int bi, int hi, int s,
+                                          int h) {
+  const int st = j % kFStages;
+  const int r0 = (list[j] & 0x7fff) * kT;
+  load_rows_async(sm + kFRingX + st * kTileF, x, bi, hi, r0, s, h);
+  load_rows_async(sm + kFRingY + st * kTileF, y, bi, hi, r0, s, h);
+  if (threadIdx.x < kT)
+    write_row_vectors(sm + kFVec + st * kVecFloats, threadIdx.x, r0, lse, delta, valid, times, bi,
+                      hi, s, h);
+}
 
-struct SmemDqBf16 {
-  __nv_bfloat16 own_a[kTileB], own_b[kTileB], k[kTileB], v[kTileB];
-  int vq[kT], vk[kT];
-  float tq[kT], tk[kT], lse[kT], del[kT];
-  Sched sched;
-};
-
-// dK and dV of one 64-key tile: warp w's 16 keys hold S^T = K.Q^T and
-// dP^T = V.dO^T for each kept query tile, then dV += P^T.dO, dK += dS^T.Q
-__global__ void __launch_bounds__(kBThreads)
-attn_bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                   const float* __restrict__ lse, const float* __restrict__ delta,
-                   const int* __restrict__ valid, const float* __restrict__ times,
-                   __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int s, int h,
-                   float scale) {
+// dK and dV of 64 keys: warp w's 16 keys hold S^T = K.Q^T and
+// dP^T = V.dO^T of each kept query tile, then dV += P^T.dO, dK += dS^T.Q
+__global__ void __launch_bounds__(kFThreads, 2)
+attn_bwd_dkdv_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     const int* __restrict__ valid, const float* __restrict__ times,
+                     float* __restrict__ dk, float* __restrict__ dv, int s, int h,
+                     float scale_log2, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  SmemDkdvBf16& sm = *reinterpret_cast<SmemDkdvBf16*>(smem_raw);
-  const int k0 = blockIdx.x * kT;
-  const int bi = blockIdx.y / h, hi = blockIdx.y % h;
+  float* sm = reinterpret_cast<float*>(smem_raw);
+  Sched& sched = *reinterpret_cast<Sched*>(sm + kFSched);
+  launch_dependents();
+  const int own0 = own_tile_start(false);
+  const int bi = blockIdx.x / h, hi = blockIdx.x % h;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int r0 = 16 * warp + g;                       // the thread's keys: r0 and r0 + 8
+  const int r = 16 * warp + g;                        // own rows r and r + 8
 
-  load_rows_bf16(sm.own_a, k, bi, hi, k0, s, h);
-  load_rows_bf16(sm.own_b, v, bi, hi, k0, s, h);
-  load_row_vectors(sm.vk, sm.tk, nullptr, nullptr, valid, times, nullptr, nullptr, bi, hi, s, h,
-                   k0);
-  const int n = build_schedule<kBWarps>(sm.sched, valid, times, bi, s, k0, false);
-  uint32_t ka[4][4], va[4][4];
-  a_fragments(ka, sm.own_a, r0, t);
-  a_fragments(va, sm.own_b, r0, t);
-  const int vk[2] = {sm.vk[r0], sm.vk[r0 + 8]};
-  const float tk[2] = {sm.tk[r0], sm.tk[r0 + 8]};
-  const bool k_in[2] = {k0 + r0 < s, k0 + r0 + 8 < s};
+  load_rows_async(sm + kFOwnA, k, bi, hi, own0, s, h);
+  load_rows_async(sm + kFOwnB, v, bi, hi, own0, s, h);
+  const int n = build_schedule<kFThreads / 32>(sched, valid, times, bi, s, own0, false);
+#pragma unroll
+  for (int p = 0; p < kFStages - 1; ++p) {
+    if (p < n) f32_issue(sm, sched.list, p, q, dout, lse, delta, valid, times, bi, hi, s, h);
+    cp_async_commit();
+  }
+  const int key0 = own0 + r;
+  const bool kin[2] = {key0 < s, key0 + 8 < s};
+  const int vk[2] = {kin[0] ? valid[(size_t)bi * s + key0] : 0,
+                     kin[1] ? valid[(size_t)bi * s + key0 + 8] : 0};
+  const float tk[2] = {kin[0] ? times[key0] : 0.f, kin[1] ? times[key0 + 8] : 0.f};
+  const bool warp_in = own0 + 16 * warp < s;
 
   float adk[8][4], adv[8][4];
 #pragma unroll
@@ -1186,75 +1371,80 @@ attn_bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
     for (int e = 0; e < 4; ++e) { adk[nt][e] = 0.f; adv[nt][e] = 0.f; }
 
   for (int j = 0; j < n; ++j) {
-    const int entry = sm.sched.list[j];
-    const int q0 = (entry & 0x7fff) * kT;
-    const bool partial = entry & 0x8000;
-    __syncthreads();
-    load_rows_bf16(sm.q, q, bi, hi, q0, s, h);
-    load_rows_bf16(sm.dout, dout, bi, hi, q0, s, h);
-    load_row_vectors(sm.vq, sm.tq, sm.lse, sm.del, valid, times, lse, delta, bi, hi, s, h, q0);
-    __syncthreads();
+    cp_async_wait<kFStages - 2>();
+    __syncthreads();                                  // tile j landed; tile j - 1's readers done
+    if (j + kFStages - 1 < n)
+      f32_issue(sm, sched.list, j + kFStages - 1, q, dout, lse, delta, valid, times, bi, hi,
+                   s, h);
+    cp_async_commit();
+    if (!warp_in) continue;
+    const int st = j % kFStages;
+    const bool partial = sched.list[j] & 0x8000;
+    const float* xs = sm + kFRingX + st * kTileF;   // Q
+    const float* ys = sm + kFRingY + st * kTileF;   // dO
+    const float* vs = sm + kFVec + st * kVecFloats;
+    const int* ivs = reinterpret_cast<const int*>(vs);
 
     float sc[8][4], dp[8][4];
-    rows_dot(sc, ka, sm.q, g, t);                     // S^T [keys][queries]
-    rows_dot(dp, va, sm.dout, g, t);                  // dP^T
+    rows_dot_3xtf32(sc, sm + kFOwnA, xs, r, g, t);  // S^T [keys][queries]
+    rows_dot_3xtf32(dp, sm + kFOwnB, ys, r, g, t);  // dP^T
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int i = 8 * nt + 2 * t + (e & 1);      // the query column
-        const int kr = e >> 1;                         // key r0 or r0 + 8
-        p_and_ds(sc[nt][e], dp[nt][e], scale, sm.lse[i], sm.del[i], partial, q0 + i < s,
-                 k_in[kr], sm.vq[i], vk[kr], sm.tq[i], tk[kr]);
+        const int col = 8 * nt + 2 * t + (e & 1);     // the query column
+        const int kr = e >> 1;                         // key r or r + 8
+        p_ds(sc[nt][e], dp[nt][e],
+             !partial || (kin[kr] && ivs[2 * kT + col] == vk[kr] && vs[3 * kT + col] >= tk[kr]),
+             scale_log2, vs[col], vs[kT + col]);
       }
-    acc_times_rows(adv, sc, sm.dout, g, t);          // dV += P^T . dO
-    acc_times_rows(adk, dp, sm.q, g, t);             // dK += dS^T . Q
+    acc_times_rows_3xtf32(adv, sc, ys, g, t);         // dV += P^T.dO
+    acc_times_rows_3xtf32(adk, dp, xs, g, t);         // dK += dS^T.Q
   }
-
-#pragma unroll
-  for (int kr = 0; kr < 2; ++kr) {
-    const int key = k0 + r0 + 8 * kr;
-    if (key >= s) continue;
-    __nv_bfloat16* pk = dk + (((size_t)bi * s + key) * h + hi) * kD + 2 * t;
-    __nv_bfloat16* pv = dv + (((size_t)bi * s + key) * h + hi) * kD + 2 * t;
-#pragma unroll
-    for (int nd = 0; nd < 8; ++nd) {
-      *reinterpret_cast<__nv_bfloat162*>(pk + 8 * nd) =
-          __floats2bfloat162_rn(adk[nd][2 * kr] * scale, adk[nd][2 * kr + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(pv + 8 * nd) =
-          __floats2bfloat162_rn(adv[nd][2 * kr], adv[nd][2 * kr + 1]);
-    }
-  }
+  store_rows_f32(dk, adk, scale, bi, hi, key0, s, h, t);
+  store_rows_f32(dv, adv, 1.f, bi, hi, key0, s, h, t);
 }
 
-// dQ of one 64-row query tile: warp w's 16 rows hold S = Q.K^T and
-// dP = dO.V^T for each kept key tile, then dQ += dS.K
-__global__ void __launch_bounds__(kBThreads)
-attn_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ delta,
-                 const int* __restrict__ valid, const float* __restrict__ times,
-                 __nv_bfloat16* __restrict__ dq, int s, int h, float scale) {
+// dQ of 64 query rows: warp w's 16 rows hold S = Q.K^T and dP = dO.V^T of
+// each kept key tile, then dQ += dS.K
+__global__ void __launch_bounds__(kFThreads, 2)
+attn_bwd_dq_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const float* __restrict__ dout,
+                   const float* __restrict__ lse, const float* __restrict__ delta,
+                   const int* __restrict__ valid, const float* __restrict__ times,
+                   float* __restrict__ dq, int s, int h, float scale_log2, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  SmemDqBf16& sm = *reinterpret_cast<SmemDqBf16*>(smem_raw);
-  const int q0 = blockIdx.x * kT;
-  const int bi = blockIdx.y / h, hi = blockIdx.y % h;
+  float* sm = reinterpret_cast<float*>(smem_raw);
+  Sched& sched = *reinterpret_cast<Sched*>(sm + kFSched);
+  const int own0 = own_tile_start(true);
+  const int bi = blockIdx.x / h, hi = blockIdx.x % h;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int r0 = 16 * warp + g;                       // the thread's rows: r0 and r0 + 8
+  const int r = 16 * warp + g;                        // own rows r and r + 8
 
-  load_rows_bf16(sm.own_a, q, bi, hi, q0, s, h);
-  load_rows_bf16(sm.own_b, dout, bi, hi, q0, s, h);
-  load_row_vectors(sm.vq, sm.tq, sm.lse, sm.del, valid, times, lse, delta, bi, hi, s, h, q0);
-  const int n = build_schedule<kBWarps>(sm.sched, valid, times, bi, s, q0, true);
-  uint32_t qa[4][4], oa[4][4];
-  a_fragments(qa, sm.own_a, r0, t);
-  a_fragments(oa, sm.own_b, r0, t);
-  const int vq[2] = {sm.vq[r0], sm.vq[r0 + 8]};
-  const float tq[2] = {sm.tq[r0], sm.tq[r0 + 8]};
-  const float lq[2] = {sm.lse[r0], sm.lse[r0 + 8]};
-  const float dq_[2] = {sm.del[r0], sm.del[r0 + 8]};
-  const bool q_in[2] = {q0 + r0 < s, q0 + r0 + 8 < s};
+  load_rows_async(sm + kFOwnA, q, bi, hi, own0, s, h);
+  load_rows_async(sm + kFOwnB, dout, bi, hi, own0, s, h);
+  const int n = build_schedule<kFThreads / 32>(sched, valid, times, bi, s, own0, true);
+#pragma unroll
+  for (int p = 0; p < kFStages - 1; ++p) {
+    if (p < n)
+      f32_issue(sm, sched.list, p, k, v, nullptr, nullptr, valid, times, bi, hi, s, h);
+    cp_async_commit();
+  }
+  const int row0 = own0 + r;
+  float lq[2], dq_[2], tq[2];
+  int vq[2];
+#pragma unroll
+  for (int qr = 0; qr < 2; ++qr) {
+    const int row = row0 + 8 * qr;
+    const bool in = row < s;
+    const size_t at = ((size_t)bi * h + hi) * s + row;
+    lq[qr] = in ? lse[at] * kLog2e : INFINITY;
+    dq_[qr] = in ? delta[at] : 0.f;
+    vq[qr] = in ? valid[(size_t)bi * s + row] : 0;
+    tq[qr] = in ? times[row] : 0.f;
+  }
+  const bool warp_in = own0 + 16 * warp < s;
 
   float adq[8][4];
 #pragma unroll
@@ -1263,41 +1453,40 @@ attn_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     for (int e = 0; e < 4; ++e) adq[nt][e] = 0.f;
 
   for (int j = 0; j < n; ++j) {
-    const int entry = sm.sched.list[j];
-    const int k0 = (entry & 0x7fff) * kT;
+    cp_async_wait<kFStages - 2>();
+    __syncthreads();
+    if (j + kFStages - 1 < n)
+      f32_issue(sm, sched.list, j + kFStages - 1, k, v, nullptr, nullptr, valid, times, bi,
+                   hi, s, h);
+    cp_async_commit();
+    if (!warp_in) continue;
+    const int st = j % kFStages;
+    const int entry = sched.list[j];
     const bool partial = entry & 0x8000;
-    __syncthreads();
-    load_rows_bf16(sm.k, k, bi, hi, k0, s, h);
-    load_rows_bf16(sm.v, v, bi, hi, k0, s, h);
-    load_row_vectors(sm.vk, sm.tk, nullptr, nullptr, valid, times, nullptr, nullptr, bi, hi, s,
-                     h, k0);
-    __syncthreads();
+    const int k0 = (entry & 0x7fff) * kT;
+    const float* xs = sm + kFRingX + st * kTileF;   // K
+    const float* ys = sm + kFRingY + st * kTileF;   // V
+    const float* vs = sm + kFVec + st * kVecFloats;
+    const int* ivs = reinterpret_cast<const int*>(vs);
 
     float sc[8][4], dp[8][4];
-    rows_dot(sc, qa, sm.k, g, t);                     // S [queries][keys]
-    rows_dot(dp, oa, sm.v, g, t);                     // dP
+    rows_dot_3xtf32(sc, sm + kFOwnA, xs, r, g, t);  // S [queries][keys]
+    rows_dot_3xtf32(dp, sm + kFOwnB, ys, r, g, t);  // dP
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int kj = 8 * nt + 2 * t + (e & 1);     // the key column
-        const int qr = e >> 1;                         // row r0 or r0 + 8
-        p_and_ds(sc[nt][e], dp[nt][e], scale, lq[qr], dq_[qr], partial, q_in[qr], k0 + kj < s,
-                 vq[qr], sm.vk[kj], tq[qr], sm.tk[kj]);
+        const int col = 8 * nt + 2 * t + (e & 1);     // the key column
+        const int qr = e >> 1;                         // row r or r + 8
+        p_ds(sc[nt][e], dp[nt][e],
+             !partial || (k0 + col < s && vq[qr] == ivs[2 * kT + col] &&
+                          tq[qr] >= vs[3 * kT + col]),
+             scale_log2, lq[qr], dq_[qr]);
       }
-    acc_times_rows(adq, dp, sm.k, g, t);             // dQ += dS . K
+    acc_times_rows_3xtf32(adq, dp, xs, g, t);         // dQ += dS.K
   }
-
-#pragma unroll
-  for (int qr = 0; qr < 2; ++qr) {
-    const int row = q0 + r0 + 8 * qr;
-    if (row >= s) continue;
-    __nv_bfloat16* pq = dq + (((size_t)bi * s + row) * h + hi) * kD + 2 * t;
-#pragma unroll
-    for (int nd = 0; nd < 8; ++nd)
-      *reinterpret_cast<__nv_bfloat162*>(pq + 8 * nd) =
-          __floats2bfloat162_rn(adq[nd][2 * qr] * scale, adq[nd][2 * qr + 1] * scale);
-  }
+  store_rows_f32(dq, adq, scale, bi, hi, row0, s, h, t);
+  wait_primary();
 }
 
 template <typename Kernel, typename... Args>
@@ -1309,41 +1498,70 @@ cudaError_t launch_smem(Kernel kernel, dim3 grid, int threads, size_t smem, cuda
   return cudaGetLastError();
 }
 
+// The same as a programmatic dependent of the kernel before it on `stream`
+template <typename... Params, typename... Args>
+cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid, int threads, size_t smem,
+                             cudaStream_t stream, Args... args) {
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+}
+
 int launch(const void* q, const void* k, const void* v, const void* out, const void* dout,
            const float* lse, float* delta, const int* valid, const float* times, void* dq,
            void* dk, void* dv, int b, int s, int h, int dtype, cudaStream_t stream) {
-  if (s > kMaxTiles * kT || (int64_t)b * h > 65535) return (int)cudaErrorInvalidValue;
-  const int rows = b * s * h;
-  const dim3 grid_rows((rows + 7) / 8), grid((s + kT - 1) / kT, b * h);
-  const float scale = 1.f / sqrtf((float)kD);
+  if (s > kMaxTiles * kT) return (int)cudaErrorInvalidValue;
+  const int n_rows = b * s * h;
+  const dim3 grid_rows((n_rows + 7) / 8), grid(b * h, (s + kT - 1) / kT);
+  const float scale = 1.f / sqrtf((float)kD), scale_log2 = scale * kLog2e;
   cudaError_t err;
   if (dtype == 0) {
     using F = const float*;
-    attn_bwd_delta<float><<<grid_rows, 256, 0, stream>>>(F(out), F(dout), delta, rows, s, h);
+    attn_bwd_delta<float><<<grid_rows, 256, 0, stream>>>(F(out), F(dout), delta, n_rows, s, h);
     err = cudaGetLastError();
     if (err == cudaSuccess)
-      err = launch_smem(attn_bwd_dkdv_f32, grid, kFThreads, sizeof(SmemDkdvF32), stream, F(q),
-                        F(k), F(v), F(dout), lse, (const float*)delta, valid, times,
-                        static_cast<float*>(dk), static_cast<float*>(dv), s, h, scale);
+      err = launch_smem(attn_bwd_dkdv_tf32x3, grid, kFThreads, kFSmem, stream, F(q), F(k), F(v),
+                        F(dout), lse, (F)delta, valid, times, static_cast<float*>(dk),
+                        static_cast<float*>(dv), s, h, scale_log2, scale);
     if (err == cudaSuccess)
-      err = launch_smem(attn_bwd_dq_f32, grid, kFThreads, sizeof(SmemDqF32), stream, F(q), F(k),
-                        F(v), F(dout), lse, (const float*)delta, valid, times,
-                        static_cast<float*>(dq), s, h, scale);
+      err = launch_dependent(attn_bwd_dq_tf32x3, grid, kFThreads, kFSmem, stream, F(q), F(k),
+                             F(v), F(dout), lse, (F)delta, valid, times, static_cast<float*>(dq),
+                             s, h, scale_log2, scale);
     return (int)err;
   }
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout)) % 16)
+    return (int)cudaErrorInvalidValue;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap tq, tk, tv, tdo;                     // 64-row boxes
+  CUresult r = wg::encode_map(encode, &tq, q, b, s, h, kT);
+  if (r == CUDA_SUCCESS) r = wg::encode_map(encode, &tk, k, b, s, h, kT);
+  if (r == CUDA_SUCCESS) r = wg::encode_map(encode, &tv, v, b, s, h, kT);
+  if (r == CUDA_SUCCESS) r = wg::encode_map(encode, &tdo, dout, b, s, h, kT);
+  if (r != CUDA_SUCCESS) return 1000 + (int)r;
   using B = const __nv_bfloat16*;
-  attn_bwd_delta<__nv_bfloat16><<<grid_rows, 256, 0, stream>>>(B(out), B(dout), delta, rows, s,
+  attn_bwd_delta<__nv_bfloat16><<<grid_rows, 256, 0, stream>>>(B(out), B(dout), delta, n_rows, s,
                                                                  h);
   err = cudaGetLastError();
   if (err == cudaSuccess)
-    err = launch_smem(attn_bwd_dkdv_bf16, grid, kBThreads, sizeof(SmemDkdvBf16), stream, B(q),
-                      B(k), B(v), B(dout), lse, (const float*)delta, valid, times,
-                      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), s, h,
-                      scale);
+    err = launch_smem(attn_bwd_dkdv_wgmma, grid, kWgThreads, kWgSmem, stream, tq, tk, tv, tdo,
+                      lse, (const float*)delta, valid, times, static_cast<__nv_bfloat16*>(dk),
+                      static_cast<__nv_bfloat16*>(dv), s, h, scale_log2, scale);
   if (err == cudaSuccess)
-    err = launch_smem(attn_bwd_dq_bf16, grid, kBThreads, sizeof(SmemDqBf16), stream, B(q), B(k),
-                      B(v), B(dout), lse, (const float*)delta, valid, times,
-                      static_cast<__nv_bfloat16*>(dq), s, h, scale);
+    err = launch_dependent(attn_bwd_dq_wgmma, grid, kWgThreads, kWgSmem, stream, tq, tk, tv,
+                           tdo, lse, (const float*)delta, valid, times,
+                           static_cast<__nv_bfloat16*>(dq), s, h, scale_log2, scale);
   return (int)err;
 }
 
@@ -1382,7 +1600,9 @@ extern "C" int deepv_attention_fwd(const void* q, const void* k, const void* v,
 // given out and dout [b, s, h, d] (q's dtype), the forward's lse [b, h, s]
 // (natural log) and a float32 scratch delta [b, h, s]; bf16 q/k/v/dout
 // 16-byte aligned. Launches attn_bwd_delta, then attn_bwd_dkdv_* and
-// attn_bwd_dq_* on `stream`; returns a cudaError_t.
+// attn_bwd_dq_* (bf16: *_wgmma, f32: *_tf32x3) on `stream`; returns a
+// cudaError_t, or 1000 + the CUresult of a tensor map that could not be
+// encoded.
 extern "C" int deepv_attention_bwd(const void* q, const void* k, const void* v, const void* out,
                                    const void* dout, const void* lse, void* delta,
                                    const void* valid, const void* times, void* dq, void* dk,
@@ -1395,3 +1615,4 @@ extern "C" int deepv_attention_bwd(const void* q, const void* k, const void* v, 
                      static_cast<const float*>(times), dq, dk, dv, b, s, h, dtype,
                      reinterpret_cast<cudaStream_t>(stream));
 }
+

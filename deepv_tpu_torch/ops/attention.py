@@ -29,13 +29,24 @@ differentiates). Under autograd on CUDA, ``attention`` is a
 ``torch.autograd.Function``: its forward launches K1 with the row
 log-sum-exp (natural log, ``[b, h, S]`` f32) and saves q, k, v, out and the
 LSE; its backward launches three kernels: ``attn_bwd_delta`` (D =
-rowsum(dO * O)), ``attn_bwd_dkdv_*`` (one CTA per 64-key tile walking the
+rowsum(dO * O)), ``attn_bwd_dkdv_*`` (one CTA per 64 keys walking the
 query tiles its mask schedule keeps, accumulating dK and dV) and
-``attn_bwd_dq_*`` (one CTA per 64-row query tile walking its key tiles),
-with P = exp(Q.K^T * scale - LSE) recomputed in each. No float atomics, so
-two runs agree bit for bit. f32 runs plain FMA, bf16 ``mma.sync``. The
-plain backward, which the kernels are held to, is ``torch.autograd.grad``
-of ``attention_plain`` (``attention_backward_plain``).
+``attn_bwd_dq_*`` (one CTA per 64 query rows walking its key tiles), with
+P = exp(Q.K^T * scale - LSE) recomputed in each, on the grid
+``(b * h, ceil(S / 64))`` with the heaviest tiles launched first (the
+first keys, the last query rows), and the dQ kernel launched as the
+dK/dV kernel's programmatic dependent so that the two run side by side.
+No float atomics, so two runs agree bit for bit. bf16 (``*_wgmma``) is
+the forward's shape: TMA loads the own tiles, a producer warp streams the
+other side's tiles through a ring, and ``wgmma`` computes the products
+with P and dS repacked in registers. f32 (``*_tf32x3``) runs on the TF32
+tensor cores and keeps about f32 accuracy by 3xTF32: each operand splits
+as big = tf32(x) plus small = tf32(x - big) (``tf32_split``), and each
+product is three TF32 products (small.big + big.small + big.big) summed
+in f32 (``attention_backward_3xtf32`` is that arithmetic in plain
+PyTorch). The plain backward, which the kernels
+are held to, is ``torch.autograd.grad`` of ``attention_plain``
+(``attention_backward_plain``).
 
 ``attention`` takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises. On inference paths (no grad
@@ -65,6 +76,8 @@ SKIP, FULL, PARTIAL = 0, 1, 2
 KERNEL_BLOCK_Q, KERNEL_BLOCK_K = 128, 64
 #: the longest sequence the kernel takes (1,024 key tiles in its schedule)
 MAX_SEQ = 65536
+#: the backward kernels' tile: own rows of a CTA, rows of a streamed tile
+BWD_BLOCK = 64
 
 #: launches of the bf16 kernel (attn_fwd_wgmma) and of the f32 kernel
 #: (attn_fwd_f32) since the counts were last set to 0, and of the backward
@@ -113,6 +126,52 @@ def attention_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
         out = attention_plain(*leaves, valid, times)
         return torch.autograd.grad(out, leaves, dout)
+
+
+def tf32_split(x: torch.Tensor):
+    """(big, small) of a float32 tensor, both TF32 values (10 stored mantissa
+    bits) in float32: big = tf32(x), small = tf32(x - big), each rounded to
+    nearest with ties away from zero as ``cvt.rna.tf32.f32`` rounds. big +
+    small rebuilds x to within 2^-21 of |x|. The f32 backward kernels split
+    every operand so."""
+    def rna(t):
+        bits = t.contiguous().view(torch.int32)
+        return torch.bitwise_and(bits + 0x1000, -0x2000).view(torch.float32)
+    big = rna(x)
+    return big, rna(x - big)
+
+
+def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in float32 as the f32 backward kernels take it: three TF32
+    products of the split operands, small.big + big.small + big.big, each
+    product of two TF32 values exact in f32 and summed in f32."""
+    ab, as_ = tf32_split(a)
+    bb, bs = tf32_split(b)
+    return as_ @ bb + ab @ bs + ab @ bb
+
+
+def attention_backward_3xtf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              dout: torch.Tensor, valid: torch.Tensor,
+                              times: torch.Tensor):
+    """The f32 backward kernels' arithmetic in plain PyTorch (float32
+    inputs; for tests): every product in the three-product form of
+    ``matmul_3xtf32``, P taken in base 2 from the forward's f32 LSE as the
+    kernels take it, D from the f32 forward. Returns (dq, dk, dv)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    log2e = 1.0 / math.log(2.0)
+    qh, kh, vh, oh = (x.transpose(1, 2) for x in (q, k, v, dout))   # [b, h, S, d]
+    out = attention_plain(q, k, v, valid, times).transpose(1, 2)
+    lse2 = attention_lse_plain(q, k, valid, times)[..., None] * log2e
+    delta = (oh * out).sum(-1, keepdim=True)
+    same = valid[:, :, None] == valid[:, None, :]
+    allowed = (same & (times[:, None] >= times[None, :])[None])[:, None]
+    logits = matmul_3xtf32(qh, kh.transpose(-1, -2))
+    p = torch.where(allowed, torch.exp2(logits * (scale * log2e) - lse2), 0.0)
+    ds = p * (matmul_3xtf32(oh, vh.transpose(-1, -2)) - delta)
+    dq = matmul_3xtf32(ds, kh) * scale
+    dk = matmul_3xtf32(ds.transpose(-1, -2), qh) * scale
+    dv = matmul_3xtf32(p.transpose(-1, -2), oh)
+    return tuple(x.transpose(1, 2).contiguous() for x in (dq, dk, dv))
 
 
 def _tile_min_max(x: torch.Tensor, block: int, lowest, highest):

@@ -111,6 +111,54 @@ def test_gradient_matches_reference(layout):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), **F32_TOL, err_msg=f"d{name}")
 
 
+def test_tf32_split_rebuilds_f32():
+    """The f32 backward kernels' operand split: big and small are TF32
+    values (the low 13 mantissa bits zero), big is x rounded to nearest
+    TF32 (within 2^-11 of |x|), and big + small rebuilds x to within 2^-21
+    of |x|, over magnitudes from 1e-30 to 1e30 and both signs."""
+    rng = np.random.default_rng(3)
+    x = (rng.standard_normal(20000) * 10.0 ** rng.uniform(-30, 30, 20000)).astype(np.float32)
+    big, small = port_attention.tf32_split(torch.from_numpy(x))
+    for part in (big, small):
+        assert not bool((part.view(torch.int32) & 0x1FFF).any())
+    x64, big64, small64 = (np.asarray(a, np.float64) for a in (x, big, small))
+    assert np.all(np.abs(big64 - x64) <= 2.0 ** -11 * np.abs(x64))
+    assert np.all(np.abs(big64 + small64 - x64) <= 2.0 ** -21 * np.abs(x64))
+    # ties go away from zero, as cvt.rna.tf32.f32 rounds them
+    tie = np.array([1 + 2.0 ** -11, -(1 + 2.0 ** -11)], np.float32)
+    got = port_attention.tf32_split(torch.from_numpy(tie))[0].numpy()
+    np.testing.assert_array_equal(got, [1 + 2.0 ** -10, -(1 + 2.0 ** -10)])
+
+
+@pytest.mark.parametrize("layout", ["frames", "split"])
+def test_3xtf32_backward_meets_the_chip_tolerance(layout, monkeypatch):
+    """Every product of the backward in the three-product TF32 form, as the
+    f32 kernels take them (S = 96, 2 heads of 64, f32), lies within the
+    tolerance the kernels are held to on the card (chip_smoke.py's
+    BWD_F32_ATOL / BWD_F32_RTOL, 5e-5 / 1e-4) of the f64 plain backward;
+    one TF32 product (big . big) does not."""
+    q, k, v, valid, times = (make(s=96, h=2, d=64) if layout == "frames"
+                             else split_layout(s=96, n_last=32))
+    if layout == "split":
+        rng = np.random.default_rng(1)
+        q, k, v = (rng.standard_normal((2, 96, 2, 64)).astype(np.float32) for _ in range(3))
+    dout = np.random.default_rng(9).standard_normal(q.shape).astype(np.float32)
+    t = lambda a: torch.from_numpy(a)
+    ref = port_attention.attention_backward_plain(
+        *(t(a).double() for a in (q, k, v, dout)), t(valid), t(times))
+    got = port_attention.attention_backward_3xtf32(t(q), t(k), t(v), t(dout), t(valid), t(times))
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        assert g.dtype == torch.float32
+        torch.testing.assert_close(g.double(), r, atol=5e-5, rtol=1e-4,
+                                   msg=lambda m: f"d{name}: {m}")
+    tf32 = port_attention.tf32_split
+    monkeypatch.setattr(port_attention, "matmul_3xtf32", lambda a, b: tf32(a)[0] @ tf32(b)[0])
+    coarse = port_attention.attention_backward_3xtf32(t(q), t(k), t(v), t(dout), t(valid),
+                                                      t(times))
+    assert any(not torch.allclose(g.double(), r, atol=5e-5, rtol=1e-4)
+               for g, r in zip(coarse, ref))
+
+
 class _CudaTensor(torch.Tensor):
     """A CPU tensor that reports a CUDA device, to reach the kernel path of
     the wrapper without a GPU."""

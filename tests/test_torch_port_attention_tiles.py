@@ -17,13 +17,15 @@ import numpy as np
 import pytest
 import torch
 
-from deepv_tpu_torch.ops.attention import (FULL, KERNEL_BLOCK_K, KERNEL_BLOCK_Q, PARTIAL, SKIP,
-                                           attention_plain, tile_classes)
+from deepv_tpu_torch.ops.attention import (BWD_BLOCK, FULL, KERNEL_BLOCK_K, KERNEL_BLOCK_Q,
+                                           PARTIAL, SKIP, attention_plain, tile_classes)
 
 torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLOCKS = [(KERNEL_BLOCK_Q, KERNEL_BLOCK_K), (16, 8)]
+#: the forward kernel's tile, a small one, and the backward kernels' (64 own
+#: rows against 64-row tiles, on either side)
+BLOCKS = [(KERNEL_BLOCK_Q, KERNEL_BLOCK_K), (16, 8), (BWD_BLOCK, BWD_BLOCK)]
 
 
 def dense_allowed(valid, times):
@@ -211,3 +213,39 @@ def test_skipping_gives_the_plain_result_rollout_shaped(rollout):
     b, s = valid.shape
     q, k, v = (rng.standard_normal((b, s, 2, 8)) for _ in range(3))
     check_blocked(q, k, v, valid, times, KERNEL_BLOCK_Q, KERNEL_BLOCK_K)
+
+
+def training_masks():
+    """(name, valid, times) of phase 15's training layouts, stages 0-2 at
+    b=1, built on the CPU as chip_smoke.py builds them (masks only)."""
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    import chip_smoke
+    from deepv_tpu_torch.config import MMDiTConfig
+    from deepv_tpu_torch.models.mmdit import PackedLayout, packed_mask
+
+    out = []
+    for name, _, shapes, ctx, ftimes, fvalid in chip_smoke.training_layouts(torch.device("cpu")):
+        layout = PackedLayout(MMDiTConfig(), shapes, ctx.shape[1])
+        valid, times = packed_mask(layout, ctx, ftimes, fvalid)
+        out.append((name, valid, times))
+    return out
+
+
+@pytest.fixture(scope="module")
+def training():
+    return training_masks()
+
+
+@pytest.mark.parametrize("stage", range(3))
+@pytest.mark.parametrize("bq,bk", [(KERNEL_BLOCK_Q, KERNEL_BLOCK_K), (BWD_BLOCK, BWD_BLOCK)])
+def test_skipping_gives_the_plain_result_training_shaped(training, stage, bq, bk):
+    """The training layouts (b=1, S = 461, 749, 2,093: many 64-row tiles,
+    the current unit strictly later than its history) at two heads of 8,
+    at the forward's tile and the backward's."""
+    name, valid, times = training[stage]
+    assert name == f"train_stage{stage}_b1"
+    rng = np.random.default_rng(stage)
+    b, s = valid.shape
+    q, k, v = (rng.standard_normal((b, s, 2, 8)) for _ in range(3))
+    check_blocked(q, k, v, valid, times, bq, bk)
