@@ -20,8 +20,11 @@ Phases, in order; any failure exits non-zero before the last line:
      plain version and SDPA with the same boolean mask (a yardstick the port
      never calls), beside the least time the card needs, counts the tile
      classes, and sums K1, SDPA and the bound over the rollout's launches;
-     at the stage-2, 2-row layout it also times the f32 kernel (the
-     exactness check) beside SDPA in f32 and the bound at the f32 rate;
+     at each of those layouts it also times the f32 kernel (attn_fwd_tf32x3,
+     what f32 training runs) beside SDPA in f32, back to back and as
+     device time (the call replayed from a CUDA graph beside the sum of
+     SDPA's kernels), beside the bound at the 3xTF32 rate (495 TF/s / 3,
+     the least time) and at the f32 FMA rate;
   4. igemm conv kernel (K2) against its plain PyTorch version at every
      eligible 3x3x3 conv shape of the full-width VAE, in the causal mode the
      rollout uses there, 1-2 output frames, at the channels-last input the
@@ -30,11 +33,15 @@ Phases, in order; any failure exits non-zero before the last line:
      batch 2 with 3 frames), checking which kernel ran: f32 at atol 2e-4 /
      rtol 1e-4 (tests/test_conv_igemm.py:33), bf16 within one bf16 ulp of
      the larger value plus that 2e-4 (the two sum the same exact products
-     in f32 in other orders, then round once). Times the wrapper, its
-     layout work alone (the weight re-layout), the plain version and
-     F.conv3d (cuDNN, a yardstick the igemm path never calls), beside the
-     least time. After phase 7 it prints K2, cuDNN and the bound summed
-     over the igemm rollout's convs by class;
+     in f32 in other orders, then round once); f32 runs split_tf32_cl (its
+     planes of x and of the weight equal the plain split's bit for bit)
+     and conv3d_igemm_tf32x3. Times the wrapper (as device time, from a
+     CUDA graph), its layout work alone (the weight re-layout; for f32 the
+     two splits), for f32 the conv kernel alone and the split of x, the
+     plain version and F.conv3d (cuDNN with TF32 off, a yardstick the
+     igemm path never calls), beside the least time (f32: at the 3xTF32
+     rate, with the FMA rate's beside it). After phase 7 it prints K2,
+     cuDNN and the bound summed over the igemm rollout's convs by class;
   5. main path: run.load_pipeline with random weights at full width
      (MMDiTConfig(): 24 layers, d=1536; VAEConfig()) in bf16, and generate()
      on an 11-action prompt at 384x512 (2 chunks, 89 frames, 12 units:
@@ -47,18 +54,22 @@ Phases, in order; any failure exits non-zero before the last line:
      window from the call of generate(), synchronised in the callback. The
      test image holds float16 values, so phase 13 can send it on the wire;
   6. forward check: one full-width denoise forward at the stage-2, 3-row
-     layout in f32 with K1's f32 kernel against the same forward with the
-     plain attention;
+     layout in f32 with K1's f32 kernel (attn_fwd_tf32x3, 24 launches)
+     against the same forward with the plain attention;
   7. igemm path: the same rollout through InferencePipeline with
      VAEConfig(conv_impl="igemm") and the same weights, image, prompt and
      seed; counts set to 0 just before and read just after: K1 4,320 and K2
-     (its wgmma and cl paths together; the f32 kernel never) exactly the
+     (its wgmma and cl paths together; its f32 kernels never) exactly the
      count the phase counts imply, the cl path once per full-mode encoder
      call (the mid block hands its resnet x channels-last: 3);
   8. decode check: one latent stream decoded at full width through an init
      window, a cont window and a primed cont window, with "igemm" and with
      "xla": f32 (TF32 off) within 1e-4 relative L2, bf16 within twice the
-     relative L2 between the bf16 and f32 "xla" decodes of the same latents;
+     relative L2 between the bf16 and f32 "xla" decodes of the same latents.
+     K2's counts are set to 0 just before the f32 "igemm" decode and read
+     just after: conv3d_igemm_tf32x3 once per eligible conv (3 windows of
+     34 and a priming warm of 3 x 28 + 6: 192), split_tf32_cl twice that,
+     the bf16 paths never;
   9. K3, the int8 conv, against its plain version at every int8-eligible
      conv class of the fast rollout (the 384x512 level: 3->128, 128->128,
      256->128, 256->512, 128->3), in each causal mode the rollout runs it
@@ -148,7 +159,7 @@ Phases, in order; any failure exits non-zero before the last line:
      (unit 7), one single-clip step (1 frame), Trainer.train for 4 steps;
      each with finite losses, a finite gradient for every parameter, a
      nonzero one for every block's to_q (the attention's gradient flows),
-     K1's f32 forward and the backward 24 times a step. The trainer is saved
+     K1's f32 forward (attn_fwd_tf32x3) and the backward 24 times a step. The trainer is saved
      and restored into a fresh Trainer on the card: params and AdamW state
      equal bit for bit. Then one bf16 stage-2 step (params cast to bf16):
      K1's wgmma forward and the bf16 backward 24 times. Prints each step's
@@ -217,7 +228,8 @@ CONV_EDGE_CASES = (
     ("edge: batch 2, 3 frames", "full", 256, 256, 96, 128, 3, 2, False),
 )
 #: K2's launch counters: the wgmma path, the cl path, the f32 kernel
-K2_COUNTERS = ("launches", "cl_launches", "f32_launches")
+#: (tf32x3) and its split kernel (split_tf32_cl, twice a call: x, weight)
+K2_COUNTERS = ("launches", "cl_launches", "f32_launches", "split_launches")
 #: denoise forwards of the exact rollout: 12 units x 3 stages x 5 steps
 FORWARDS = 180
 #: int8 convs of the fast rollout: the dispatches to conv3d_int8 at the
@@ -541,24 +553,33 @@ def check_attention(device, results):
         qt, kt, vt = (x.transpose(1, 2) for x in (qb, kb, vb))
         library_ms = cuda_time_ms(
             lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), 10)
-        f32 = None
-        if name == "stage2_b2":
-            # the f32 kernel (the exactness check; no rollout path runs it)
-            # at this layout beside SDPA in f32 and the bound at the f32 rate
-            before = att.f32_launches
-            f32_ms = cuda_time_ms(lambda: att.attention(q, k, v, valid, times, n_last=n_last), 3, 1)
-            assert att.f32_launches > before, "the f32 forward did not run the f32 kernel"
-            q32, k32, v32 = (x.transpose(1, 2) for x in (q, k, v))
-            f32_lib = cuda_time_ms(
-                lambda: F.scaled_dot_product_attention(q32, k32, v32, attn_mask=mask), 3, 1)
-            f32_plain = cuda_time_ms(lambda: att.attention_plain(q, k, v, valid, times), 2, 1)
-            t32_ops, t32_bytes = flops / PEAK_F32_FLOPS, 2 * nbytes / PEAK_BYTES
-            f32 = dict(kernel="attn_fwd_f32", ms=f32_ms, plain_ms=f32_plain, library_ms=f32_lib,
-                       bound_ms=1e3 * max(t32_ops, t32_bytes),
-                       bound_by="operations" if t32_ops >= t32_bytes else "bytes",
-                       err=errs["err_f32_kernel"])
-            log("attention f32 check kernel", json.dumps(f32))
-            del q32, k32, v32
+        # the f32 kernel (f32 training and f32 forwards run it) beside SDPA
+        # in f32: back to back, host time included, and as device time, the
+        # call replayed from a CUDA graph beside the sum of SDPA's kernels;
+        # the bound as 3xTF32 (three TF32 products a product at the TF32
+        # peak: the least time), the FMA rate's beside it
+        call32 = lambda: att.attention(q, k, v, valid, times, n_last=n_last)
+        before = att.f32_launches
+        f32_ms = cuda_time_ms(call32, 10)
+        assert att.f32_launches > before, "the f32 forward did not run the f32 kernel"
+        f32_graph = graph_ms(call32, 10)
+        q32, k32, v32 = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa32 = lambda: F.scaled_dot_product_attention(q32, k32, v32, attn_mask=mask)
+        f32_lib = cuda_time_ms(sdpa32, 5)
+        f32_lib_kernels = sum(kernel_device_ms(sdpa32, 5).values())
+        f32_plain = cuda_time_ms(lambda: att.attention_plain(q, k, v, valid, times), 2, 1)
+        nbytes32 = 4 * b * s * h * d * 4 + valid.numel() * 4 + times.numel() * 4
+        t3_ops, t_fma = flops / (PEAK_TF32_FLOPS / 3), flops / PEAK_F32_FLOPS
+        t32_bytes = nbytes32 / PEAK_BYTES
+        f32 = dict(kernel="attn_fwd_tf32x3", ms=f32_ms, graph_ms=f32_graph, plain_ms=f32_plain,
+                   library_ms=f32_lib, library_kernels_ms=f32_lib_kernels,
+                   bound_ms=1e3 * max(t3_ops, t32_bytes),
+                   bound_by="operations" if t3_ops >= t32_bytes else "bytes",
+                   bound_fma_ms=1e3 * max(t_fma, t32_bytes),
+                   share_of_bound=1e3 * max(t3_ops, t32_bytes) / f32_graph,
+                   tflops=flops / (f32_graph * 1e-3) / 1e12, err=errs["err_f32_kernel"])
+        log(f"attention f32 {name}", json.dumps(f32))
+        del q32, k32, v32, call32, sdpa32
         del allowed, mask
         row = dict(layout=name, b=b, S=s, heads=h, head_dim=d, n_last=n_last,
                    allowed_pairs=pairs, split_pairs=split_pairs, flops=flops, bytes=nbytes,
@@ -866,7 +887,8 @@ def drive_rollout(pipe, setup_s: float, hook: "FrameHook | None" = None):
     assert att.f32_launches == 0, "the bf16 rollout launched the f32 attention kernel"
     assert att.bwd_launches == 0, "the rollout launched the attention backward"
     conv_launches = {name: getattr(cig, name) for name in K2_COUNTERS}
-    assert conv_launches["f32_launches"] == 0, "the bf16 rollout launched the f32 kernel"
+    assert conv_launches["f32_launches"] == conv_launches["split_launches"] == 0, (
+        "the bf16 rollout launched the f32 conv kernels")
     int8_counts = dict(conv_int8_launches=ci8.launches + ci8.packed_launches,
                        conv_int8_wgmma_launches=ci8.launches,
                        conv_int8_packed_launches=ci8.packed_launches,
@@ -1059,9 +1081,25 @@ def check_conv_igemm(device, results):
             y = cig.conv3d_igemm(x, p, tp)
             r = cig.conv3d_igemm_plain(x, p, tp)
             torch.cuda.synchronize()
-            ran = [k for k, name, c0 in zip(("wgmma", "cl", "fma_f32"), K2_COUNTERS, before)
-                   if getattr(cig, name) != c0]
-            assert ran == [kernel], f"{layer} {mode}: expected the {kernel} kernel, ran {ran}"
+            ran = [k for k, name, c0 in zip(("wgmma", "cl", "tf32x3", "split"), K2_COUNTERS,
+                                            before) if getattr(cig, name) != c0]
+            want = [kernel] if kernel != "tf32x3" else ["tf32x3", "split"]
+            assert ran == want, f"{layer} {mode}: expected the {kernel} kernel, ran {ran}"
+            split = None
+            if kernel == "tf32x3":
+                # the split kernel alone: both planes equal the plain split's
+                xp = cig.split_tf32_cl(x)
+                assert torch.equal(xp, cig.split_tf32_cl_plain(x)), f"{layer} {mode}: split"
+                wp = cig.weight_planes(p.weight)
+                assert torch.equal(wp, torch.stack(cig.tf32_split(
+                    cig.relayout_weight(p.weight, torch.float32)))), f"{layer} {mode}: weight"
+                bv = p.bias.contiguous()
+                split = dict(ms=graph_ms(lambda: cig.split_tf32_cl(x), 3, 1),
+                             plain_ms=cuda_time_ms(lambda: cig.split_tf32_cl_plain(x), 2, 1),
+                             bound_ms=1e3 * 12 * x.numel() / PEAK_BYTES, bound_by="bytes",
+                             kernel_ms=graph_ms(
+                                 lambda: cig.conv3d_tf32x3_planes(xp, wp, bv, tp), 3, 1))
+                del xp, wp
             assert tuple(y.shape) == (b, co, n, h, w), tuple(y.shape)
             err = (y.float() - r.float()).abs()
             if dtype == torch.float32:
@@ -1078,7 +1116,7 @@ def check_conv_igemm(device, results):
             lib_err = float((lib.float() - r.float()).abs().max())
             del lib
             big = 2 * 27 * ci * co * n * h * w > 1e12
-            iters = (2 if big else 5) if dtype == torch.bfloat16 else 1
+            iters = 2 if big else 5
             ms = graph_ms(lambda: cig.conv3d_igemm(x, p, tp), iters, 1)
             if kernel == "wgmma" or (kernel == "cl" and cig._tma_strides_cl(x) is not None):
                 # the K-major weight, no copy of x
@@ -1086,9 +1124,8 @@ def check_conv_igemm(device, results):
             elif kernel == "cl":                 # the K-major weight and a channels-last x
                 layout = lambda: (cig.relayout_weight(p.weight, x.dtype),
                                   x.permute(0, 2, 3, 4, 1).contiguous())
-            else:                                # a channels-last x and [(taps, ci), co]
-                layout = lambda: (x.permute(0, 2, 3, 4, 1).contiguous(),
-                                  p.weight.permute(2, 3, 4, 1, 0).reshape(27 * ci, co).contiguous())
+            else:                                # the split kernel on x and the weight
+                layout = lambda: (cig.split_tf32_cl(x), cig.weight_planes(p.weight))
             layout_ms = graph_ms(layout, 5, 1)
             plain_ms = cuda_time_ms(lambda: cig.conv3d_igemm_plain(x, p, tp), 1, 1)
             library_ms = graph_ms(
@@ -1099,15 +1136,15 @@ def check_conv_igemm(device, results):
             flops = 2 * taps * ci * co * b * h * w
             esize = x.element_size()
             nbytes = (x.numel() + p.weight.numel() + co + y.numel()) * esize
-            peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+            # f32's least time is the 3xTF32 route's: three TF32 products a
+            # product at the TF32 peak; the FMA rate's bound beside it
+            peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_TF32_FLOPS / 3
             t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
-            plan = (None if kernel == "fma_f32" else
-                    cig.tile_plan(b, co, n, h, w, sms, channels_last=kernel == "cl"))
+            plan = cig.tile_plan(b, co, n, h, w, sms, channels_last=kernel != "wgmma")
             row = dict(layer=layer, mode=mode, ci=ci, co=co, h=h, w=w, frames=n, batch=b,
                        edge=layer.startswith("edge"), kernel=kernel,
-                       plan=None if plan is None else dict(
-                           bn=plan.bn, channels_last=plan.channels_last, grid=plan.grid,
-                           ctas=plan.ctas),
+                       plan=dict(bn=plan.bn, channels_last=plan.channels_last,
+                                 grid=plan.grid, ctas=plan.ctas),
                        dtype=str(dtype).split(".")[-1], time_pad=tp,
                        max_abs_err=float(err.max()), ulp_excess=excess,
                        cudnn_vs_plain_max_abs=lib_err, ms=ms, layout_ms=layout_ms,
@@ -1116,6 +1153,10 @@ def check_conv_igemm(device, results):
                        bound_by="operations" if t_ops >= t_bytes else "bytes",
                        flops=flops, bytes=nbytes, tflops=flops / (ms * 1e-3) / 1e12,
                        library_tflops=flops / (library_ms * 1e-3) / 1e12)
+            if split is not None:
+                row.update(kernel_ms=split.pop("kernel_ms"), split=split,
+                           bound_fma_ms=1e3 * max(flops / PEAK_F32_FLOPS, t_bytes),
+                           share_of_bound=row["bound_ms"] / ms)
             rows_out.append(row)
             log("conv_igemm", json.dumps(row))
             del y, r, x, xl
@@ -1125,22 +1166,28 @@ def check_conv_igemm(device, results):
     return rows_out
 
 
-def expected_conv_launches(pipe, stats, boundaries: int) -> int:
-    """K2 launches of one igemm rollout, from the code: every 3x3x3 conv of
-    the resnets, mid blocks and up-samplers has ci, co multiples of 128 at
-    full width (conv_in, conv_out, 1x1 shortcuts and strided down-samplers
-    are not eligible). Per call: a decoder window, a decoder_front window of
-    the priming warm, a priming tail and an encoder window."""
-    from deepv_tpu_torch.models.vae import _split_windows
-
-    vcfg, pcfg = pipe.vcfg, pipe.cfg
+def eligible_convs(vcfg):
+    """K2-eligible convs per call, from the code: every 3x3x3 conv of the
+    resnets, mid blocks and up-samplers has ci, co multiples of 128 at full
+    width (conv_in, conv_out, 1x1 shortcuts and strided down-samplers are
+    not eligible). Returns (decoder window, decoder_front window of the
+    priming warm, priming tail, encoder window)."""
     dec_layers, enc_layers = vcfg.decoder_layers_per_block, vcfg.encoder_layers_per_block
     tail = 2 * dec_layers[-1]
     front = 4 + sum(2 * n + int(up) + int(tup) for n, up, tup in zip(
         dec_layers[:-1], vcfg.decoder_spatial_up_sample, vcfg.decoder_temporal_up_sample))
-    window = front + tail
     encoder = 4 + sum(2 * n for n in enc_layers)
-    assert (window, front, tail, encoder) == (34, 28, 6, 20), (window, front, tail, encoder)
+    counts = (front + tail, front, tail, encoder)
+    assert counts == (34, 28, 6, 20), counts
+    return counts
+
+
+def expected_conv_launches(pipe, stats, boundaries: int) -> int:
+    """K2 launches of one igemm rollout, from the code (``eligible_convs``)."""
+    from deepv_tpu_torch.models.vae import _split_windows
+
+    vcfg, pcfg = pipe.vcfg, pipe.cfg
+    window, front, tail, encoder = eligible_convs(vcfg)
     # streamed decode: one latent unit of rgb and one of disparity per phase
     decoder_windows = 2 * stats["stream_decode"]["count"]
     # priming: rgb and disparity, one front window per carried latent frame
@@ -1218,11 +1265,14 @@ def run_igemm_path(device, results, ref_frames):
 
 
 def check_decode(pipe, device, results):
-    """Phase 8: one full-width latent stream decoded with "igemm" and "xla"."""
+    """Phase 8: one full-width latent stream decoded with "igemm" and "xla";
+    the f32 igemm decode's K2 launches counted. Returns them."""
     import copy
     import torch
     from deepv_tpu_torch.config import VAEConfig
     from deepv_tpu_torch.models.vae import _dec_prime_warm, _dec_window
+    from deepv_tpu_torch.ops import causal_conv
+    from deepv_tpu_torch.ops import conv_igemm as cig
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1248,13 +1298,39 @@ def check_decode(pipe, device, results):
         return float((a - b).norm() / b.norm())
 
     out = {}
+    f32_counts = None
+    orig = causal_conv.conv3d_igemm
     for name, dec, dtype in (("f32", dec_f32, torch.float32), ("bf16", dec_bf16, torch.bfloat16)):
         for impl in ("igemm", "xla"):
+            counted = impl == "igemm" and dtype == torch.float32
+            dispatches = []
+            if counted:
+                # the f32 decode's path: counts set to 0 just before, read
+                # just after; a spy counts the dispatches to K2
+                for counter in K2_COUNTERS:
+                    setattr(cig, counter, 0)
+                causal_conv.conv3d_igemm = lambda x, p, time_pad=2: (
+                    dispatches.append(1), orig(x, p, time_pad))[1]
             t0 = time.perf_counter()
-            out[impl, name] = decode(dec, impl, dtype)
-            torch.cuda.synchronize()
+            try:
+                out[impl, name] = decode(dec, impl, dtype)
+                torch.cuda.synchronize()
+            finally:
+                causal_conv.conv3d_igemm = orig
+            if counted:
+                f32_counts = {counter: getattr(cig, counter) for counter in K2_COUNTERS}
+                f32_counts["dispatches"] = len(dispatches)
             log(f"decode check: {impl} {name} {out[impl, name].shape[2]} frames in "
                 f"{time.perf_counter() - t0:.1f} s")
+    # three decoder windows and a priming warm over 3 latent frames (three
+    # decoder_front windows and the tail): tf32x3 once per eligible conv,
+    # split_tf32_cl twice (x, the weight), nothing else of K2
+    window, front, tail, _ = eligible_convs(VAEConfig())
+    expected = 3 * window + 3 * front + tail
+    log(f"decode check: the f32 igemm decode's K2 launches {json.dumps(f32_counts)}, "
+        f"expected tf32x3 {expected}")
+    assert f32_counts == dict(launches=0, cl_launches=0, f32_launches=expected,
+                              split_launches=2 * expected, dispatches=expected), f32_counts
     rel_f32 = rel(out["igemm", "f32"], out["xla", "f32"])
     rel_bf16 = rel(out["igemm", "bf16"], out["xla", "bf16"])
     gap = rel(out["xla", "bf16"], out["xla", "f32"])
@@ -1266,7 +1342,9 @@ def check_decode(pipe, device, results):
     assert all(bool(torch.isfinite(v).all()) for v in out.values()), "non-finite decode"
     assert rel_f32 <= 1e-4, f"f32 decode: igemm vs xla relative L2 {rel_f32}"
     assert rel_bf16 <= 2 * gap, f"bf16 decode: igemm vs xla {rel_bf16}, bf16 vs f32 {gap}"
+    results["decode_check"]["f32_igemm_launches"] = f32_counts
     del dec_f32, out
+    return f32_counts
 
 
 def taps_needed(mode: str, n: int) -> int:
@@ -1867,7 +1945,7 @@ def checked_step(name, step, model, dtype, n_steps=1):
     losses = step()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    counts = dict(attn_fwd_wgmma=att.launches, attn_fwd_f32=att.f32_launches,
+    counts = dict(attn_fwd_wgmma=att.launches, attn_fwd_tf32x3=att.f32_launches,
                   attn_bwd=att.bwd_launches)
     losses = [float(x) for x in (losses if isinstance(losses, list) else [losses])]
     assert all(map(math.isfinite, losses)), f"{name}: loss {losses}"
@@ -1880,8 +1958,8 @@ def checked_step(name, step, model, dtype, n_steps=1):
     dead = [i for i, blk in enumerate(model.transformer_blocks)
             if not bool((blk.attn.to_q.weight.grad != 0).any())]
     assert not dead, f"{name}: to_q of blocks {dead} got a zero gradient"
-    fwd = "attn_fwd_wgmma" if dtype == torch.bfloat16 else "attn_fwd_f32"
-    want = dict(attn_fwd_wgmma=0, attn_fwd_f32=0, attn_bwd=n_layers * n_steps)
+    fwd = "attn_fwd_wgmma" if dtype == torch.bfloat16 else "attn_fwd_tf32x3"
+    want = dict(attn_fwd_wgmma=0, attn_fwd_tf32x3=0, attn_bwd=n_layers * n_steps)
     want[fwd] = n_layers * n_steps
     assert counts == want, f"{name}: K1 launches {counts}, expected {want}"
     row = dict(step=name, losses=losses, seconds=seconds,
@@ -1922,7 +2000,7 @@ def run_training_path(device, results):
         f"ready in {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the card")
     batch = training_batch(device, f32)
-    rows, counts = [], dict(attn_fwd_f32=0, attn_bwd_f32=0)
+    rows, counts = [], dict(attn_fwd_tf32x3=0, attn_bwd_f32=0)
     noise = TorchNoise(15, device)
     for stage in range(len(pcfg.stages)):
         rows.append(checked_step(
@@ -1935,7 +2013,7 @@ def run_training_path(device, results):
                              lambda: trainer.train([batch] * 4, noise, log_every=1, log_fn=log),
                              model, f32, n_steps=4))
     for r in rows:
-        counts["attn_fwd_f32"] += r["launches"]["attn_fwd_f32"]
+        counts["attn_fwd_tf32x3"] += r["launches"]["attn_fwd_tf32x3"]
         counts["attn_bwd_f32"] += r["launches"]["attn_bwd"]
 
     # save, then restore into a fresh trainer (other random weights)
@@ -2044,7 +2122,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     pipe, conv_launches, frames_by_class = run_igemm_path(device, results, ref_frames)
-    check_decode(pipe, device, results)
+    decode_f32 = check_decode(pipe, device, results)
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
@@ -2082,11 +2160,11 @@ def main() -> int:
     # layout (phase 3)
     f32_row = head["f32"]
     kernels.append({
-        "name": "attn_fwd_f32",
+        "name": "attn_fwd_tf32x3",
         "route": "cuda",
         "source": "deepv_tpu_torch/csrc/attention.cu",
         "replaces": "deepv_tpu/ops/attention.py:73",
-        "launches": training["launches"]["attn_fwd_f32"],
+        "launches": training["launches"]["attn_fwd_tf32x3"],
         "max_abs_err": max(r["err_f32_kernel"] for r in results["attention_layouts"]),
         "ms": f32_row["ms"],
         "plain_ms": f32_row["plain_ms"],
@@ -2094,7 +2172,11 @@ def main() -> int:
         "bound_by": f32_row["bound_by"],
         "library_ms": f32_row["library_ms"],
         "shape": (f"stage 2, b={head['b']}, S={head['S']}, h={head['heads']}, "
-                  f"d={head['head_dim']}, f32; launches: phase 15's f32 training steps"),
+                  f"d={head['head_dim']}, f32; launches: phase 15's f32 training steps; ms and "
+                  f"library_ms back to back; device time {f32_row['graph_ms']:.4f} ms (CUDA "
+                  f"graph) against SDPA f32's kernels {f32_row['library_kernels_ms']:.4f} ms; "
+                  f"bound_ms is 3xTF32's least time (three TF32 products a product at 495 "
+                  f"TF/s), {f32_row['bound_fma_ms']:.4f} ms at the f32 FMA peak"),
     })
     for tag, counter, route in (("f32", "attn_bwd_f32", "tf32x3"),
                                 ("bf16", "attn_bwd_bf16", "wgmma")):
@@ -2176,6 +2258,49 @@ def main() -> int:
                       f"frames, {row['mode']} mode, bf16"
                       + (", x channels-last" if row is on_path else "")),
         })
+    # K2's f32 kernel and its split kernel at 128->128 @384x512 in prime
+    # mode, the class with the most time in the decoder; launches from phase
+    # 8's f32 igemm decode
+    f32_conv = [r for r in conv_rows if r["kernel"] == "tf32x3"]
+    top32 = next(r for r in f32_conv if (r["ci"], r["co"], r["h"], r["w"], r["mode"])
+                 == (128, 128, HEIGHT, WIDTH, "prime"))
+    kernels.append({
+        "name": "conv3d_igemm_tf32x3",
+        "route": "cuda",
+        "source": "deepv_tpu_torch/csrc/conv_igemm.cu",
+        "replaces": "deepv_tpu/ops/conv_igemm.py:57",
+        "launches": decode_f32["f32_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in f32_conv),
+        "ms": top32["kernel_ms"],
+        "plain_ms": top32["plain_ms"],
+        "bound_ms": top32["bound_ms"],
+        "bound_by": top32["bound_by"],
+        "library_ms": top32["library_ms"],
+        "shape": (f"{top32['ci']}->{top32['co']} @{top32['h']}x{top32['w']}, "
+                  f"{top32['frames']} output frames, prime mode, f32; the conv kernel alone "
+                  f"(device time, CUDA graph; the whole call with split_tf32_cl on x and the "
+                  f"weight {top32['ms']:.4f} ms); launches: phase 8's f32 igemm decode; "
+                  f"library_ms is cuDNN's f32 conv with TF32 off; bound_ms is 3xTF32's least "
+                  f"time, {top32['bound_fma_ms']:.4f} ms at the f32 FMA peak"),
+    })
+    sp = top32["split"]
+    kernels.append({
+        "name": "split_tf32_cl",
+        "route": "cuda",
+        "source": "deepv_tpu_torch/csrc/conv_igemm.cu",
+        "replaces": "deepv_tpu/ops/conv_igemm.py:57",
+        "launches": decode_f32["split_launches"],
+        "max_abs_err": 0.0,
+        "ms": sp["ms"],
+        "plain_ms": sp["plain_ms"],
+        "bound_ms": sp["bound_ms"],
+        "bound_by": sp["bound_by"],
+        "library_ms": None,
+        "shape": (f"x of the {top32['ci']}->{top32['co']} @{top32['h']}x{top32['w']} prime case "
+                  "into its two channels-last TF32 planes (equal to the plain split bit for "
+                  "bit); part of conv3d_igemm_tf32x3's call, twice a call (x, the weight); no "
+                  "single PyTorch call splits into this layout"),
+    })
     # K3, its quantise step and conv kernel, the bound and cuDNN's bf16 conv
     # summed over the fast rollout's int8 convs by class, as for K2
     k3_per_frame = {}

@@ -50,15 +50,26 @@
 //     zero fill and not stored. S is capped at 65,536 (1,024 key tiles,
 //     the schedule's shared-memory list).
 //
-// attn_fwd_f32 (the exactness check on the card, and f32 forwards): one CTA
-// per (64 query rows, batch*head), 64-key tiles in shared memory, plain FMA
-// in f32, the same online softmax with the mask rebuilt per tile, and a
-// time-only tile skip.
+// attn_fwd_tf32x3 (f32; training in f32 runs it, and f32 forwards): the
+// dQ kernel's shape below (attn_bwd_dq_tf32x3), one CTA per (64 query rows,
+// batch*head), 4 warps of 16 rows, on the TF32 tensor cores by 3xTF32 (each
+// product three mma.sync TF32 products of split operands, about f32
+// accuracy: tf32x3.cuh). Q is split into registers once; the kept K and V
+// tiles (the backward's mask schedule, the own tile on the query side) come
+// through a 2-stage cp.async ring of 68-float rows; S = Q.K^T, the online
+// softmax in base 2 in the accumulators' registers (row max and sum over the
+// 4 lanes of a row), O += P.V with P straight from the accumulators in the
+// permuted k order. The grid launches the last query tiles (the longest under
+// a causal mask) first. wgmma takes tf32 only with both operands K-major, and
+// P.V's V is MN-major, so mma.sync reads V in either orientation instead.
+// It replaces a plain FMA kernel that reached a fifth of the f32 FMA rate
+// on an H100.
 //
 // Both forwards write, when given an lse pointer (training), each row's
 // log-sum-exp of its masked, scaled logits in the natural log, [b, h, S]
-// f32: m + log(l) (attn_fwd_wgmma keeps m and l in base 2 and stores
-// ln 2 * (m + log2 l)). Without it (inference) nothing changes.
+// f32: m + log(l) (both keep m and l in base 2 and store ln 2 * (m +
+// log2 l)). Without it (inference) nothing changes: the output is the same
+// bit for bit.
 //
 // Backward (no TPU kernel: deepv_tpu trains through its jnp attention,
 // models/mmdit.py:289-299, which jax.value_and_grad differentiates). With
@@ -105,8 +116,9 @@
 //     0x1000) & ~0x1fff: ptxas emulates the cvt with a longer sequence);
 //     each product is three mma.sync.m16n8k8 TF32 products (small.big +
 //     big.small + big.big) with f32 accumulation, which keeps about f32
-//     accuracy (the dropped small.small term is 2^-22 of the product).
-//     wgmma takes tf32 only with both operands K-major, and three of each
+//     accuracy (the dropped small.small term is 2^-22 of the product;
+//     tf32x3.cuh, shared with the f32 forward and conv_igemm.cu). wgmma
+//     takes tf32 only with both operands K-major, and three of each
 //     kernel's four products need a transposed one, so mma.sync reads its
 //     fragments from shared memory in either orientation: rows of 68 floats
 //     make both the row reads and the column reads of a fragment
@@ -125,30 +137,12 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
 constexpr int kD = 64;          // head dim
 constexpr float kMasked = -1e30f;
-
-// attn_fwd_f32's tiles
-constexpr int kBQ = 64;         // query rows per CTA
-constexpr int kBK = 64;         // keys per tile
-constexpr int kWarps = 4;       // each warp owns 16 query rows
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = kBQ / kWarps;
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_min(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fminf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -156,178 +150,11 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Per-tile vectors: valid and time of the tile's 64 rows (queries or keys).
-__device__ __forceinline__ void load_vectors(int* sv, float* st, const int* valid,
-                                             const float* times, int bi, int s,
-                                             int start) {
-  const int t = threadIdx.x;
-  if (t < 64) {
-    const int r = start + t;
-    sv[t] = r < s ? valid[(size_t)bi * s + r] : -1;
-    st[t] = r < s ? times[r] : 0.f;
-  }
-}
-
-// Largest (want_max) or smallest in-range time of a 64-row tile, computed
-// by each warp on its own so every thread reaches the same value.
-__device__ __forceinline__ float tile_time_bound(const float* st, int start, int s,
-                                                 bool want_max) {
-  const int lane = threadIdx.x & 31;
-  const float fill = want_max ? -INFINITY : INFINITY;
-  const float a = start + lane < s ? st[lane] : fill;
-  const float b = start + lane + 32 < s ? st[lane + 32] : fill;
-  return want_max ? warp_max(fmaxf(a, b)) : warp_min(fminf(a, b));
-}
-
 // Row r of the (b, h) slice of a [b, S, h, 64] tensor.
 template <typename T>
 __device__ __forceinline__ const T* row_ptr(const T* base, int bi, int hi, int r,
                                             int s, int h) {
   return base + (((size_t)bi * s + r) * h + hi) * kD;
-}
-
-// Online-softmax update of one row from its two logits (columns lane and
-// lane+32 of the tile). Returns the two probabilities; updates m and l.
-__device__ __forceinline__ void online_update(float s0, float s1, float& m, float& l,
-                                              float& alpha, float& p0, float& p1) {
-  const float m_new = fmaxf(m, warp_max(fmaxf(s0, s1)));
-  alpha = expf(m - m_new);
-  p0 = expf(s0 - m_new);
-  p1 = expf(s1 - m_new);
-  l = l * alpha + warp_sum(p0 + p1);
-  m = m_new;
-}
-
-// Masked, scaled logit of (query row, key column) or -inf for a missing key.
-__device__ __forceinline__ float masked_logit(float dot, float scale, int vq, float tq,
-                                              int vk, float tk, bool key_in_range) {
-  if (!key_in_range) return -INFINITY;
-  return (vq == vk && tq >= tk) ? dot * scale : kMasked;
-}
-
-// ---------------------------------------------------------------------------
-// f32: plain FMA (the exactness check on the card)
-// ---------------------------------------------------------------------------
-
-constexpr int kLdK = kD + 1;    // f32 K row stride: conflict-free column reads
-
-struct SmemF32 {
-  float q[kBQ * kD];
-  float k[kBK * kLdK];
-  float v[kBK * kD];
-  float p[kBQ * kBK];
-  int vq[64];
-  float tq[64];
-  int vk[64];
-  float tk[64];
-};
-
-__device__ __forceinline__ void load_tile_f32(float* dst, int ld, const float* src, int bi,
-                                              int hi, int start, int s, int h) {
-  for (int i = threadIdx.x; i < 64 * (kD / 4); i += kThreads) {
-    const int r = i / (kD / 4);
-    const int c = (i % (kD / 4)) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (start + r < s)
-      val = *reinterpret_cast<const float4*>(row_ptr(src, bi, hi, start + r, s, h) + c);
-    dst[r * ld + c] = val.x;
-    dst[r * ld + c + 1] = val.y;
-    dst[r * ld + c + 2] = val.z;
-    dst[r * ld + c + 3] = val.w;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, const int* __restrict__ valid,
-             const float* __restrict__ times, float* __restrict__ out,
-             float* __restrict__ lse, int s, int h, float scale) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  SmemF32& sm = *reinterpret_cast<SmemF32*>(smem_raw);
-
-  const int q0 = blockIdx.x * kBQ;
-  const int bi = blockIdx.y / h;
-  const int hi = blockIdx.y % h;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int row0 = warp * kRows;
-
-  load_tile_f32(sm.q, kD, q, bi, hi, q0, s, h);
-  load_vectors(sm.vq, sm.tq, valid, times, bi, s, q0);
-  __syncthreads();
-  const float tq_max = tile_time_bound(sm.tq, q0, s, true);
-
-  float m[kRows], l[kRows], o0[kRows], o1[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) { m[r] = -INFINITY; l[r] = 0.f; o0[r] = 0.f; o1[r] = 0.f; }
-
-  const int n_tiles = (s + kBK - 1) / kBK;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();
-    load_vectors(sm.vk, sm.tk, valid, times, bi, s, k0);
-    __syncthreads();
-    if (tile_time_bound(sm.tk, k0, s, false) > tq_max) continue;
-    load_tile_f32(sm.k, kLdK, k, bi, hi, k0, s, h);
-    load_tile_f32(sm.v, kD, v, bi, hi, k0, s, h);
-    __syncthreads();
-
-    // logits of keys lane and lane+32 for the warp's 16 rows
-    float d0[kRows], d1[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) { d0[r] = 0.f; d1[r] = 0.f; }
-    for (int d = 0; d < kD; ++d) {
-      const float ka = sm.k[lane * kLdK + d];
-      const float kb = sm.k[(lane + 32) * kLdK + d];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float qv = sm.q[(row0 + r) * kD + d];
-        d0[r] = fmaf(qv, ka, d0[r]);
-        d1[r] = fmaf(qv, kb, d1[r]);
-      }
-    }
-
-    const bool in0 = k0 + lane < s, in1 = k0 + lane + 32 < s;
-    const int vk0 = sm.vk[lane], vk1 = sm.vk[lane + 32];
-    const float tk0 = sm.tk[lane], tk1 = sm.tk[lane + 32];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int row = row0 + r;
-      const float s0 = masked_logit(d0[r], scale, sm.vq[row], sm.tq[row], vk0, tk0, in0);
-      const float s1 = masked_logit(d1[r], scale, sm.vq[row], sm.tq[row], vk1, tk1, in1);
-      float alpha, p0, p1;
-      online_update(s0, s1, m[r], l[r], alpha, p0, p1);
-      sm.p[row * kBK + lane] = p0;
-      sm.p[row * kBK + lane + 32] = p1;
-      o0[r] *= alpha;
-      o1[r] *= alpha;
-    }
-    __syncwarp();
-
-    // outputs of head-dim columns lane and lane+32
-    for (int c = 0; c < kBK; ++c) {
-      const float va = sm.v[c * kD + lane];
-      const float vb = sm.v[c * kD + lane + 32];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float p = sm.p[(row0 + r) * kBK + c];
-        o0[r] = fmaf(p, va, o0[r]);
-        o1[r] = fmaf(p, vb, o1[r]);
-      }
-    }
-    __syncwarp();
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int row = row0 + r;
-    if (q0 + row >= s) continue;
-    const float inv = 1.f / l[r];
-    float* dst = out + (((size_t)bi * s + q0 + row) * h + hi) * kD;
-    dst[lane] = o0[r] * inv;
-    dst[lane + 32] = o1[r] * inv;
-    if (lse != nullptr && lane == 0) lse[((size_t)bi * h + hi) * s + q0 + row] = m[r] + logf(l[r]);
-  }
 }
 
 template <typename Kernel>
@@ -746,6 +573,7 @@ int launch(const void* q, const void* k, const void* v, const int* valid, const 
 namespace bwd {
 
 using namespace hopper;
+using namespace tf32x3;
 
 constexpr int kT = 64;           // own rows of a CTA; rows of a streamed tile
 constexpr int kMaxTiles = 1024;  // 64-row tiles of one sequence: S <= 65,536
@@ -1218,59 +1046,40 @@ __device__ __forceinline__ void load_rows_async(float* dst, const float* __restr
   }
 }
 
-// x rounded to TF32 (10 stored mantissa bits) to nearest, ties away from
-// zero: what cvt.rna.tf32.f32 gives for finite x, in two integer operations
-// (ptxas emulates the cvt with a longer sequence)
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+// The split A fragment of k-step ks of the warp's rows r, r + 8 of an own
+// tile: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+__device__ __forceinline__ void split_a_fragment(uint32_t (&ab)[4], uint32_t (&as)[4],
+                                                 const float* own, int r, int ks, int t) {
+  const float* pa = own + r * kLdF + 8 * ks + t;
+  split_tf32(pa[0], ab[0], as[0]);
+  split_tf32(pa[8 * kLdF], ab[1], as[1]);
+  split_tf32(pa[4], ab[2], as[2]);
+  split_tf32(pa[8 * kLdF + 4], ab[3], as[3]);
 }
 
-// x = big + small, both TF32: big = tf32(x), small = tf32(x - big)
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
-  big = tf32_rna(x);
-  small = tf32_rna(x - __uint_as_float(big));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a . b to about f32 accuracy: three TF32 products of the split
-// operands, the small ones first (small . small, 2^-22 of the product, dropped)
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ab)[4],
-                                           const uint32_t (&as)[4], float b0, float b1) {
-  uint32_t bb0, bs0, bb1, bs1;
-  split_tf32(b0, bb0, bs0);
-  split_tf32(b1, bb1, bs1);
-  mma_tf32(d, as, bb0, bb1);
-  mma_tf32(d, ab, bs0, bs1);
-  mma_tf32(d, ab, bb0, bb1);
+// acc[nt] += A(k-step ks) . B^T: B a streamed [64 rows][kLdF] tile (n = its
+// rows); b0 (k t, n g), b1 (k t + 4, n g)
+__device__ __forceinline__ void k_step_3xtf32(float (&acc)[8][4], const uint32_t (&ab)[4],
+                                              const uint32_t (&as)[4], const float* tile, int ks,
+                                              int g, int t) {
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const float* pb = tile + (8 * nt + g) * kLdF + 8 * ks + t;
+    mma_3xtf32(acc[nt], ab, as, pb[0], pb[4]);
+  }
 }
 
 // acc[nt] = A . B^T over the head dim: A the warp's rows r, r + 8 of an own
-// tile, B a streamed [64 rows][kLdF] tile (n = its rows); a0 (g, t), a1
-// (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4); b0 (k t, n g), b1 (k t + 4, n g)
+// tile, B a streamed [64 rows][kLdF] tile
 __device__ __forceinline__ void rows_dot_3xtf32(float (&acc)[8][4], const float* own,
                                                 const float* tile, int r, int g, int t) {
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
 #pragma unroll
   for (int ks = 0; ks < kD / 8; ++ks) {
-    const float* pa = own + r * kLdF + 8 * ks + t;
     uint32_t ab[4], as[4];
-    split_tf32(pa[0], ab[0], as[0]);
-    split_tf32(pa[8 * kLdF], ab[1], as[1]);
-    split_tf32(pa[4], ab[2], as[2]);
-    split_tf32(pa[8 * kLdF + 4], ab[3], as[3]);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const float* pb = tile + (8 * nt + g) * kLdF + 8 * ks + t;
-      mma_3xtf32(acc[nt], ab, as, pb[0], pb[4]);
-    }
+    split_a_fragment(ab, as, own, r, ks, t);
+    k_step_3xtf32(acc, ab, as, tile, ks, g, t);
   }
 }
 
@@ -1295,14 +1104,15 @@ __device__ __forceinline__ void acc_times_rows_3xtf32(float (&acc)[8][4], const 
 }
 
 // The warp's rows r, r + 8 (of global row0, row0 + 8) of an accumulator
-// tile times `mul` into [b, S, h, 64]
+// tile into [b, S, h, 64], row r times mul0, row r + 8 times mul1
 __device__ __forceinline__ void store_rows_f32(float* __restrict__ dst, const float (&acc)[8][4],
-                                               float mul, int bi, int hi, int row0, int s, int h,
-                                               int t) {
+                                               float mul0, float mul1, int bi, int hi, int row0,
+                                               int s, int h, int t) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = row0 + 8 * half;
     if (row >= s) continue;
+    const float mul = half ? mul1 : mul0;
     float* p = dst + (((size_t)bi * s + row) * h + hi) * kD + 2 * t;
 #pragma unroll
     for (int nd = 0; nd < 8; ++nd)
@@ -1401,8 +1211,8 @@ attn_bwd_dkdv_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
     acc_times_rows_3xtf32(adv, sc, ys, g, t);         // dV += P^T.dO
     acc_times_rows_3xtf32(adk, dp, xs, g, t);         // dK += dS^T.Q
   }
-  store_rows_f32(dk, adk, scale, bi, hi, key0, s, h, t);
-  store_rows_f32(dv, adv, 1.f, bi, hi, key0, s, h, t);
+  store_rows_f32(dk, adk, scale, scale, bi, hi, key0, s, h, t);
+  store_rows_f32(dv, adv, 1.f, 1.f, bi, hi, key0, s, h, t);
 }
 
 // dQ of 64 query rows: warp w's 16 rows hold S = Q.K^T and dP = dO.V^T of
@@ -1485,8 +1295,130 @@ attn_bwd_dq_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
       }
     acc_times_rows_3xtf32(adq, dp, xs, g, t);         // dQ += dS.K
   }
-  store_rows_f32(dq, adq, scale, bi, hi, row0, s, h, t);
+  store_rows_f32(dq, adq, scale, scale, bi, hi, row0, s, h, t);
   wait_primary();
+}
+
+// The forward in f32: O of 64 query rows. Warp w's 16 rows keep their Q
+// split in registers, and for each kept key tile compute S = Q.K^T, the
+// online softmax in base 2 (logits times scale log2 e; row max and sum over
+// the 4 lanes of a row, the sum kept per lane until the end) and O += P.V
+__global__ void __launch_bounds__(kFThreads, 2)
+attn_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const int* __restrict__ valid,
+                const float* __restrict__ times, float* __restrict__ out,
+                float* __restrict__ lse, int s, int h, float scale_log2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sm = reinterpret_cast<float*>(smem_raw);
+  Sched& sched = *reinterpret_cast<Sched*>(sm + kFSched);
+  const int own0 = own_tile_start(true);
+  const int bi = blockIdx.x / h, hi = blockIdx.x % h;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r = 16 * warp + g;                        // own rows r and r + 8
+
+  load_rows_async(sm + kFOwnA, q, bi, hi, own0, s, h);
+  cp_async_commit();
+  const int n = build_schedule<kFThreads / 32>(sched, valid, times, bi, s, own0, true);
+#pragma unroll
+  for (int p = 0; p < kFStages - 1; ++p) {
+    if (p < n)
+      f32_issue(sm, sched.list, p, k, v, nullptr, nullptr, valid, times, bi, hi, s, h);
+    cp_async_commit();
+  }
+  const int row0 = own0 + r;
+  float tq[2];
+  int vq[2];
+#pragma unroll
+  for (int qr = 0; qr < 2; ++qr) {
+    const int row = row0 + 8 * qr;
+    vq[qr] = row < s ? valid[(size_t)bi * s + row] : 0;
+    tq[qr] = row < s ? times[row] : 0.f;
+  }
+  const bool warp_in = own0 + 16 * warp < s;
+
+  cp_async_wait<kFStages - 1>();                      // Q landed
+  __syncthreads();
+  uint32_t qb[kD / 8][4], qs[kD / 8][4];
+#pragma unroll
+  for (int ks = 0; ks < kD / 8; ++ks) split_a_fragment(qb[ks], qs[ks], sm + kFOwnA, r, ks, t);
+
+  float o[8][4];
+#pragma unroll
+  for (int nd = 0; nd < 8; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};   // l: this lane's columns
+
+  for (int j = 0; j < n; ++j) {
+    cp_async_wait<kFStages - 2>();
+    __syncthreads();                                  // tile j landed; tile j - 1's readers done
+    if (j + kFStages - 1 < n)
+      f32_issue(sm, sched.list, j + kFStages - 1, k, v, nullptr, nullptr, valid, times, bi, hi,
+                s, h);
+    cp_async_commit();
+    if (!warp_in) continue;
+    const int st = j % kFStages;
+    const int entry = sched.list[j];
+    const bool partial = entry & 0x8000;
+    const int k0 = (entry & 0x7fff) * kT;
+    const float* xs = sm + kFRingX + st * kTileF;     // K
+    const float* ys = sm + kFRingY + st * kTileF;     // V
+    const float* vs = sm + kFVec + st * kVecFloats;
+    const int* ivs = reinterpret_cast<const int*>(vs);
+
+    // S [queries][keys]; sc[nt][e] is (row r + 8 (e >> 1), key 8 nt + 2t + (e & 1))
+    float sc[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kD / 8; ++ks) k_step_3xtf32(sc, qb[ks], qs[ks], xs, ks, g, t);
+
+    // logits in the log2 domain; the mask only on partial tiles
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * nt + 2 * t + (e & 1);
+        const int qr = e >> 1;
+        float x = sc[nt][e] * scale_log2;
+        if (partial)
+          x = k0 + col >= s ? -INFINITY
+              : (vq[qr] == ivs[2 * kT + col] && tq[qr] >= vs[3 * kT + col]) ? x : kMasked;
+        sc[nt][e] = x;
+        mx[qr] = fmaxf(mx[qr], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int qr = 0; qr < 2; ++qr) {
+      const float mn = fmaxf(m[qr], wg::quad_max(mx[qr]));
+      alpha[qr] = exp2f(m[qr] - mn);
+      m[qr] = mn;
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qr = e >> 1;
+        sc[nt][e] = exp2f(sc[nt][e] - m[qr]);
+        sum[qr] += sc[nt][e];
+        o[nt][e] *= alpha[qr];
+      }
+    l[0] = l[0] * alpha[0] + sum[0];
+    l[1] = l[1] * alpha[1] + sum[1];
+    acc_times_rows_3xtf32(o, sc, ys, g, t);           // O += P.V
+  }
+
+  // epilogue: 1/l, the row LSE in the natural log: ln 2 * (m + log2 l)
+  const float sum0 = wg::quad_sum(l[0]), sum1 = wg::quad_sum(l[1]);
+  if (lse != nullptr && t == 0) {
+    float* dst = lse + ((size_t)bi * h + hi) * s;
+    if (row0 < s) dst[row0] = (m[0] + log2f(sum0)) * wg::kLn2;
+    if (row0 + 8 < s) dst[row0 + 8] = (m[1] + log2f(sum1)) * wg::kLn2;
+  }
+  store_rows_f32(out, o, 1.f / sum0, 1.f / sum1, bi, hi, row0, s, h, t);
 }
 
 template <typename Kernel, typename... Args>
@@ -1515,6 +1447,16 @@ cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid, int threads, 
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+}
+
+// attn_fwd_tf32x3 on the grid (b * h, ceil(S / 64)), heaviest query tiles first
+int launch_fwd_f32(const float* q, const float* k, const float* v, const int* valid,
+                   const float* times, float* out, float* lse, int b, int s, int h,
+                   cudaStream_t stream) {
+  if (s > kMaxTiles * kT || (int64_t)b * h > INT_MAX) return (int)cudaErrorInvalidValue;
+  const dim3 grid(b * h, (s + kT - 1) / kT);
+  return (int)launch_smem(attn_fwd_tf32x3, grid, kFThreads, kFSmem, stream, q, k, v, valid,
+                          times, out, lse, s, h, kLog2e / sqrtf((float)kD));
 }
 
 int launch(const void* q, const void* k, const void* v, const void* out, const void* dout,
@@ -1569,10 +1511,10 @@ int launch(const void* q, const void* k, const void* v, const void* out, const v
 
 }  // namespace
 
-// dtype: 0 = float32 (attn_fwd_f32), 1 = bfloat16 (attn_fwd_wgmma). Pointers
-// are device pointers of contiguous tensors: q/k/v/out [b, s, h, d], valid
-// [b, s] int32, times [s] float32, lse [b, h, s] float32 or null (then the
-// row log-sum-exp is not written); bf16 q/k/v 16-byte aligned and s <=
+// dtype: 0 = float32 (attn_fwd_tf32x3), 1 = bfloat16 (attn_fwd_wgmma).
+// Pointers are device pointers of contiguous tensors: q/k/v/out [b, s, h, d],
+// valid [b, s] int32, times [s] float32, lse [b, h, s] float32 or null (then
+// the row log-sum-exp is not written); q/k/v 16-byte aligned and s <=
 // 65,536. Launches on `stream`; returns a cudaError_t, or 1000 + the
 // CUresult of a tensor map that could not be encoded.
 extern "C" int deepv_attention_fwd(const void* q, const void* k, const void* v,
@@ -1584,16 +1526,13 @@ extern "C" int deepv_attention_fwd(const void* q, const void* k, const void* v,
   if (dtype == 1)
     return wg::launch(q, k, v, static_cast<const int*>(valid), static_cast<const float*>(times),
                       static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), b, s, h, st);
-  const dim3 grid((s + kBQ - 1) / kBQ, b * h);
-  const float scale = 1.f / sqrtf((float)d);
-  cudaError_t err = allow_smem(attn_fwd_f32, sizeof(SmemF32));
-  if (err != cudaSuccess) return (int)err;
-  attn_fwd_f32<<<grid, kThreads, sizeof(SmemF32), st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const int*>(valid),
-      static_cast<const float*>(times), static_cast<float*>(out), static_cast<float*>(lse), s,
-      h, scale);
-  return (int)cudaGetLastError();
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v)) % 16)
+    return (int)cudaErrorInvalidValue;
+  return bwd::launch_fwd_f32(static_cast<const float*>(q), static_cast<const float*>(k),
+                             static_cast<const float*>(v), static_cast<const int*>(valid),
+                             static_cast<const float*>(times), static_cast<float*>(out),
+                             static_cast<float*>(lse), b, s, h, st);
 }
 
 // The backward of deepv_attention_fwd: dq, dk, dv [b, s, h, d] of q/k/v

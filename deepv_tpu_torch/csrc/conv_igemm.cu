@@ -17,7 +17,7 @@
 // bound it, far above the bf16 ridge point (~295 operations per byte). Inside
 // the card the next limit is the bytes a tile pulls from L2 per operation.
 //
-// Two kernels, chosen by the wrapper (ops/conv_igemm.py::kernel_for):
+// Two conv kernels, chosen by the wrapper (ops/conv_igemm.py::kernel_for):
 //
 // conv3d_igemm_wgmma<BN, A> (bf16), one template whose A operand comes from
 // one of two layouts of x; the B operand, the K walk, the tiles and the
@@ -78,9 +78,34 @@
 //     into y [b, co, t, h, w] (element by element where w % 8 != 0), clipped
 //     at w and h; 64-bit offsets.
 //
-// conv3d_igemm_f32 (float32, the exactness check on the card; no rollout
-// path runs it): plain FMA on a channels-last copy of x and a [(kt, kh, kw,
-// ci), co] weight.
+// conv3d_igemm_tf32x3 (float32), the channels-last path's structure on the
+// TF32 tensor cores by 3xTF32 (tf32x3.cuh): each f32 product is three TF32
+// products, small.big + big.small + big.big, of operands split as big =
+// tf32(x) and small = tf32(x - big), with f32 accumulation, about f32
+// accuracy at three times the TF32 work (165 TF/s of f32 products against
+// the 67 TF/s of f32 FMA). wgmma takes tf32 only K-major, from shared
+// memory, which channels-last x and the [27, co, ci] weight are:
+//   * split_tf32_cl splits once per call: x (any strides) into two
+//     channels-last planes [2][b, t, h, w, ci] (big, small) in one pass
+//     through a shared-memory transpose, and the weight [co, ci, 27] into
+//     two planes of the [27, co, ci] layout (the same transpose, ci*co
+//     "channels" of 27 "pixels"), so the main loop does no conversion.
+//   * 32 f32 channels make one 128-byte row, so the cl path's A trick holds:
+//     one swizzled TMA box of [66 px][32 ci] per unit (kt, kh, 32-channel
+//     chunk), run and plane, read for tap kw from row kw on; the planes are
+//     the map's batch dimension (plane * b + batch). B stages hold one
+//     tap's [128 co][32 ci] of both planes.
+//   * Per tap and run, 4 k8 slices x 3 wgmma.m64n128k8.f32.tf32.tf32 with A
+//     and B from shared memory. The tensor cores round each product into
+//     their accumulator with less than f32's precision (on an H100 the error
+//     grew with K, to 1.3e-3 at ci = 512), so a tap's 12 products start a
+//     partial sum that is added to the f32 accumulator in registers. Units
+//     whose input frame lies wholly in the causal past are skipped.
+//   * The same producer thread and two consumer warpgroups, 128 x 128 tiles,
+//     and an f32 epilogue (bias added after the sum, 16-byte stores).
+//   It replaces a plain FMA kernel on a channels-last copy (a 64 x 64 tile,
+//   synchronous scattered loads, every tap walked) that reached 42% of the
+//   f32 FMA rate on an H100.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -88,106 +113,13 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
-struct Shape {
-  int b, ci, co, t_in, t_out, h, w, time_pad;
-};
-
-// Offset of x[bi, ti, hi, wi, c] in the channels-last input, or -1 when the
-// tap falls in the zero halo (causal past, spatial border).
-__device__ __forceinline__ int64_t tap_offset(const Shape& s, int bi, int ti, int hi, int wi,
-                                              int c) {
-  if (ti < 0 || hi < 0 || hi >= s.h || wi < 0 || wi >= s.w) return -1;
-  return ((((int64_t)bi * s.t_in + ti) * s.h + hi) * s.w + wi) * s.ci + c;
-}
-
 // ---------------------------------------------------------------------------
-// f32: plain FMA (the exactness check on the card)
-// ---------------------------------------------------------------------------
-
-constexpr int kFThreads = 256;
-constexpr int kFBM = 64;          // output pixels per CTA
-constexpr int kFBN = 64;          // output channels per CTA
-constexpr int kFBK = 16;          // input channels per K step
-constexpr int kFLdA = kFBM + 4;   // [k][pixel] rows, 16-byte aligned
-
-__global__ void __launch_bounds__(kFThreads)
-conv3d_igemm_f32(const float* __restrict__ x, const float* __restrict__ wr,
-                 const float* __restrict__ bias, float* __restrict__ y, Shape s) {
-  __shared__ __align__(16) float sa[kFBK * kFLdA];   // [k][pixel]
-  __shared__ __align__(16) float sb[kFBK * kFBN];    // [k][co]
-
-  const int hw = s.h * s.w;
-  const int m0 = blockIdx.x * kFBM;
-  const int n0 = blockIdx.y * kFBN;
-  const int bi = blockIdx.z / s.t_out;
-  const int to = blockIdx.z % s.t_out;
-  const int tid = threadIdx.x;
-
-  // loads: A row (pixel) tid/4 with 4 channels at (tid%4)*4; B row tid/16, 4 co at (tid%16)*4
-  const int a_row = tid >> 2, a_c = (tid & 3) * 4;
-  const int p = m0 + a_row;
-  const bool a_ok = p < hw;
-  const int a_h = p / s.w, a_w = p % s.w;
-  const int b_row = tid >> 4, b_c = (tid & 15) * 4;
-  // compute: 4 pixels at ty*4, 4 channels at tx*4
-  const int tx = tid & 15, ty = tid >> 4;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  const int ci_steps = s.ci / kFBK;
-  const int k_iters = 27 * ci_steps;
-  for (int it = 0; it < k_iters; ++it) {
-    const int tap = it / ci_steps;
-    const int c0 = (it - tap * ci_steps) * kFBK;
-    const int kt = tap / 9, kh = (tap / 3) % 3, kw = tap % 3;
-    const int64_t off = a_ok ? tap_offset(s, bi, to + kt - s.time_pad, a_h + kh - 1,
-                                          a_w + kw - 1, c0 + a_c)
-                             : -1;
-    const float4 a = off >= 0 ? *reinterpret_cast<const float4*>(x + off)
-                              : make_float4(0.f, 0.f, 0.f, 0.f);
-    sa[(a_c + 0) * kFLdA + a_row] = a.x;
-    sa[(a_c + 1) * kFLdA + a_row] = a.y;
-    sa[(a_c + 2) * kFLdA + a_row] = a.z;
-    sa[(a_c + 3) * kFLdA + a_row] = a.w;
-    *reinterpret_cast<float4*>(sb + b_row * kFBN + b_c) = *reinterpret_cast<const float4*>(
-        wr + ((int64_t)tap * s.ci + c0 + b_row) * s.co + n0 + b_c);
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kFBK; ++k) {
-      const float4 av = *reinterpret_cast<const float4*>(sa + k * kFLdA + ty * 4);
-      const float4 bv = *reinterpret_cast<const float4*>(sb + k * kFBN + tx * 4);
-      const float ai[4] = {av.x, av.y, av.z, av.w};
-      const float bj[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ai[i], bj[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  const int m = m0 + ty * 4;
-  if (m >= hw) return;                     // hw is a multiple of 4: whole groups drop
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int n = n0 + tx * 4 + j;
-    const float bv = bias[n];
-    float* dst = y + (((int64_t)bi * s.co + n) * s.t_out + to) * hw + m;
-    *reinterpret_cast<float4*>(dst) =
-        make_float4(acc[0][j] + bv, acc[1][j] + bv, acc[2][j] + bv, acc[3][j] + bv);
-  }
-}
-
-
-// ---------------------------------------------------------------------------
-// bf16: TMA-fed wgmma, A from x [b, ci, t, h, w] or from x channels-last
+// TMA-fed wgmma: bf16 with A from x [b, ci, t, h, w] or from x channels-last,
+// f32 by 3xTF32 from split channels-last planes
 // ---------------------------------------------------------------------------
 
 namespace wg {
@@ -349,9 +281,9 @@ __device__ __forceinline__ void consumer_sync() {   // the two consumer warpgrou
 }
 
 // Run `run` of the frame: its row and first column.
-__device__ __forceinline__ void run_origin(const Params& p, int run, int& hh, int& w0) {
-  hh = run / p.runs_per_row;
-  w0 = (run - hh * p.runs_per_row) * kRun;
+__device__ __forceinline__ void run_origin(int runs_per_row, int run, int& hh, int& w0) {
+  hh = run / runs_per_row;
+  w0 = (run - hh * runs_per_row) * kRun;
 }
 
 __device__ __forceinline__ uint32_t pack2(uint16_t lo, uint16_t hi) {
@@ -417,7 +349,7 @@ conv3d_igemm_wgmma(const __grid_constant__ CUtensorMap tmap_x,
         const uint32_t stage = a_ring + sa * T::kABytes;
         for (int r = 0; r < kRuns; ++r) {
           int hh, w0;
-          run_origin(p, m_tile * kRuns + r, hh, w0);
+          run_origin(p.runs_per_row, m_tile * kRuns + r, hh, w0);
           if constexpr (A == kNcdhw) {
             tma_load_5d(stage + r * kBoxBytes, &tmap_x, a_full + 8 * sa, w0 - kHalo, hh + kh - 1,
                         ti, c0, bi);
@@ -546,7 +478,7 @@ conv3d_igemm_wgmma(const __grid_constant__ CUtensorMap tmap_x,
       const int c = idx - n * (kRuns * 8);
       const int r = c >> 3, px8 = (c & 7) * 8;
       int hh, w0;
-      run_origin(p, m_tile * kRuns + r, hh, w0);
+      run_origin(p.runs_per_row, m_tile * kRuns + r, hh, w0);
       if (hh >= p.h || w0 + px8 >= p.w) continue;
       const __nv_bfloat16* src = st + n * T::kLdC + r * kRun + px8;
       __nv_bfloat16* dst = p.y + (((int64_t)bi * p.co + n0 + n) * p.t_out + to) * hw +
@@ -618,29 +550,341 @@ int launch(const void* x, const void* wk, const Params& p, int t_in, const int64
   return (int)cudaGetLastError();
 }
 
+// ---- f32: 3xTF32 wgmma from split channels-last planes ----
+
+namespace tf {
+
+using namespace tf32x3;
+
+constexpr int kBK = 32;                          // f32 channels per unit: one 128-byte row
+constexpr int kBN = 128;                         // output channels of a tile
+constexpr int kBoxBytes = kBoxSwz;               // one [66 px][32 ci] f32 box, 1024-aligned
+constexpr int kBoxTx = kClW * kBK * 4;           // bytes TMA writes per box
+constexpr int kABytes = 2 * kRuns * kBoxBytes;   // an A stage: both planes, both runs
+constexpr int kBPlane = kBN * kBK * 4;           // one plane of a tap's [128 co][32 ci], 16 KB
+constexpr int kBBytes = 2 * kBPlane;             // a B stage: both planes of one tap
+constexpr int kAStages = 2;
+constexpr int kBStages = 4;
+constexpr int kRingBytes = kAStages * kABytes + kBStages * kBBytes;
+constexpr int kLdC = kBM + 4;                    // f32 [co][px] epilogue row stride
+constexpr int kSmemBytes = kRingBytes + 2 * (kAStages + kBStages) * 8 + 1024;
+static_assert(kRingBytes <= kRingBudget, "the rings exceed their budget");
+static_assert(kBN * kLdC * 4 <= kRingBytes, "epilogue tile exceeds the ring");
+
+struct Params {
+  int b, ci, co, t_out, h, w, time_pad;
+  int runs_per_row, m_tiles;
+  const float* bias;
+  float* y;
+};
+
+// D[64 x 128] (+)= A[64 x 8] * B[8 x 128] in TF32, A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64], uint64_t da, uint64_t db,
+                                                     int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// src (n, c, t, h, w) at element strides (sn, sc, st, sh, sw) -> dst planes
+// [2][n, t, h, w, c]: big = tf32(x) at dst, small = tf32(x - big) one plane
+// on. Tiles of 32 pixels (t, h, w flattened) x 32 channels through shared
+// memory: reads along the pixels, writes along the channels.
+__global__ void __launch_bounds__(256)
+split_tf32_cl(const float* __restrict__ src, float* __restrict__ dst, int n, int c, int t,
+              int h, int w, int64_t sn, int64_t sc, int64_t st, int64_t sh, int64_t sw) {
+  __shared__ float tile[32][33];
+  const int64_t thw = (int64_t)t * h * w;
+  const int64_t p_tiles = (thw + 31) / 32;
+  const int c_tiles = (c + 31) / 32;
+  const int64_t n_tiles = p_tiles * c_tiles * n;
+  const int64_t plane = (int64_t)n * thw * c;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  for (int64_t i = blockIdx.x; i < n_tiles; i += gridDim.x) {
+    const int64_t pt = i % p_tiles;
+    const int64_t rest = i / p_tiles;
+    const int c0 = (int)(rest % c_tiles) * 32;
+    const int bi = (int)(rest / c_tiles);
+    const int64_t p0 = pt * 32;
+    const int64_t p = p0 + tx;                       // the pixel this thread reads
+    int64_t off = -1;
+    if (p < thw) {
+      const int ww = (int)(p % w);
+      const int64_t q = p / w;
+      off = bi * sn + (q / h) * st + (q % h) * sh + ww * sw;
+    }
+    __syncthreads();                                 // the previous tile's readers are done
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int cc = c0 + ty + 8 * k;
+      tile[ty + 8 * k][tx] = off >= 0 && cc < c ? src[off + cc * sc] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int64_t pp = p0 + ty + 8 * k;
+      const int cc = c0 + tx;
+      if (pp >= thw || cc >= c) continue;
+      uint32_t big, small;
+      split_tf32(tile[tx][ty + 8 * k], big, small);
+      const int64_t at = ((int64_t)bi * thw + pp) * c + cc;
+      dst[at] = __uint_as_float(big);
+      dst[plane + at] = __uint_as_float(small);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+conv3d_igemm_tf32x3(const __grid_constant__ CUtensorMap tmap_x,
+                    const __grid_constant__ CUtensorMap tmap_w, const Params p) {
+  extern __shared__ __align__(1024) unsigned char tf_smem[];
+  const uint32_t raw = smem_u32(tf_smem);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = tf_smem + (base - raw);
+  const uint32_t b_ring = base;                                // kBStages x 2 planes [128][32]
+  const uint32_t a_ring = base + kBStages * kBBytes;           // kAStages x 2 planes x 2 runs
+  const uint32_t a_full = base + kRingBytes;                   // barriers, 8 bytes each
+  const uint32_t a_empty = a_full + kAStages * 8;
+  const uint32_t b_full = a_empty + kAStages * 8;
+  const uint32_t b_empty = b_full + kBStages * 8;
+
+  const int m_tile = blockIdx.x;
+  const int n0 = blockIdx.y * kBN;
+  const int bi = blockIdx.z / p.t_out;
+  const int to = blockIdx.z - bi * p.t_out;
+  const int chunks = p.ci / kBK;
+  // units (kt, kh, 32-channel chunk), each three taps kw; units whose input
+  // frame lies in the causal past read only zeros and are skipped
+  const int u_begin = max(0, p.time_pad - to) * 3 * chunks;
+  const int u_end = 9 * chunks;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kAStages; ++s) {
+      mbar_init(a_full + 8 * s, 1);
+      mbar_init(a_empty + 8 * s, kConsumers);
+    }
+    for (int s = 0; s < kBStages; ++s) {
+      mbar_init(b_full + 8 * s, 1);
+      mbar_init(b_empty + 8 * s, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wgi = threadIdx.x / 128;
+  if (wgi == 0) {
+    // ---- producer: one thread keeps both rings full ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      int ib = 0;
+      for (int u = u_begin, ia = 0; u < u_end; ++u, ++ia) {
+        const int sa = ia % kAStages;
+        mbar_wait(a_empty + 8 * sa, ((ia / kAStages) & 1) ^ 1);
+        mbar_expect_tx(a_full + 8 * sa, 2 * kRuns * kBoxTx);
+        const int g = u / chunks;
+        const int c0 = (u - g * chunks) * kBK;
+        const int kt = g / 3, kh = g - 3 * (g / 3);
+        const int ti = to + kt - p.time_pad;
+        for (int plane = 0; plane < 2; ++plane)
+          for (int r = 0; r < kRuns; ++r) {
+            int hh, w0;
+            run_origin(p.runs_per_row, m_tile * kRuns + r, hh, w0);
+            tma_load_5d(a_ring + sa * kABytes + (plane * kRuns + r) * kBoxBytes, &tmap_x,
+                        a_full + 8 * sa, c0, w0 - 1, hh + kh - 1, ti, plane * p.b + bi);
+          }
+        for (int kw = 0; kw < 3; ++kw, ++ib) {
+          const int sb = ib % kBStages;
+          mbar_wait(b_empty + 8 * sb, ((ib / kBStages) & 1) ^ 1);
+          mbar_expect_tx(b_full + 8 * sb, kBBytes);
+          const int tap = kt * 9 + kh * 3 + kw;
+          tma_load_3d(b_ring + sb * kBBytes, &tmap_w, b_full + 8 * sb, c0, n0, tap);
+          tma_load_3d(b_ring + sb * kBBytes + kBPlane, &tmap_w, b_full + 8 * sb, c0, n0,
+                      27 + tap);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup 1 takes run 0 of the tile, warpgroup 2 run 1 ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int ct = threadIdx.x - 128;                   // 0..255
+    const int run = wgi - 1;
+    const int warp = (ct & 127) >> 5, lane = ct & 31;
+    // each tap's 12 products go into a partial sum, started by its first
+    // wgmma (scale-d 0), which is then added to the f32 accumulator
+    float acc[64], part[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) { acc[i] = 0.f; part[i] = 0.f; }
+
+    int ib = 0;
+    for (int u = u_begin, ia = 0; u < u_end; ++u, ++ia) {
+      const int sa = ia % kAStages;
+      mbar_wait(a_full + 8 * sa, (ia / kAStages) & 1);
+      const uint32_t a_big = a_ring + sa * kABytes + run * kBoxBytes;
+      const uint32_t a_small = a_big + kRuns * kBoxBytes;
+#pragma unroll 1
+      for (int kw = 0; kw < 3; ++kw, ++ib) {
+        const int sb = ib % kBStages;
+        mbar_wait(b_full + 8 * sb, (ib / kBStages) & 1);
+        const uint32_t b_big = b_ring + sb * kBBytes, b_small = b_big + kBPlane;
+        fence_acc(part);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 8; ++kk) {
+          // k8 slices are 32 bytes apart in each 128-byte row; tap kw starts
+          // kw rows into the run's box (the swizzle follows the absolute address)
+          const uint32_t ka = kw * 128 + kk * 32, kb = kk * 32;
+          const uint64_t dab = smem_desc(a_big + ka, 16, 1024);
+          const uint64_t das = smem_desc(a_small + ka, 16, 1024);
+          const uint64_t dbb = smem_desc(b_big + kb, 16, 1024);
+          const uint64_t dbs = smem_desc(b_small + kb, 16, 1024);
+          wgmma_m64n128k8_tf32(part, das, dbb, kk);
+          wgmma_m64n128k8_tf32(part, dab, dbs, 1);
+          wgmma_m64n128k8_tf32(part, dab, dbb, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(part);
+        mbar_arrive(b_empty + 8 * sb);
+        if (kw == 2) mbar_arrive(a_empty + 8 * sa);
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[i] += part[i];
+      }
+    }
+    consumer_sync();                                   // the rings are free from here on
+    // epilogue: bias in f32 after the sum, the [co][pixel] tile in shared memory
+    float* stile = reinterpret_cast<float*>(smem);
+    const int px = run * kRun + warp * 16 + (lane >> 2);
+#pragma unroll
+    for (int i8 = 0; i8 < kBN / 8; ++i8) {
+      const int n = i8 * 8 + (lane & 3) * 2;
+      const float b0 = p.bias[n0 + n], b1 = p.bias[n0 + n + 1];
+      stile[n * kLdC + px] = acc[4 * i8 + 0] + b0;
+      stile[(n + 1) * kLdC + px] = acc[4 * i8 + 1] + b1;
+      stile[n * kLdC + px + 8] = acc[4 * i8 + 2] + b0;
+      stile[(n + 1) * kLdC + px + 8] = acc[4 * i8 + 3] + b1;
+    }
+    consumer_sync();
+    const int64_t hw = (int64_t)p.h * p.w;
+    const bool vec = p.w % 4 == 0;                     // rows of y 16-byte aligned
+    for (int idx = ct; idx < kBN * kRuns * 16; idx += kConsumers) {
+      const int n = idx / (kRuns * 16);
+      const int c = idx - n * (kRuns * 16);
+      const int r = c >> 4, px4 = (c & 15) * 4;
+      int hh, w0;
+      run_origin(p.runs_per_row, m_tile * kRuns + r, hh, w0);
+      if (hh >= p.h || w0 + px4 >= p.w) continue;
+      const float* src = stile + n * kLdC + r * kRun + px4;
+      float* dst = p.y + (((int64_t)bi * p.co + n0 + n) * p.t_out + to) * hw +
+                   (int64_t)hh * p.w + w0 + px4;
+      if (vec) {
+        *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+      } else {
+        for (int e = 0; e < 4 && w0 + px4 + e < p.w; ++e) dst[e] = src[e];
+      }
+    }
+  }
+}
+
+// The planes' tensor maps: x planes [2 b, t, h, w, ci] as dims (ci, w, h, t,
+// 2 b), boxes of [66 w][32 ci]; weight planes [2 * 27, co, ci] as dims (ci,
+// co, 54), boxes of [128 co][32 ci]; both with the 128-byte swizzle
+int launch(const float* xp, const float* wp, const Params& p, int t_in, cudaStream_t stream) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap tx, tw;
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  const cuuint64_t xdim[5] = {(cuuint64_t)p.ci, (cuuint64_t)p.w, (cuuint64_t)p.h,
+                              (cuuint64_t)t_in, (cuuint64_t)(2 * p.b)};
+  const cuuint64_t xstride[4] = {(cuuint64_t)p.ci * 4, (cuuint64_t)p.w * p.ci * 4,
+                                 (cuuint64_t)p.h * p.w * p.ci * 4,
+                                 (cuuint64_t)t_in * p.h * p.w * p.ci * 4};
+  const cuuint32_t xbox[5] = {kBK, kClW, 1, 1, 1};
+  CUresult r = encode(&tx, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 5, const_cast<float*>(xp), xdim,
+                      xstride, xbox, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return 1000 + (int)r;
+  const cuuint64_t wdim[3] = {(cuuint64_t)p.ci, (cuuint64_t)p.co, 54};
+  const cuuint64_t wstride[2] = {(cuuint64_t)p.ci * 4, (cuuint64_t)p.ci * p.co * 4};
+  const cuuint32_t wbox[3] = {kBK, kBN, 1};
+  r = encode(&tw, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(wp), wdim, wstride, wbox,
+             ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return 1000 + (int)r;
+  cudaError_t err = cudaFuncSetAttribute(conv3d_igemm_tf32x3,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)p.m_tiles, (unsigned)(p.co / kBN), (unsigned)(p.b * p.t_out));
+  conv3d_igemm_tf32x3<<<grid, kThreads, kSmemBytes, stream>>>(tx, tw, p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tf
+
 }  // namespace wg
 
 }  // namespace
 
-// Kernel conv3d_igemm_f32 on a channels-last copy. Pointers are device
-// pointers of contiguous float32 tensors: x [b, t_in, h, w, ci], wr [27*ci,
-// co] ((kt, kh, kw, ci) rows), bias [co], y [b, co, t_out, h, w]. Requires
-// ci, co multiples of 128, even h and w, time_pad 0 or 2 and t_out = t_in +
-// time_pad - 2 >= 1. Launches on `stream` and returns cudaGetLastError().
-extern "C" int deepv_conv3d_igemm_f32(const void* x, const void* wr, const void* bias, void* y,
-                                      int b, int ci, int co, int t_in, int t_out, int h, int w,
-                                      int time_pad, void* stream) {
+// Kernel split_tf32_cl: src, float32 (n, c, t, h, w) at element strides
+// (sn, sc, st, sh, sw), into dst, two contiguous float32 planes [2][n, t, h,
+// w, c] (big = tf32(x), small = tf32(x - big)). Launches on `stream` and
+// returns cudaGetLastError().
+extern "C" int deepv_split_tf32_cl(const void* src, void* dst, int n, int c, int t, int h, int w,
+                                   int64_t sn, int64_t sc, int64_t st, int64_t sh, int64_t sw,
+                                   void* stream) {
+  if (n <= 0 || c <= 0 || t <= 0 || h <= 0 || w <= 0) return (int)cudaErrorInvalidValue;
+  const int64_t tiles = ((int64_t)t * h * w + 31) / 32 * ((c + 31) / 32) * n;
+  const unsigned grid = (unsigned)(tiles < (1 << 20) ? tiles : (1 << 20));
+  wg::tf::split_tf32_cl<<<grid, 256, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(src), static_cast<float*>(dst), n, c, t, h, w, sn, sc, st, sh,
+      sw);
+  return (int)cudaGetLastError();
+}
+
+// Kernel conv3d_igemm_tf32x3, float32. xp: x's planes from split_tf32_cl,
+// [2][b, t_in, h, w, ci]; wp: the weight's planes [2][27, co, ci]; bias
+// [co]; y [b, co, t_out, h, w] contiguous. The grid follows
+// ops/conv_igemm.py::make_plan at 128-wide tiles: runs_per_row = ceil(w /
+// 64), m_tiles = ceil(h * runs_per_row / 2). Requires ci, co multiples of
+// 128, even h and w, 16-byte aligned xp, wp and y, time_pad 0 or 2 and
+// t_out = t_in + time_pad - 2 >= 1. Launches on `stream`; returns a
+// cudaError_t, or 1000 + the CUresult of a tensor map that could not be
+// encoded.
+extern "C" int deepv_conv3d_igemm_tf32x3(const void* xp, const void* wp, const void* bias,
+                                         void* y, int b, int ci, int co, int t_in, int t_out,
+                                         int h, int w, int time_pad, void* stream) {
   if (b <= 0 || ci <= 0 || co <= 0 || h <= 0 || w <= 0 || ci % 128 || co % 128 || h % 2 ||
       w % 2 || (time_pad != 0 && time_pad != 2) || t_out < 1 ||
-      t_out != t_in + time_pad - 2 || (int64_t)b * t_out > 65535)
+      t_out != t_in + time_pad - 2 || (int64_t)b * t_out > 65535 ||
+      reinterpret_cast<uintptr_t>(xp) % 16 || reinterpret_cast<uintptr_t>(wp) % 16 ||
+      reinterpret_cast<uintptr_t>(y) % 16)
     return (int)cudaErrorInvalidValue;
-  const Shape s{b, ci, co, t_in, t_out, h, w, time_pad};
-  const int64_t hw = (int64_t)h * w;
-  const dim3 grid((unsigned)((hw + kFBM - 1) / kFBM), co / kFBN, b * t_out);
-  conv3d_igemm_f32<<<grid, kFThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(wr),
-      static_cast<const float*>(bias), static_cast<float*>(y), s);
-  return (int)cudaGetLastError();
+  wg::tf::Params p;
+  p.b = b; p.ci = ci; p.co = co; p.t_out = t_out; p.h = h; p.w = w; p.time_pad = time_pad;
+  p.runs_per_row = (w + wg::kRun - 1) / wg::kRun;
+  p.m_tiles = (int)(((int64_t)h * p.runs_per_row + wg::kRuns - 1) / wg::kRuns);
+  p.bias = static_cast<const float*>(bias);
+  p.y = static_cast<float*>(y);
+  return wg::tf::launch(static_cast<const float*>(xp), static_cast<const float*>(wp), p, t_in,
+                        reinterpret_cast<cudaStream_t>(stream));
 }
 
 // Kernel conv3d_igemm_wgmma, bfloat16 only. `a_source` says how x is laid

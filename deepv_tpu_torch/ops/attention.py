@@ -20,8 +20,11 @@ in device memory). A per-tile mask schedule, the rule of ``tile_classes``,
 drops every key tile with no allowed pair and builds the mask only on
 partial tiles; that subsumes the TPU wrapper's ``n_last`` split (the prefix
 x current block is never computed) within one launch. The f32 kernel
-(``attn_fwd_f32``, plain FMA, a time-only tile skip) is the exactness check
-on the card.
+(``attn_fwd_tf32x3``, what f32 training and f32 forwards run) has the f32
+backward's shape below: one CTA per 64 query rows, the same mask schedule,
+K and V tiles through a ``cp.async`` ring, and both products on the TF32
+tensor cores by 3xTF32 (``attention_3xtf32`` is its arithmetic in plain
+PyTorch).
 
 Backward (``attention_backward``, ``csrc/attention.cu``; no TPU kernel:
 deepv_tpu trains through its jnp attention, which ``jax.value_and_grad``
@@ -62,7 +65,7 @@ from typing import Optional
 
 import torch
 
-from .basic import compute_dtype
+from .basic import compute_dtype, tf32_split
 
 #: masked-logit fill, the TPU kernel's (finite, so a fully masked row stays
 #: finite)
@@ -80,7 +83,7 @@ MAX_SEQ = 65536
 BWD_BLOCK = 64
 
 #: launches of the bf16 kernel (attn_fwd_wgmma) and of the f32 kernel
-#: (attn_fwd_f32) since the counts were last set to 0, and of the backward
+#: (attn_fwd_tf32x3) since the counts were last set to 0, and of the backward
 #: (its three kernels, either dtype) once per ``attention_backward`` call
 launches = 0
 f32_launches = 0
@@ -128,26 +131,35 @@ def attention_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return torch.autograd.grad(out, leaves, dout)
 
 
-def tf32_split(x: torch.Tensor):
-    """(big, small) of a float32 tensor, both TF32 values (10 stored mantissa
-    bits) in float32: big = tf32(x), small = tf32(x - big), each rounded to
-    nearest with ties away from zero as ``cvt.rna.tf32.f32`` rounds. big +
-    small rebuilds x to within 2^-21 of |x|. The f32 backward kernels split
-    every operand so."""
-    def rna(t):
-        bits = t.contiguous().view(torch.int32)
-        return torch.bitwise_and(bits + 0x1000, -0x2000).view(torch.float32)
-    big = rna(x)
-    return big, rna(x - big)
-
-
 def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` in float32 as the f32 backward kernels take it: three TF32
+    """``a @ b`` in float32 as the f32 kernels take it: three TF32
     products of the split operands, small.big + big.small + big.big, each
     product of two TF32 values exact in f32 and summed in f32."""
     ab, as_ = tf32_split(a)
     bb, bs = tf32_split(b)
     return as_ @ bb + ab @ bs + ab @ bb
+
+
+def attention_3xtf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     valid: torch.Tensor, times: torch.Tensor):
+    """The f32 forward kernel's arithmetic in plain PyTorch (float32 inputs;
+    for tests): S = Q.K^T and O = P.V in the three-product form of
+    ``matmul_3xtf32``, the softmax in base 2 (logits times scale log2 e,
+    disallowed ones -1e30 there), the weights unnormalised in the product
+    and O divided by the row sum after it. Returns (out ``[b, S, h, d]``,
+    the row LSE ``[b, h, S]`` in the natural log, as the kernel writes
+    it)."""
+    scale_log2 = 1.0 / math.sqrt(q.shape[-1]) / math.log(2.0)
+    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))             # [b, h, S, d]
+    same = valid[:, :, None] == valid[:, None, :]
+    allowed = (same & (times[:, None] >= times[None, :])[None])[:, None]
+    logits = (matmul_3xtf32(qh, kh.transpose(-1, -2)) * scale_log2).masked_fill(~allowed, MASKED)
+    m = logits.amax(-1, keepdim=True)
+    p = torch.exp2(logits - m)
+    l = p.sum(-1, keepdim=True)
+    out = matmul_3xtf32(p, vh) / l
+    lse = (m + torch.log2(l))[..., 0] * math.log(2.0)
+    return out.transpose(1, 2).contiguous(), lse
 
 
 def attention_backward_3xtf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

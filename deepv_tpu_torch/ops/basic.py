@@ -22,6 +22,19 @@ def compute_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.promote_types(dtype, torch.float32)
 
 
+def tf32_split(x: torch.Tensor):
+    """(big, small) of a float32 tensor, both TF32 values (10 stored mantissa
+    bits) in float32: big = tf32(x), small = tf32(x - big), each rounded to
+    nearest with ties away from zero as ``cvt.rna.tf32.f32`` rounds. big +
+    small rebuilds x to within 2^-21 of |x|. The f32 kernels (3xTF32,
+    ``csrc/tf32x3.cuh``) split every operand so."""
+    def rna(t):
+        bits = t.contiguous().view(torch.int32)
+        return torch.bitwise_and(bits + 0x1000, -0x2000).view(torch.float32)
+    big = rna(x)
+    return big, rna(x - big)
+
+
 def fma_f32(a, b, c) -> torch.Tensor:
     """a * b + c in float32 with one rounding (a fused multiply-add, the form
     XLA compiles such an expression to). The product of two f32 values is

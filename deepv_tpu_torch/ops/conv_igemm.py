@@ -38,8 +38,16 @@ width and strides:
     walked the causal past and re-laid the weight out a second way; this
     path shares the ``wgmma`` path's weight, K walk (causal-past units
     skipped), 128-wide tile and epilogue.
-  * ``fma_f32`` (float32, the exactness check on the card): plain FMA on a
-    channels-last copy of x and a ``[(kt, kh, kw, ci), co]`` weight.
+  * ``tf32x3`` (float32): the ``cl`` path's structure on the TF32 tensor
+    cores by 3xTF32, about f32 accuracy (``csrc/tf32x3.cuh``). One pass of
+    ``split_tf32_cl`` (a small kernel of the same source) writes x as two
+    channels-last planes, big = tf32(x) and small = tf32(x - big), and the
+    weight as two planes of the ``[27, co, ci]`` layout; the conv kernel
+    reads per unit and run one swizzled TMA box of ``[66 px][32 ci]`` per
+    plane (32 f32 channels are one 128-byte row) and issues three
+    ``wgmma.m64n128k8`` TF32 products per k8 slice (small.big, big.small,
+    big.big), skipping units in the causal past; 128 x 128 tiles.
+    ``conv3d_igemm_3xtf32`` is its arithmetic in plain PyTorch.
 
 ``tile_plan`` picks the ``wgmma`` path's tile so that calls with few tiles
 fill the card; the ``cl`` path has one tile, 128 x 128. A 64-wide ``cl``
@@ -59,15 +67,17 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .basic import compute_dtype
+from .basic import compute_dtype, tf32_split
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 #: launches of the ``wgmma`` kernel since the count was last set to 0
 launches = 0
-#: launches of the ``cl`` and ``fma_f32`` kernels, counted apart
+#: launches of the ``cl`` path and of the f32 ``tf32x3`` conv kernel, counted
+#: apart, and of ``split_tf32_cl`` (two a ``tf32x3`` call: x, the weight)
 cl_launches = 0
 f32_launches = 0
+split_launches = 0
 
 _library: Optional[ctypes.CDLL] = None
 
@@ -80,7 +90,7 @@ BK = 64
 #: to each other, fitted to tools/conv_igemm_plans.py on the H100: where
 #: both fill the card, the 128-wide tile ran 3-9% slower than the 256-wide one
 TILES = {256: 1.0, 128: 0.94}
-#: the ``cl`` path's tile width
+#: the ``cl`` and ``tf32x3`` paths' tile width
 CL_BN = 128
 
 
@@ -99,9 +109,9 @@ def supports_igemm(weight_shape: Tuple[int, ...], stride: Tuple[int, int, int],
 def kernel_for(x: torch.Tensor) -> str:
     """The kernel a supported call on x runs: ``wgmma`` for bf16 when TMA
     can read x along w (w % 8 == 0 and ``_tma_strides``), ``cl`` for the
-    other bf16 inputs, ``fma_f32`` for float32."""
+    other bf16 inputs, ``tf32x3`` for float32."""
     if x.dtype == torch.float32:
-        return "fma_f32"
+        return "tf32x3"
     return "wgmma" if x.shape[-1] % 8 == 0 and _tma_strides(x) is not None else "cl"
 
 
@@ -140,11 +150,11 @@ def make_plan(bn: int, co: int, frames: int, h: int, w: int,
 
 def tile_plan(b: int, co: int, t_out: int, h: int, w: int, sms: int,
               channels_last: bool = False) -> TilePlan:
-    """The tile of the ``wgmma`` path (or, ``channels_last``, the ``cl``
-    path's one tile) for one call on a card with ``sms`` SMs. The busiest
-    SM takes ``ceil(CTAs / sms)`` tiles (one CTA holds an SM), each costing
-    its width over its rate. The cheapest plan wins; a tie goes to the
-    wider tile."""
+    """The tile of the ``wgmma`` path (or, ``channels_last``, the one tile
+    of the ``cl`` and ``tf32x3`` paths) for one call on a card with ``sms``
+    SMs. The busiest SM takes ``ceil(CTAs / sms)`` tiles (one CTA holds an
+    SM), each costing its width over its rate. The cheapest plan wins; a
+    tie goes to the wider tile."""
     if channels_last:
         return make_plan(CL_BN, co, b * t_out, h, w, True)
     best, best_cost = None, math.inf
@@ -228,14 +238,47 @@ def conv3d_igemm_plain(x: torch.Tensor, p, time_pad: int = 2) -> torch.Tensor:
     return out
 
 
+def split_tf32_cl_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``split_tf32_cl``: x ``[n, c, t, h, w]`` as two
+    channels-last float32 planes ``[2, n, t, h, w, c]``, big = tf32(x) and
+    small = tf32(x - big) (``basic.tf32_split``)."""
+    return torch.stack(tf32_split(x.to(torch.float32).permute(0, 2, 3, 4, 1)))
+
+
+def conv3d_tf32x3_products(xp: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """The valid 3x3x3 conv of a padded float32 input as the ``tf32x3``
+    kernel takes it: three TF32 products of the split operands, small.big +
+    big.small + big.big, each a ``F.conv3d`` of TF32 values (every product
+    exact in f32) summed in f32."""
+    xb, xs = tf32_split(xp)
+    wb, ws = tf32_split(weight)
+    return F.conv3d(xs, wb) + F.conv3d(xb, ws) + F.conv3d(xb, wb)
+
+
+def conv3d_igemm_3xtf32(x: torch.Tensor, p, time_pad: int = 2) -> torch.Tensor:
+    """The ``tf32x3`` kernel's arithmetic in plain PyTorch (float32; for
+    tests): the halo-padded input and the weight split into TF32 planes,
+    three conv products summed in f32 (``conv3d_tf32x3_products``), the
+    bias added after the sum. x [b, ci, t, h, w] -> [b, co, t + time_pad -
+    2, h, w]."""
+    co = p.weight.shape[0]
+    xp = F.pad(x.to(torch.float32), (1, 1, 1, 1, time_pad, 0))
+    y = conv3d_tf32x3_products(xp, p.weight.to(torch.float32))
+    return y + _bias(p, co, xp)[:, None, None, None]
+
+
 def load_library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel library."""
     global _library
     if _library is None:
         from ..utils.cuda_build import build
         lib = build("conv_igemm.cu").lib
-        fn = lib.deepv_conv3d_igemm_f32
+        fn = lib.deepv_conv3d_igemm_tf32x3
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn = lib.deepv_split_tf32_cl
+        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 5
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fn = lib.deepv_conv3d_igemm_wgmma
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_int64] * 4
@@ -307,6 +350,35 @@ def _tma_strides_cl(x: torch.Tensor) -> Optional[Tuple[int, int, int, int]]:
     return out
 
 
+def split_tf32_cl(x: torch.Tensor) -> torch.Tensor:
+    """The ``split_tf32_cl`` kernel on a float32 CUDA tensor ``[n, c, t, h,
+    w]`` of any strides: its two channels-last TF32 planes ``[2, n, t, h, w,
+    c]`` (big, small), as ``split_tf32_cl_plain`` computes them."""
+    global split_launches
+    if x.dtype != torch.float32 or x.dim() != 5 or x.device.type != "cuda":
+        raise ValueError(f"split_tf32_cl takes a float32 [n, c, t, h, w] on CUDA, got "
+                         f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    lib = load_library()
+    out = torch.empty((2, *x.shape[:1], *x.shape[2:], x.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    err = lib.deepv_split_tf32_cl(x.data_ptr(), out.data_ptr(), *x.shape, *x.stride(),
+                                  torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"split_tf32_cl launch failed: error {err}")
+    split_launches += 1
+    return out
+
+
+def weight_planes(weight: torch.Tensor) -> torch.Tensor:
+    """The ``tf32x3`` kernel's weight: ``[co, ci, 3, 3, 3]`` as two TF32
+    planes of ``relayout_weight``'s ``[27, co, ci]`` layout, ``[2, 27, co,
+    ci]``, by ``split_tf32_cl`` (the weight read as one frame of co * ci
+    channels over 27 pixels)."""
+    co, ci = weight.shape[:2]
+    w = weight.to(torch.float32).contiguous().reshape(1, co * ci, 3, 3, 3)
+    return split_tf32_cl(w).reshape(2, 27, co, ci)
+
+
 def conv3d_igemm(x: torch.Tensor, p, time_pad: int = 2) -> torch.Tensor:
     """3x3x3 stride-1 causal conv; ``p`` holds ``weight`` [co, ci, 3, 3, 3]
     and an optional ``bias``. x [b, ci, t, h, w] -> [b, co, t + time_pad - 2,
@@ -314,56 +386,74 @@ def conv3d_igemm(x: torch.Tensor, p, time_pad: int = 2) -> torch.Tensor:
     if x.device.type == "cpu":
         return conv3d_igemm_plain(x, p, time_pad)
     _check_kernel_inputs(x, p.weight, getattr(p, "bias", None), time_pad)
-    co, ci = p.weight.shape[:2]
+    co = p.weight.shape[0]
     b, _, t_in, h, w = x.shape
-    kernel = kernel_for(x)
-    plan = None
-    if kernel != "fma_f32":
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        plan = tile_plan(b, co, t_in + time_pad - 2, h, w, sms, channels_last=kernel == "cl")
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = tile_plan(b, co, t_in + time_pad - 2, h, w, sms,
+                     channels_last=kernel_for(x) != "wgmma")
     return launch(x, p, time_pad, plan)
 
 
-def launch(x: torch.Tensor, p, time_pad: int, plan: Optional[TilePlan]) -> torch.Tensor:
-    """Launch the ``wgmma`` kernel template with ``plan`` (its
-    ``channels_last`` says which path), or (``plan`` None) the ``fma_f32`` kernel;
-    ``conv3d_igemm`` checks the inputs."""
-    global launches, cl_launches, f32_launches
-    lib = load_library()
+def launch(x: torch.Tensor, p, time_pad: int, plan: TilePlan) -> torch.Tensor:
+    """Launch the kernel ``kernel_for(x)`` names with ``plan``: for float32
+    ``split_tf32_cl`` on x and the weight, then the ``tf32x3`` kernel (the
+    128-wide channels-last plan); for bf16 the ``wgmma`` kernel template
+    (``plan.channels_last`` says which path). ``conv3d_igemm`` checks the
+    inputs."""
+    global launches, cl_launches
     co, ci = p.weight.shape[:2]
     b, _, t_in, h, w = x.shape
-    t_out = t_in + time_pad - 2
     bv = _bias(p, co, x).contiguous()
-    out = torch.empty((b, co, t_out, h, w), dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    if plan is None:
-        if x.dtype != torch.float32:
-            raise TypeError(f"the fma_f32 kernel takes float32, got {x.dtype}")
-        xcl = x.permute(0, 2, 3, 4, 1).contiguous()                             # [b, t, h, w, ci]
-        wr = p.weight.to(x.dtype).permute(2, 3, 4, 1, 0).reshape(27 * ci, co).contiguous()
-        err = lib.deepv_conv3d_igemm_f32(
-            xcl.data_ptr(), wr.data_ptr(), bv.data_ptr(), out.data_ptr(),
-            b, ci, co, t_in, t_out, h, w, time_pad, stream)
+    if x.dtype == torch.float32:
+        if not plan.channels_last or plan.bn != CL_BN:
+            raise ValueError(f"the tf32x3 kernel takes the {CL_BN}-wide channels-last plan")
+        return conv3d_tf32x3_planes(split_tf32_cl(x), weight_planes(p.weight), bv, time_pad)
+    if not plan.channels_last:
+        strides = _tma_strides(x)
     else:
-        if not plan.channels_last:
-            strides = _tma_strides(x)
-        else:
-            if _tma_strides_cl(x) is None:                # one channels-last copy
-                x = x.permute(0, 2, 3, 4, 1).contiguous().permute(0, 4, 1, 2, 3)
-            strides = _tma_strides_cl(x)
-        if strides is None:
-            raise ValueError(f"the wgmma kernel cannot read x with strides {x.stride()}")
-        wk = relayout_weight(p.weight, x.dtype)
-        err = lib.deepv_conv3d_igemm_wgmma(
-            x.data_ptr(), wk.data_ptr(), bv.data_ptr(), out.data_ptr(),
-            b, ci, co, t_in, t_out, h, w, time_pad, *strides, plan.bn,
-            int(plan.channels_last), stream)
+        if _tma_strides_cl(x) is None:                # one channels-last copy
+            x = x.permute(0, 2, 3, 4, 1).contiguous().permute(0, 4, 1, 2, 3)
+        strides = _tma_strides_cl(x)
+    if strides is None:
+        raise ValueError(f"the wgmma kernel cannot read x with strides {x.stride()}")
+    wk = relayout_weight(p.weight, x.dtype)
+    t_out = t_in + time_pad - 2
+    out = torch.empty((b, co, t_out, h, w), dtype=x.dtype, device=x.device)
+    err = load_library().deepv_conv3d_igemm_wgmma(
+        x.data_ptr(), wk.data_ptr(), bv.data_ptr(), out.data_ptr(),
+        b, ci, co, t_in, t_out, h, w, time_pad, *strides, plan.bn,
+        int(plan.channels_last), torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"igemm conv kernel launch failed: error {err}")
-    if plan is None:
-        f32_launches += 1
-    elif not plan.channels_last:
+    if not plan.channels_last:
         launches += 1
     else:
         cl_launches += 1
+    return out
+
+
+def conv3d_tf32x3_planes(xp: torch.Tensor, wp: torch.Tensor, bias: torch.Tensor,
+                         time_pad: int) -> torch.Tensor:
+    """The ``tf32x3`` conv kernel alone, on x's planes ``[2, b, t_in, h, w,
+    ci]`` (``split_tf32_cl``) and the weight's ``[2, 27, co, ci]``
+    (``weight_planes``) with a float32 ``bias [co]``: y ``[b, co, t_in +
+    time_pad - 2, h, w]`` float32."""
+    global f32_launches
+    _, b, t_in, h, w, ci = xp.shape
+    co = wp.shape[2]
+    t_out = t_in + time_pad - 2
+    for name, t in (("xp", xp), ("wp", wp), ("bias", bias)):
+        if (t.dtype != torch.float32 or not t.is_contiguous() or t.device != xp.device
+                or t.device.type != "cuda"):
+            raise ValueError(f"{name} must be contiguous float32 on xp's CUDA device")
+    if tuple(wp.shape) != (2, 27, co, ci) or tuple(bias.shape) != (co,):
+        raise ValueError(f"weight planes [2, 27, {co}, {ci}] and bias [{co}] expected, got "
+                         f"{tuple(wp.shape)} and {tuple(bias.shape)}")
+    out = torch.empty((b, co, t_out, h, w), dtype=torch.float32, device=xp.device)
+    err = load_library().deepv_conv3d_igemm_tf32x3(
+        xp.data_ptr(), wp.data_ptr(), bias.data_ptr(), out.data_ptr(), b, ci, co, t_in, t_out,
+        h, w, time_pad, torch.cuda.current_stream(xp.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"tf32x3 conv kernel launch failed: error {err}")
+    f32_launches += 1
     return out

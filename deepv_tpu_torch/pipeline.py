@@ -347,18 +347,27 @@ class InferencePipeline:
 
     def __init__(self, cfg: PipelineConfig, mmdit_cfg: MMDiTConfig,
                  vae_cfg: VAEConfig, params: Dict, text_embeds: Dict,
-                 dtype=torch.bfloat16, device="cuda", use_tiling: bool = False,
-                 decode_window: int = 2, stream_decode: bool = True, text_encoder=None,
-                 flow_cache: str = "none", mesh=None,
+                 dtype=torch.bfloat16, use_tiling: bool = False,
+                 decode_window: int = 2, decode_batched: bool = False,
+                 stream_decode: bool = True, text_encoder=None,
+                 flow_cache: str = "none", mesh=None, mesh_axis: str = "tp",
                  reuse_decoder_cache: bool = False, denoise_int8: bool = False,
                  prime_decoder_cache: bool = True, carry_latents: bool = False,
-                 encode_window: int = 16):
+                 encode_window: int = 16, device="cuda"):
+        # deepv_tpu's parameters in its order, then the port's device
         if text_encoder is not None:
             _not_ported("text_encoder", "M15 text encoders")
         if mesh is not None:
             _not_ported("mesh", "M17 parallelism")
         if use_tiling:
             _not_ported("use_tiling", "M17 parallelism (spatial tiling)")
+        if decode_batched:
+            raise NotImplementedError(
+                "decode_batched: not ported (ROADMAP queue 1: only deepv_tpu's bench.py tiny "
+                "TPU preset sets it, bench.py:288)")
+        #: the mesh axis deepv_tpu shards over; kept for its signature (no
+        #: mesh is taken until M17)
+        self.mesh_axis = mesh_axis
         self.cfg = cfg
         self.mcfg = mmdit_cfg
         self.vcfg = vae_cfg

@@ -46,11 +46,6 @@ from .pipeline import InferencePipeline, TorchNoise, _disparity_postmap
 from .utils.profiling import synchronize
 
 
-#: the per-unit guidance of a session: ``generate``'s default
-#: ``video_guidance_scale``, so that a session equals ``generate``
-VIDEO_GUIDANCE_SCALE = 3.5
-
-
 class InteractiveSession:
     """One world-model rollout, advanced one latent unit per ``step``.
 
@@ -64,9 +59,16 @@ class InteractiveSession:
     own chunk prologue, unit and epilogue, pausing after each unit.
     """
 
-    def __init__(self, pipe: InferencePipeline, reuse_decoder_cache: bool = False,
+    def __init__(self, pipe: InferencePipeline, guidance_scale: float = 4.0,
+                 video_guidance_scale: float = 3.5, reuse_decoder_cache: bool = False,
                  history_limit_chunks: Optional[int] = None):
         self.pipe = pipe
+        #: deepv_tpu's session parameters with its defaults, which are
+        #: ``generate``'s: each unit is guided by ``video_guidance_scale``
+        #: (so a default session equals ``generate``); ``guidance_scale`` is
+        #: kept as deepv_tpu keeps it, unread by the unit
+        self.guidance_scale = guidance_scale
+        self.video_guidance_scale = video_guidance_scale
         #: keep only the last N completed chunks of rollout state. Retrieval
         #: by camera pose searches the whole rollout otherwise: fine for a
         #: batch render, unbounded for a long-lived session (~tens of MB of
@@ -159,7 +161,7 @@ class InteractiveSession:
             # no local binding of the chunk: at a boundary _finish_chunk
             # must be able to release it
             self.recompute_log = p._next_unit(self.noise, self.chunk, prompt,
-                                              VIDEO_GUIDANCE_SCALE)
+                                              self.video_guidance_scale)
             yi, yd = self.chunk.rgb_frames[-1], self.chunk.disp_frames[-1]
 
             # per-unit disparity post-map: scale_factor is constant within a

@@ -159,6 +159,51 @@ def test_3xtf32_backward_meets_the_chip_tolerance(layout, monkeypatch):
                for g, r in zip(coarse, ref))
 
 
+def middle_skip_layout(s=96):
+    """chip_smoke.py's middle-skip edge layout, cut to ``s`` tokens: rows at
+    time 0 skip the time-5 keys in the middle of the sequence, then attend
+    the time -1 keys after them."""
+    rng = np.random.default_rng(6)
+    q, k, v = (rng.standard_normal((2, s, 2, 64)).astype(np.float32) for _ in range(3))
+    times = np.zeros(s, np.float32)
+    times[s * 3 // 10:s * 7 // 10] = 5.0
+    times[s * 7 // 10:] = -1.0
+    return q, k, v, np.ones((2, s), np.int32), times
+
+
+FORWARD_LAYOUTS = {
+    "causal": lambda: make(s=96, h=2, d=64),
+    "middle_skip": middle_skip_layout,
+    "short": lambda: make(s=37, h=2, d=64),        # S < 64: one ragged tile
+}
+
+
+@pytest.mark.parametrize("layout", sorted(FORWARD_LAYOUTS))
+def test_3xtf32_forward_meets_the_chip_tolerance(layout, monkeypatch):
+    """The f32 forward kernel's arithmetic (``attention_3xtf32``: S = Q.K^T
+    and O = P.V each three TF32 products, the softmax in base 2) against
+    ``attention_pallas(..., interpret=True)`` and ``attention_reference`` on
+    the same f32 inputs, at the f32 tolerance the kernel is held to on the
+    card (chip_smoke.py phase 3, atol 2e-5 / rtol 1e-4); its LSE within
+    phase 14's 1e-4 plus 1e-5 of the largest |LSE| of the f64 plain LSE.
+    One TF32 product (big . big) does not meet the tolerance."""
+    q, k, v, valid, times = FORWARD_LAYOUTS[layout]()
+    t = lambda a: torch.from_numpy(a)
+    refs = [jax_pallas(q, k, v, valid, times),
+            np.asarray(attention_reference(*(jnp.asarray(a) for a in (q, k, v, valid, times))))]
+    out, lse = port_attention.attention_3xtf32(t(q), t(k), t(v), t(valid), t(times))
+    assert out.dtype == lse.dtype == torch.float32
+    for ref in refs:
+        np.testing.assert_allclose(out.numpy(), ref, **F32_TOL)
+    lse_ref = port_attention.attention_lse_plain(t(q).double(), t(k).double(), t(valid),
+                                                 t(times))
+    assert (lse.double() - lse_ref).abs().max() <= 1e-4 + 1e-5 * lse_ref.abs().max()
+    tf32 = port_attention.tf32_split
+    monkeypatch.setattr(port_attention, "matmul_3xtf32", lambda a, b: tf32(a)[0] @ tf32(b)[0])
+    coarse = port_attention.attention_3xtf32(t(q), t(k), t(v), t(valid), t(times))[0].numpy()
+    assert not any(np.allclose(coarse, ref, **F32_TOL) for ref in refs)
+
+
 class _CudaTensor(torch.Tensor):
     """A CPU tensor that reports a CUDA device, to reach the kernel path of
     the wrapper without a GPU."""

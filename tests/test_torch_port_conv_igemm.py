@@ -105,6 +105,27 @@ def test_conv3d_igemm_matches_deepv_tpu(b, ci, co, t, h, w, time_pad, layout):
     np.testing.assert_array_equal(wrapped.numpy(), plain.numpy())
 
 
+@pytest.mark.parametrize("time_pad,t", [(2, 2), (0, 4)])
+def test_3xtf32_conv_meets_the_chip_tolerance(time_pad, t, monkeypatch):
+    """The f32 kernel's arithmetic (``conv3d_igemm_3xtf32``: the halo-padded
+    x and the weight split into TF32 planes, three conv products summed in
+    f32, the bias after the sum) against deepv_tpu's interpreted kernel on
+    the same f32 inputs, in both causal modes, at the tolerance the kernel
+    is held to on the card (chip_smoke.py phase 4, atol 2e-4 / rtol 1e-4).
+    One TF32 product (big . big) does not meet it."""
+    p = conv_params(0, 128, 128)
+    x = np.random.default_rng(1).standard_normal((1, 128, t, 8, 8)).astype(np.float32)
+    ref = np.asarray(jax_igemm.conv3d_igemm(jnp.asarray(x), jax_params(p), time_pad=time_pad))
+    got = port_igemm.conv3d_igemm_3xtf32(torch.from_numpy(x), port_params(p), time_pad)
+    assert got.dtype == torch.float32 and tuple(got.shape) == ref.shape
+    np.testing.assert_allclose(got.numpy(), ref, atol=ATOL, rtol=RTOL)
+    tf32 = port_igemm.tf32_split
+    monkeypatch.setattr(port_igemm, "conv3d_tf32x3_products",
+                        lambda xp, w: torch.nn.functional.conv3d(tf32(xp)[0], tf32(w)[0]))
+    coarse = port_igemm.conv3d_igemm_3xtf32(torch.from_numpy(x), port_params(p), time_pad)
+    assert not np.allclose(coarse.numpy(), ref, atol=ATOL, rtol=RTOL)
+
+
 @pytest.mark.parametrize("shape,stride,dtype,h,w,expected", [
     ((128, 256, 3, 3, 3), (1, 1, 1), "bfloat16", 48, 64, True),
     ((128, 256, 3, 3, 3), (1, 2, 2), "bfloat16", 48, 64, False),

@@ -234,7 +234,7 @@ def test_plan_covers_edge_shape(case):
 @pytest.mark.parametrize("dtype,w,kernel", [
     ("bfloat16", 512, "wgmma"), ("bfloat16", 64, "wgmma"), ("bfloat16", 80, "wgmma"),
     ("bfloat16", 8, "wgmma"), ("bfloat16", 10, "cl"), ("bfloat16", 6, "cl"),
-    ("float32", 512, "fma_f32"), ("float32", 10, "fma_f32"),
+    ("float32", 512, "tf32x3"), ("float32", 10, "tf32x3"),
 ])
 def test_kernel_choice_by_dtype_and_width(dtype, w, kernel):
     assert cig.supports_igemm((128, 128, 3, 3, 3), (1, 1, 1), getattr(torch, dtype), 4, w)
@@ -314,3 +314,20 @@ def test_tma_strides_of_views():
     # a column slice starts 2 bytes into a row: TMA cannot take it
     assert cig._tma_strides(x[..., 1:9]) is None
     assert cig._tma_strides(x.transpose(3, 4)) is None
+
+
+def test_weight_planes_are_the_split_relayout():
+    """The f32 kernel's weight planes: ``split_tf32_cl`` reads the weight
+    ``[co, ci, 3, 3, 3]`` as one frame of co * ci channels over 27 pixels,
+    which in its channels-last output is ``relayout_weight``'s ``[27, co,
+    ci]``; so its plain version there equals the TF32 split of that
+    layout, and x's planes are the split of x channels-last."""
+    rng = np.random.default_rng(8)
+    w = torch.from_numpy(rng.standard_normal((256, 128, 3, 3, 3)).astype(np.float32))
+    planes = cig.split_tf32_cl_plain(w.reshape(1, 256 * 128, 3, 3, 3)).reshape(2, 27, 256, 128)
+    assert torch.equal(planes, torch.stack(cig.tf32_split(cig.relayout_weight(w, torch.float32))))
+    x = torch.from_numpy(rng.standard_normal((2, 128, 3, 4, 6)).astype(np.float32))
+    xp = cig.split_tf32_cl_plain(x[:, :, 1:])
+    assert tuple(xp.shape) == (2, 2, 2, 4, 6, 128)
+    big, small = cig.tf32_split(x[:, :, 1:].permute(0, 2, 3, 4, 1))
+    assert torch.equal(xp[0], big) and torch.equal(xp[1], small)

@@ -2,7 +2,9 @@
 
 ``generate`` and ``generate_i2v`` take deepv_tpu's parameters in its order,
 with its defaults, the port's noise source standing where deepv_tpu takes
-its PRNG key; ``generate`` adds a trailing ``noise``. Linear guidance (each
+its PRNG key; ``generate`` adds a trailing ``noise``. ``InferencePipeline``
+and ``serve.InteractiveSession`` take deepv_tpu's constructor parameters in
+its order, with its defaults; the pipeline adds a trailing ``device``. Linear guidance (each
 unit's guidance ``max(guidance_scale - alpha * unit, min_guidance_scale)``)
 is held to deepv_tpu's on the first chunk of the tiny f64 rollout of
 tests/test_torch_port_pipeline.py, deepv_tpu's recorded draws replayed, at
@@ -21,6 +23,7 @@ import jax
 import jax.numpy as jnp
 
 import deepv_tpu.pipeline as jax_pipeline
+import deepv_tpu.serve as jax_serve
 from deepv_tpu.actions import action_vocabulary
 from deepv_tpu.config import PipelineConfig
 from deepv_tpu.io.text_embeds import random_text_embeds
@@ -30,6 +33,7 @@ from deepv_tpu_torch.config import (MMDiTConfig as TMMDiTConfig,
                                     VAEConfig as TVAEConfig)
 from deepv_tpu_torch.io.weights import random_params
 from deepv_tpu_torch.pipeline import InferencePipeline as TorchPipeline
+from deepv_tpu_torch.serve import InteractiveSession as TorchSession
 
 import test_torch_port_pipeline
 from test_torch_port_pipeline import ATOL, MCFG, ReplayNoise, _batch, _run_reference
@@ -58,6 +62,46 @@ def test_signatures_match_deepv_tpu():
     port = _params(TorchPipeline.generate, 1)
     assert port[:len(ref)] == ref and [p[0] for p in port[len(ref):]] == ["noise"]
     assert [p[0] for p in ref] == ["batch", "seed", "guidance_scale", "video_guidance_scale"]
+    # the constructor: deepv_tpu's parameters, names, defaults and order, then
+    # device; deepv_tpu's default dtype is jnp.bfloat16, the port's its torch
+    # counterpart
+    ref = _params(jax_pipeline.InferencePipeline.__init__, 1)
+    port = _params(TorchPipeline.__init__, 1)
+    assert [p[0] for p in port] == [p[0] for p in ref] + ["device"]
+    for got, want in zip(port, ref):
+        if got[0] == "dtype":
+            assert got[1] is torch.bfloat16 and want[1] is jnp.bfloat16
+            assert got[2] == want[2]
+        else:
+            assert got == want, (got, want)
+    assert port[-1][1] == "cuda"
+    assert [p[0] for p in ref[6:15]] == ["use_tiling", "decode_window", "decode_batched",
+                                         "stream_decode", "text_encoder", "flow_cache",
+                                         "mesh", "mesh_axis", "reuse_decoder_cache"]
+    ref = _params(jax_serve.InteractiveSession.__init__, 1)
+    assert _params(TorchSession.__init__, 1) == ref
+    assert [p[0] for p in ref[:3]] == ["pipe", "guidance_scale", "video_guidance_scale"]
+
+
+def _tiny_pipeline(*args, **kwargs):
+    params = random_params(TMMDiTConfig(**MCFG), TVAEConfig.tiny(), dtype=torch.float32,
+                           seed=0, device="cpu")
+    embeds = random_text_embeds(0, action_vocabulary(), joint_dim=24, pooled_dim=16)
+    return TorchPipeline(TPipelineConfig(), TMMDiTConfig(**MCFG), TVAEConfig.tiny(), params,
+                         embeds, *args, **kwargs)
+
+
+def test_pipeline_takes_a_deepv_tpu_call():
+    """A deepv_tpu-style construction builds the port's pipeline on the CPU:
+    dtype, use_tiling and decode_window by position in deepv_tpu's order,
+    decode_batched and mesh_axis by keyword among deepv_tpu's others;
+    decode_batched=True is refused as not ported."""
+    pipe = _tiny_pipeline(torch.float32, False, 3, decode_batched=False, stream_decode=False,
+                          flow_cache="skip_odd", mesh=None, mesh_axis="tp", device="cpu")
+    assert (pipe.dtype, pipe.decode_window, pipe.stream_decode, pipe.flow_cache,
+            pipe.mesh_axis) == (torch.float32, 3, False, "skip_odd", "tp")
+    with pytest.raises(NotImplementedError, match="decode_batched"):
+        _tiny_pipeline(torch.float32, decode_batched=True, device="cpu")
 
 
 def _one_chunk(pipe, batch, key_or_noise, image):

@@ -203,6 +203,20 @@ def test_session_matches_generate(rollout):
     assert torch.equal(torch.cat([s["disparity"] for s in steps], dim=2), ref["pred_disparity"])
 
 
+def test_session_video_guidance_scale(pipe, rollout):
+    """The session takes deepv_tpu's ``video_guidance_scale`` (default 3.5,
+    ``generate``'s) and guides each unit by it: a session built with 3.5
+    steps the default session's frames bit for bit, another value steps
+    other frames (the second step's: the first returns the decoded
+    conditioning frame)."""
+    batch, ref = make_batch(), rollout["steps"][1]["rgb"]
+    for scale, same in ((3.5, True), (2.0, False)):
+        sess = InteractiveSession(pipe, video_guidance_scale=scale)
+        sess.start(batch["img"], seed=21)
+        rgb = [sess.step(a)["rgb"] for a in rollout["actions"][:2]][1]
+        assert torch.equal(rgb, ref) is same, scale
+
+
 def test_session_incremental_delivery(rollout):
     """Each step returns that unit's frames at once: 1 frame for the first
     unit, 8 per unit after (the streaming-decode window law)."""

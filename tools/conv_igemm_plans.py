@@ -9,8 +9,8 @@ width (``ops/conv_igemm.TILES``) against the plain version
 (bf16 within one bf16 ulp plus 2e-4, as chip_smoke.py holds it): first at
 small shapes and the edge shapes (w not a multiple of 64, two batches, the
 causal past), each also channels-last through the ``cl`` path's tile,
-plus a w % 8 != 0 shape on the ``cl`` path and the
-``fma_f32`` kernel once; then, at
+plus a w % 8 != 0 shape on the ``cl`` path, and the f32 ``tf32x3``
+kernel at each shape (atol 2e-4 / rtol 1e-4); then, at
 every conv case of chip_smoke.py (the 14 classes of the full-width rollout
 in the modes and frame counts it checks), the time of each plan beside
 ``F.conv3d`` (cuDNN), with the plan ``tile_plan`` picks marked. The lines go
@@ -76,12 +76,12 @@ def check(device) -> bool:
             print(f"check {ci}->{co} @{h}x{w} b{b} t_in{t_in} tp{tp} {name}: max abs "
                   f"{float((y.float() - ref.float()).abs().max()):.4g} ulp excess {ex:.3g} "
                   f"{'ok' if ex <= 0 else 'FAIL'}", flush=True)
-        if h == 8 and w == 64:
-            y32 = cig.launch(x, p, tp, None)
-            r32 = cig.conv3d_igemm_plain(x, p, tp)
-            err = float((y32 - r32).abs().max())
-            ok &= err <= 2e-4
-            print(f"check {ci}->{co} @{h}x{w} fma_f32: max abs {err:.3g}", flush=True)
+        y32 = cig.launch(x, p, tp, cig.make_plan(cig.CL_BN, co, b * t_out, h, w, True))
+        r32 = cig.conv3d_igemm_plain(x, p, tp)
+        fine = bool(torch.allclose(y32, r32, atol=2e-4, rtol=1e-4))
+        ok &= fine
+        print(f"check {ci}->{co} @{h}x{w} b{b} t_in{t_in} tp{tp} tf32x3: max abs "
+              f"{float((y32 - r32).abs().max()):.3g} {'ok' if fine else 'FAIL'}", flush=True)
     return ok
 
 
