@@ -164,7 +164,33 @@ Phases, in order; any failure exits non-zero before the last line:
      equal bit for bit. Then one bf16 stage-2 step (params cast to bf16):
      K1's wgmma forward and the bf16 backward 24 times. Prints each step's
      seconds and peak device memory, and the checkpoint's size and times.
-Phases 5, 7, 11, 12 and 13 also check that the backward never launched.
+ 16. checkpoint (M15a): phase 5's weights (MMDiTConfig(), VAEConfig(), bf16,
+     seed 0) written as a diffusers-style snapshot (transformer/ and
+     causal_video_vae/: config.json and a .safetensors file each, every
+     tensor in its dtype, under diffusers' names) into a temporary
+     directory of the checkout, removed at the end (free disk checked
+     first); run.load_pipeline(snapshot) without random_weights: the
+     configs are the defaults, every loaded tensor equals the written one
+     bit for bit (pos_embed as f32 of the written bf16), no text encoder,
+     random_text_embeds(0). Phase 5's rollout from it: counts set to 0 just
+     before and read just after, K1 4,320, K2 never, 89 finite frames;
+     prints the snapshot's GB, write and load seconds and the 8-bit gap to
+     phase 5's frames (printed, not gated: only pos_embed's dtype differs);
+ 17. text encoders (M15b): SD3's three towers at full width (CLIP-L, bigG,
+     T5-XXL; the public SD3 text_encoder*/config.json) with random bf16
+     weights in HF's init distributions, written as text_encoder{,_2,_3}
+     (T5's tied embed_tokens left out) and loaded by
+     io/weights.load_text_towers; tokenising is replaced here only by fixed
+     seeded ids, printed (SD3's tokenizer files are not in the checkout;
+     the phase prints whether transformers and safetensors are importable).
+     One encode in bf16: [1, 77, 4096], [1, 77], [1, 2048], finite, each
+     output within relative L2 2^-4 of the same towers loaded in f32 (TF32
+     off); prints one encode's ms and its device ms (torch.profiler). Then a
+     2-chunk prompt_type="text" rollout of phase 5's image and seed through
+     InferencePipeline(text_encoder=...) on phase 16's loaded MMDiT and VAE:
+     counts set to 0 just before and read just after, K1 4,320, 89 finite
+     frames, the encoder called once (the pipeline's memo); prints the peak.
+Phases 5, 7, 11, 12, 13, 16 and 17 also check that the backward never launched.
 The line before the last is a JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}. Extra detail goes to chiprun_out/.
 """
@@ -175,8 +201,10 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -853,12 +881,13 @@ class FrameHook:
         self.windows.append((rgb, disp))
 
 
-def drive_rollout(pipe, setup_s: float, hook: "FrameHook | None" = None):
-    """generate() with every kernel count set to 0 just before and read just
-    after; checks the outputs and K1's count: one launch per block of every
-    forward the pipeline records as run (all of them without flow caching).
-    ``hook`` becomes ``pipe.on_frames`` for the call, timed from the call.
-    Returns (summary, output, K2 launches)."""
+def drive_rollout(pipe, setup_s: float, hook: "FrameHook | None" = None, batch=None):
+    """generate() on ``batch`` (default ``rollout_batch()``) with every
+    kernel count set to 0 just before and read just after; checks the
+    outputs and K1's count: one launch per block of every forward the
+    pipeline records as run (all of them without flow caching). ``hook``
+    becomes ``pipe.on_frames`` for the call, timed from the call. Returns
+    (summary, output, K2 launches)."""
     import torch
     from deepv_tpu_torch.ops import attention as att
     from deepv_tpu_torch.ops import conv_igemm as cig
@@ -872,7 +901,7 @@ def drive_rollout(pipe, setup_s: float, hook: "FrameHook | None" = None):
     for name in K2_COUNTERS:
         setattr(cig, name, 0)
     ci8.launches = ci8.packed_launches = ci8.quantize_launches = li8.calls = 0
-    batch = rollout_batch()
+    batch = rollout_batch() if batch is None else batch
     pipe.on_frames = hook
     t0 = time.perf_counter()
     if hook is not None:
@@ -1976,8 +2005,6 @@ def run_training_path(device, results):
     steps, save and restore into a fresh Trainer (equal bit for bit), then
     one bf16 stage-2 step. Returns the launch counts of the f32 and the
     bf16 steps."""
-    import shutil
-    import tempfile
     import torch
     from deepv_tpu_torch.config import MMDiTConfig, PipelineConfig
     from deepv_tpu_torch.io.weights import params_from_numpy, random_mmdit_params
@@ -2072,6 +2099,449 @@ def run_training_path(device, results):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phases 16-17: a snapshot on disk (M15a) and the SD3 text towers (M15b)
+# ---------------------------------------------------------------------------
+
+#: safetensors dtype names of the tensors the snapshot writer meets
+ST_DTYPES = {"torch.float32": "F32", "torch.bfloat16": "BF16", "torch.float16": "F16"}
+#: transformer/config.json: the MMDiTConfig fields a diffusers config carries
+MMDIT_JSON_FIELDS = ("sample_size", "patch_size", "in_channels", "num_layers",
+                     "attention_head_dim", "num_attention_heads", "caption_projection_dim",
+                     "pooled_projection_dim", "pos_embed_max_size", "joint_attention_dim")
+#: causal_video_vae/config.json: the VAEConfig fields a snapshot carries
+VAE_JSON_FIELDS = ("encoder_out_channels", "encoder_layers_per_block",
+                   "encoder_block_out_channels", "encoder_norm_num_groups",
+                   "decoder_in_channels", "decoder_layers_per_block",
+                   "decoder_block_out_channels", "decoder_norm_num_groups", "sample_size")
+#: SD3's three text towers with the public configs
+#: (stabilityai/stable-diffusion-3-medium-diffusers, text_encoder*/config.json):
+#: CLIP-L, OpenCLIP bigG (both eos_token_id 2) and T5 v1.1 XXL
+SD3_TOWERS = {
+    "text_encoder": dict(kind="clip", vocab=49408, width=768, layers=12, heads=12, mlp=3072,
+                         proj=768, act="quick_gelu"),
+    "text_encoder_2": dict(kind="clip", vocab=49408, width=1280, layers=32, heads=20, mlp=5120,
+                           proj=1280, act="gelu"),
+    "text_encoder_3": dict(kind="t5", vocab=32128, width=4096, layers=24, heads=64, d_kv=64,
+                           mlp=10240),
+}
+#: CLIP's BOS and EOS ids (SD3's tokenizer and tokenizer_2); T5's EOS
+CLIP_BOS, CLIP_EOS, T5_EOS = 49406, 49407, 1
+#: phase 17's prompt (text rollouts repeat it for every unit) and its token count
+TEXT_PROMPT = "A red car drives along a coastal road at sunset."
+TEXT_TOKENS = 12
+#: phase 17: the bf16 towers against the same towers in f32 on the card
+#: (TF32 off), as the relative L2 deviation of each output (prompt_embeds,
+#: each CLIP's pooled embedding). bf16 rounds every weight and activation
+#: to 8 bits of mantissa (2^-9 relative), and the residual streams add up
+#: such errors over 12, 32 and 24 layers, which layer norms keep relative:
+#: a few times 2^-9 per layer in quadrature is ~1e-2 after 24 layers. 2^-4
+#: leaves room for that and fails a wrong dtype, layout or pooling position,
+#: which gives deviations of order 1.
+TEXT_BF16_REL_L2 = 2.0 ** -4
+
+
+def write_safetensors(tensors, path: str) -> None:
+    """``tensors`` (name -> CPU or device tensor) as one .safetensors file,
+    each in its own dtype: an 8-byte little-endian header length, the JSON
+    header, then the raw bytes in the header's order."""
+    import struct
+    import torch
+
+    names = sorted(tensors)
+    header, offset = {}, 0
+    for name in names:
+        t = tensors[name]
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": ST_DTYPES[str(t.dtype)], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for name in names:
+            t = tensors[name].detach().contiguous()
+            if t.dtype == torch.bfloat16:
+                t = t.view(torch.int16)
+            t.cpu().numpy().tofile(f)
+
+
+def mmdit_ckpt_names(flat):
+    """The port's MMDiT tree path -> diffusers checkpoint name (the inverse
+    of io/weights._MMDIT_RULES; tests/snapshot_utils.py keeps the same)."""
+    out = {}
+    for k, v in flat.items():
+        k2 = k.replace(".ff.proj.", ".ff.net.0.proj.").replace(".ff.out.", ".ff.net.2.")
+        k2 = k2.replace(".ff_context.proj.", ".ff_context.net.0.proj.")
+        k2 = k2.replace(".ff_context.out.", ".ff_context.net.2.")
+        out[k2.replace(".attn.to_out.", ".attn.to_out.0.")] = v
+    return out
+
+
+def vae_ckpt_names(flat):
+    """The port's VAE tree path -> diffusers name (the inverse of
+    io/weights._VAE_RULES): quant convs beside the encoder and decoder, the
+    samplers' ``conv`` attribute, and CausalConv3d's ``<name>.conv.`` wrapper
+    for 5-D weights and their sibling biases."""
+    out = {}
+    for k, v in flat.items():
+        k2 = k
+        for nested in ("encoder.quant_conv.", "decoder.post_quant_conv."):
+            if k2.startswith(nested):
+                k2 = k2[k2.index(".") + 1:]
+        for ours, theirs in ((".downsampler.", ".downsamplers.0.conv."),
+                             (".temporal_downsampler.", ".temporal_downsamplers.0.conv."),
+                             (".upsampler.", ".upsamplers.0.conv."),
+                             (".temporal_upsampler.", ".temporal_upsamplers.0.conv."),
+                             (".to_out.", ".to_out.0.")):
+            k2 = k2.replace(ours, theirs)
+        if v.dim() == 5:
+            base, leaf = k2.rsplit(".", 1)
+            k2 = f"{base}.conv.{leaf}"
+        out[k2] = v
+    for k in [k for k in out if k.endswith(".conv.weight")]:
+        bias = k[: -len(".conv.weight")] + ".bias"
+        if bias in out:
+            out[k[: -len("weight")] + "bias"] = out.pop(bias)
+    return out
+
+
+def check_disk(path: str, need_bytes: int, what: str) -> None:
+    free = shutil.disk_usage(path).free
+    assert free > need_bytes * 1.1 + 2 ** 30, (
+        f"{what}: {free / 1e9:.1f} GB free under {path}, {need_bytes / 1e9:.1f} GB needed")
+
+
+def write_model_snapshot(root: str, mcfg, vcfg, params) -> int:
+    """transformer/ and causal_video_vae/ of a diffusers-style snapshot:
+    config.json and one .safetensors each. Returns the bytes written."""
+    from deepv_tpu_torch.io.weights import flatten_tree
+
+    total = 0
+    mmdit, vae = (flatten_tree(params[part]) for part in ("mmdit", "vae"))
+    for sub, cfg, fields, names in (
+            ("transformer", mcfg, MMDIT_JSON_FIELDS, mmdit_ckpt_names(mmdit)),
+            ("causal_video_vae", vcfg, VAE_JSON_FIELDS, vae_ckpt_names(vae))):
+        d = os.path.join(root, sub)
+        os.makedirs(d)
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump({k: (list(v) if isinstance(v, tuple) else v)
+                       for k, v in ((k, getattr(cfg, k)) for k in fields)}, f)
+        path = os.path.join(d, "diffusion_pytorch_model.safetensors")
+        write_safetensors(names, path)
+        total += os.path.getsize(path)
+    return total
+
+
+def run_checkpoint_path(device, results, ref_frames, root):
+    """Phase 16 (M15a): phase 5's full-width bf16 weights written as a
+    snapshot under ``root`` and loaded by run.load_pipeline without
+    random_weights; every tensor as written, then phase 5's rollout. Returns
+    the pipeline."""
+    import torch
+    from deepv_tpu_torch.config import MMDiTConfig, VAEConfig, create_model_config
+    from deepv_tpu_torch.io.weights import flatten_tree, random_params
+    from deepv_tpu_torch.run import load_pipeline
+
+    mcfg, vcfg = MMDiTConfig(), VAEConfig()
+    params = random_params(mcfg, vcfg, dtype=torch.bfloat16, seed=0, device=device)
+    written = {part: flatten_tree(params[part]) for part in ("mmdit", "vae")}
+    need = sum(t.numel() * t.element_size() for w in written.values() for t in w.values())
+    check_disk(root, need, "phase 16's snapshot")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snapshot_bytes = write_model_snapshot(root, mcfg, vcfg, params)
+    write_s = time.perf_counter() - t0
+    del params
+    t0 = time.perf_counter()
+    pipe = load_pipeline(root, create_model_config(root), dtype=torch.bfloat16, device=device)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    assert pipe.mcfg == mcfg and pipe.vcfg == vcfg, (pipe.mcfg, pipe.vcfg)
+    assert pipe.text_encoder is None, "no text directories, no encoder"
+    n_checked = 0
+    for part, module in (("mmdit", pipe.mmdit), ("vae", pipe.vae)):
+        state = module.state_dict()
+        assert set(state) == set(written[part]), sorted(set(state) ^ set(written[part]))[:5]
+        for k, w in written[part].items():
+            got = state[k]
+            want = w.float() if k == "pos_embed.pos_embed" else w
+            assert got.dtype == want.dtype and got.device == want.device, (k, got.dtype)
+            assert torch.equal(got, want), f"loaded {part}.{k} differs from the written tensor"
+            n_checked += 1
+    del written, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"checkpoint path: snapshot of {snapshot_bytes / 1e9:.3f} GB written in {write_s:.1f} s, "
+        f"loaded by run.load_pipeline in {load_s:.1f} s; {n_checked} tensors equal the written "
+        "ones bit for bit (pos_embed as f32 of the written bf16)")
+    summary, out, conv_launches = drive_rollout(pipe, load_s)
+    assert summary["forwards"] == FORWARDS, summary["forwards"]
+    assert summary["attention_launches"] == FORWARDS * mcfg.num_layers == 4320, summary
+    assert not any(conv_launches.values()), conv_launches
+    mean8, p95 = eight_bit_gap(out["pred_img"].cpu(), ref_frames)
+    summary.update(snapshot_gb=snapshot_bytes / 1e9, write_s=write_s, load_s=load_s,
+                   tensors_checked=n_checked, gap_vs_main_path_8bit_mean=mean8,
+                   gap_vs_main_path_8bit_p95=p95)
+    log(f"checkpoint path: 8-bit gap to phase 5's frames mean {mean8:.4f}, p95 {p95:.4f} "
+        "(printed, not gated: the loaded pos_embed is f32)")
+    log("checkpoint path:", json.dumps(summary))
+    results["checkpoint_path"] = summary
+    del out
+    return pipe
+
+
+def tower_layout(spec):
+    """One SD3 tower's HF state (``CLIPTextModelWithProjection`` or
+    ``T5EncoderModel``; T5's tied ``encoder.embed_tokens.weight`` left out,
+    as save_pretrained drops it): name -> (shape, init), where init is the
+    std of HF's normal init, or "ones" / "zeros"."""
+    d, n_layers, mlp = spec["width"], spec["layers"], spec["mlp"]
+    s = {}
+    if spec["kind"] == "clip":
+        in_std, out_std, fc_std = d ** -0.5 * (2 * n_layers) ** -0.5, d ** -0.5, (2 * d) ** -0.5
+        s["text_model.embeddings.token_embedding.weight"] = ((spec["vocab"], d), 0.02)
+        s["text_model.embeddings.position_embedding.weight"] = ((77, d), 0.02)
+        for i in range(n_layers):
+            p = f"text_model.encoder.layers.{i}."
+            for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                s[p + f"self_attn.{name}.weight"] = ((d, d), out_std if name == "out_proj"
+                                                     else in_std)
+                s[p + f"self_attn.{name}.bias"] = ((d,), "zeros")
+            for norm in ("layer_norm1", "layer_norm2"):
+                s[p + f"{norm}.weight"], s[p + f"{norm}.bias"] = ((d,), "ones"), ((d,), "zeros")
+            s[p + "mlp.fc1.weight"], s[p + "mlp.fc1.bias"] = ((mlp, d), fc_std), ((mlp,), "zeros")
+            s[p + "mlp.fc2.weight"], s[p + "mlp.fc2.bias"] = ((d, mlp), in_std), ((d,), "zeros")
+        s["text_model.final_layer_norm.weight"] = ((d,), "ones")
+        s["text_model.final_layer_norm.bias"] = ((d,), "zeros")
+        s["text_projection.weight"] = ((spec["proj"], d), d ** -0.5)
+    else:
+        inner = spec["heads"] * spec["d_kv"]
+        s["shared.weight"] = ((spec["vocab"], d), 1.0)
+        for i in range(n_layers):
+            p = f"encoder.block.{i}.layer."
+            s[p + "0.SelfAttention.q.weight"] = ((inner, d), (d * spec["d_kv"]) ** -0.5)
+            s[p + "0.SelfAttention.k.weight"] = ((inner, d), d ** -0.5)
+            s[p + "0.SelfAttention.v.weight"] = ((inner, d), d ** -0.5)
+            s[p + "0.SelfAttention.o.weight"] = ((d, inner), inner ** -0.5)
+            if i == 0:
+                s[p + "0.SelfAttention.relative_attention_bias.weight"] = (
+                    (32, spec["heads"]), d ** -0.5)
+            s[p + "0.layer_norm.weight"] = ((d,), "ones")
+            s[p + "1.DenseReluDense.wi_0.weight"] = ((mlp, d), d ** -0.5)
+            s[p + "1.DenseReluDense.wi_1.weight"] = ((mlp, d), d ** -0.5)
+            s[p + "1.DenseReluDense.wo.weight"] = ((d, mlp), mlp ** -0.5)
+            s[p + "1.layer_norm.weight"] = ((d,), "ones")
+        s["encoder.final_layer_norm.weight"] = ((d,), "ones")
+    return s
+
+
+def tower_params(towers=SD3_TOWERS) -> int:
+    return sum(math.prod(shape) for spec in towers.values()
+               for shape, _ in tower_layout(spec).values())
+
+
+def tower_state(spec, gen, dtype, device):
+    """``tower_layout``'s tensors, drawn on ``device`` from ``gen``."""
+    import torch
+
+    out = {}
+    for name, (shape, init) in tower_layout(spec).items():
+        if init == "ones":
+            out[name] = torch.ones(shape, dtype=dtype, device=device)
+        elif init == "zeros":
+            out[name] = torch.zeros(shape, dtype=dtype, device=device)
+        else:
+            out[name] = (torch.randn(shape, generator=gen, device=device) * init).to(dtype)
+    return out
+
+
+def tower_config(spec):
+    """The tower's config.json, as SD3's snapshot has it."""
+    if spec["kind"] == "clip":
+        return {"architectures": ["CLIPTextModelWithProjection"], "hidden_size": spec["width"],
+                "intermediate_size": spec["mlp"], "num_hidden_layers": spec["layers"],
+                "num_attention_heads": spec["heads"], "projection_dim": spec["proj"],
+                "hidden_act": spec["act"], "vocab_size": spec["vocab"],
+                "max_position_embeddings": 77, "layer_norm_eps": 1e-5,
+                "bos_token_id": 0, "eos_token_id": 2, "pad_token_id": 1}
+    return {"architectures": ["T5EncoderModel"], "d_model": spec["width"], "d_ff": spec["mlp"],
+            "d_kv": spec["d_kv"], "num_heads": spec["heads"], "num_layers": spec["layers"],
+            "feed_forward_proj": "gated-gelu", "vocab_size": spec["vocab"],
+            "relative_attention_num_buckets": 32, "relative_attention_max_distance": 128,
+            "layer_norm_epsilon": 1e-6, "eos_token_id": 1, "pad_token_id": 0}
+
+
+def write_text_towers(root: str, device, towers=SD3_TOWERS, seed: int = 17) -> int:
+    """text_encoder{,_2,_3}/ (config.json, model.safetensors) with random
+    bf16 weights from ``seed``. Returns the bytes written."""
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    total = 0
+    for sub, spec in towers.items():
+        d = os.path.join(root, sub)
+        os.makedirs(d)
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(tower_config(spec), f)
+        state = tower_state(spec, gen, torch.bfloat16, device)
+        write_safetensors(state, os.path.join(d, "model.safetensors"))
+        del state
+        total += os.path.getsize(os.path.join(d, "model.safetensors"))
+    return total
+
+
+def fixed_token_ids(n_tokens: int = TEXT_TOKENS, seed: int = 17):
+    """Seeded stand-ins for SD3's tokenizers, whose files the checkout does
+    not hold: CLIP rows BOS, ids, EOS 49407, then pad 49407 for the
+    first tokenizer and 0 for the second; the T5 row ids, EOS 1, pad 0, and
+    its mask. int64 numpy arrays [1, 77]."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    clip_ids = rng.integers(1000, 49000, n_tokens)
+    ids_l = np.full((1, 77), CLIP_EOS, np.int64)
+    ids_l[0, :n_tokens + 2] = [CLIP_BOS, *clip_ids, CLIP_EOS]
+    ids_g = np.zeros((1, 77), np.int64)
+    ids_g[0, :n_tokens + 2] = ids_l[0, :n_tokens + 2]
+    ids_t5 = np.zeros((1, 77), np.int64)
+    ids_t5[0, :n_tokens + 1] = [*rng.integers(3, 32000, n_tokens), T5_EOS]
+    mask = (np.arange(77) < n_tokens + 1).astype(np.int64)[None]
+    return ids_l, ids_g, ids_t5, mask
+
+
+def fixed_ids_encoder(root: str, dtype, device, calls=None):
+    """The port's SD3TextEncoder on the snapshot's towers, whose host
+    tokenisation (HF tokenizers from the snapshot's tokenizer directories)
+    is replaced by ``fixed_token_ids``; ``calls`` counts the prompts it
+    encodes."""
+    from deepv_tpu_torch.io.weights import load_text_towers
+    from deepv_tpu_torch.models.text_encoders import SD3TextEncoder
+
+    class FixedIdsEncoder(SD3TextEncoder):
+        def load_tokenizers(self, model_path):
+            pass
+
+        def tokenize(self, prompt):
+            if calls is not None:
+                calls[prompt] = calls.get(prompt, 0) + 1
+            return fixed_token_ids()
+
+    params, configs = load_text_towers(root, dtype=dtype, device=device)
+    return FixedIdsEncoder(root, params, configs, dtype=dtype, device=device)
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm())
+
+
+def run_text_path(device, results, pipe, root):
+    """Phase 17 (M15b): SD3's three towers at full width written into the
+    snapshot, loaded by io/weights.load_text_towers, encoded on the card in
+    bf16 against f32, then a 2-chunk prompt_type="text" rollout through
+    InferencePipeline(text_encoder=...) on phase 16's loaded MMDiT and VAE."""
+    import importlib.util
+    import numpy as np
+    import torch
+    from deepv_tpu_torch.actions import action_vocabulary, prepare_motion_prompts
+    from deepv_tpu_torch.config import create_model_config
+    from deepv_tpu_torch.io.text_embeds import random_text_embeds
+    from deepv_tpu_torch.pipeline import InferencePipeline
+
+    have = {m: importlib.util.find_spec(m) is not None for m in ("transformers", "safetensors")}
+    log(f"text path: importable on this machine: {json.dumps(have)}")
+    ids = fixed_token_ids()
+    log("text path: fixed token ids (CLIP-L, CLIP-G, T5, T5 mask): "
+        + json.dumps([a[0, :TEXT_TOKENS + 3].tolist() for a in ids]))
+    n_params = tower_params()
+    check_disk(root, 2 * n_params, "phase 17's text towers")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tower_bytes = write_text_towers(root, device)
+    write_s = time.perf_counter() - t0
+
+    # the same towers in f32 (TF32 off) give the reference
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    enc32 = fixed_ids_encoder(root, torch.float32, device)
+    torch.cuda.synchronize()
+    load32_s = time.perf_counter() - t0
+    ref = [t.float() for t in enc32(TEXT_PROMPT)]
+    del enc32
+    gc.collect()
+    torch.cuda.empty_cache()
+    calls = {}
+    t0 = time.perf_counter()
+    enc = fixed_ids_encoder(root, torch.bfloat16, device, calls)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    seq, mask, pooled = enc(TEXT_PROMPT)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        t = time.perf_counter()
+        enc.encode(*ids)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    encode_ms = 1e3 * sorted(times)[2]
+    by_kernel = kernel_device_ms(lambda: enc.encode(*ids), calls=3)
+    encode_device_ms = sum(by_kernel.values())
+    top_kernels = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:4])
+    assert tuple(seq.shape) == (1, 77, 4096) and seq.dtype == torch.bfloat16, seq.shape
+    assert tuple(mask.shape) == (1, 77) and tuple(pooled.shape) == (1, 2048), pooled.shape
+    assert torch.equal(mask.cpu(), torch.from_numpy(ids[3])), "the T5 mask is not the tokens'"
+    for name, t in (("prompt_embeds", seq), ("pooled", pooled)):
+        assert bool(torch.isfinite(t).all()), f"non-finite {name}"
+    devs = {"prompt_embeds": rel_l2(seq, ref[0]), "pooled_clip_l": rel_l2(pooled[:, :768],
+                                                                          ref[2][:, :768]),
+            "pooled_clip_g": rel_l2(pooled[:, 768:], ref[2][:, 768:])}
+    log(f"text path: {tower_bytes / 1e9:.3f} GB of towers ({n_params / 1e9:.3f} B parameters) "
+        f"written in {write_s:.1f} s, loaded in {load_s:.1f} s (f32: {load32_s:.1f} s); one "
+        f"bf16 encode {encode_ms:.2f} ms, {encode_device_ms:.2f} ms of it device time in "
+        f"{len(by_kernel)} kernel kinds (top: {json.dumps(top_kernels)}); relative L2 to f32 "
+        f"{json.dumps(devs)} (tolerance {TEXT_BF16_REL_L2})")
+    bad = {k: v for k, v in devs.items() if not v <= TEXT_BF16_REL_L2}
+    assert not bad, f"bf16 towers deviate from f32 beyond {TEXT_BF16_REL_L2}: {bad}"
+    del seq, mask, pooled, ref
+    calls.clear()
+
+    # a 2-chunk text rollout on phase 16's loaded MMDiT and VAE
+    mcfg = pipe.mcfg
+    params = {"mmdit": pipe.mmdit.state_dict(), "vae": pipe.vae.state_dict()}
+    embeds = random_text_embeds(0, action_vocabulary(), joint_dim=mcfg.joint_attention_dim,
+                                pooled_dim=mcfg.pooled_projection_dim)
+    t0 = time.perf_counter()
+    tpipe = InferencePipeline(create_model_config(root, use_motion_prompt=False), mcfg,
+                              pipe.vcfg, params, embeds, dtype=torch.bfloat16,
+                              text_encoder=enc, device=device)
+    setup_s = time.perf_counter() - t0
+    del params
+    batch = dict(rollout_batch(), prompt=np.array(prepare_motion_prompts("text", TEXT_PROMPT)),
+                 prompt_type="text")
+    summary, out, conv_launches = drive_rollout(tpipe, setup_s, batch=batch)
+    assert calls == {TEXT_PROMPT: 1}, f"the encoder ran {calls}, not once for the prompt"
+    assert summary["forwards"] == FORWARDS, summary["forwards"]
+    assert summary["attention_launches"] == FORWARDS * mcfg.num_layers == 4320, summary
+    assert not any(conv_launches.values()), conv_launches
+    summary.update(towers_gb=tower_bytes / 1e9, tower_params=n_params, write_s=write_s,
+                   load_s=load_s, load_f32_s=load32_s, encode_ms=encode_ms,
+                   encode_device_ms=encode_device_ms, encode_top_kernels_ms=top_kernels,
+                   rel_l2_vs_f32=devs, encoder_calls=calls,
+                   importable=have)
+    log(f"text path: 89 frames from the text prompt; peak {summary['max_memory_allocated_gib']:.2f}"
+        f" GiB with the towers resident ({summary['resident_gib']:.2f} GiB before the rollout)")
+    log("text path:", json.dumps(summary))
+    results["text_path"] = summary
+    del tpipe, out, enc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -2131,11 +2601,21 @@ def main() -> int:
     fast, k3_frames_by_class = run_fast_path(device, results, ref_frames)
     run_adaptive_boundary_path(device, results, ref_frames)
     run_serving_path(device, results, ref_frames, ref_disparity, launches)
-    del ref_frames, ref_disparity
+    ref_frames = ref_frames.cpu()
+    del ref_disparity
     gc.collect()
     torch.cuda.empty_cache()
     bwd_rows, bwd_timing = check_attention_backward(device, results)
     training = run_training_path(device, results)
+    snapshot = tempfile.mkdtemp(prefix="_snapshot_", dir=HERE)
+    try:
+        pipe = run_checkpoint_path(device, results, ref_frames, snapshot)
+        run_text_path(device, results, pipe, snapshot)
+    finally:
+        shutil.rmtree(snapshot, ignore_errors=True)
+    del pipe, ref_frames
+    gc.collect()
+    torch.cuda.empty_cache()
 
     assert launches == sum(r["launches_per_rollout"] for r in rows), (
         "K1's launches per layout do not add up to the rollout's")

@@ -1,16 +1,25 @@
-"""Parameter trees -> the port's modules, and random weights on the card.
+"""Checkpoints and parameter trees -> the port's modules, and random weights.
 
 deepv_tpu keeps parameters as a nested dict/list tree whose paths are the
 diffusers module names (after its ``io/weights.py`` re-keying) and whose
 leaves keep torch layouts. The port's ``MMDiT`` and ``VAE`` modules use the
 same dotted names, so loading a tree is a flatten plus
 ``load_state_dict(strict=True)``.
+
+A DeepVerse snapshot is a diffusers-style directory: ``transformer/`` and
+``causal_video_vae/`` (``config.json`` and ``*.safetensors``), and for text
+prompts ``text_encoder{,_2,_3}/`` and ``tokenizer{,_2,_3}/``.
+``load_checkpoint`` and ``load_text_encoders`` read it into deepv_tpu's
+trees (``io/safetensors.py`` reads the files), re-keyed by deepv_tpu's rules.
 """
 
 from __future__ import annotations
 
+import json
 import math
-from typing import Dict, Optional
+import os
+import re
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -18,6 +27,7 @@ from torch import nn
 
 from ..config import MMDiTConfig, VAEConfig
 from ..models.mmdit import sincos_2d
+from . import safetensors
 
 
 def flatten_tree(tree, prefix: str = "") -> Dict[str, object]:
@@ -252,8 +262,177 @@ def random_params(mcfg: MMDiTConfig, vcfg: VAEConfig, dtype=torch.bfloat16,
             "vae": _vae_tree(vcfg, _Init(seed + 1, dtype, device))}
 
 
-def load_checkpoint(model_path: str, dtype=torch.bfloat16):
-    """Not ported yet: the safetensors checkpoint loader."""
-    raise NotImplementedError(
-        "load_checkpoint: the checkpoint loader is not ported yet "
-        "(ROADMAP M15, text encoders + checkpoint loader); use random weights")
+# ---------------------------------------------------------------------------
+# checkpoints: diffusers / transformers safetensors -> deepv_tpu's trees
+# ---------------------------------------------------------------------------
+
+def _set(tree: dict, dotted: str, value) -> None:
+    """Assign into a nested dict/list tree by a dotted path with int indices
+    (absent list slots become None)."""
+    parts = [int(p) if p.isdigit() else p for p in dotted.split(".")]
+    node = tree
+    for i, p in enumerate(parts[:-1]):
+        nxt_is_int = isinstance(parts[i + 1], int)
+        if isinstance(p, int):
+            while len(node) <= p:
+                node.append([] if nxt_is_int else {})
+            node = node[p]
+        else:
+            if p not in node:
+                node[p] = [] if nxt_is_int else {}
+            node = node[p]
+    last = parts[-1]
+    if isinstance(last, int):
+        while len(node) <= last:
+            node.append(None)
+    node[last] = value
+
+
+#: checkpoint key -> tree path rewrites of the MMDiT (deepv_tpu's rules)
+_MMDIT_RULES = [
+    (re.compile(r"\.net\.0\.proj\."), ".proj."),      # FeedForward GELU proj
+    (re.compile(r"\.net\.2\."), ".out."),              # FeedForward out linear
+    (re.compile(r"\.to_out\.0\."), ".to_out."),        # attention out (drop dropout idx)
+]
+
+#: the same for the causal VAE
+_VAE_RULES = [
+    (re.compile(r"\.conv\.(weight|bias)$"), r".\1"),               # CausalConv3d wrapper
+    # re/down/up-samplers wrap their conv as an attribute named ``conv``
+    (re.compile(r"\.downsamplers\.0\.conv\."), ".downsampler."),
+    (re.compile(r"\.temporal_downsamplers\.0\.conv\."), ".temporal_downsampler."),
+    (re.compile(r"\.upsamplers\.0\.conv\."), ".upsampler."),
+    (re.compile(r"\.temporal_upsamplers\.0\.conv\."), ".temporal_upsampler."),
+    (re.compile(r"\.to_out\.0\."), ".to_out."),
+]
+
+
+def _rewrite(key: str, rules) -> str:
+    for pat, repl in rules:
+        key = pat.sub(repl, key)
+    return key
+
+
+def _leaf(v: torch.Tensor, dtype, device) -> torch.Tensor:
+    """One checkpoint tensor moved to ``device`` (once; None keeps it where
+    it is) and cast to ``dtype`` there."""
+    return (v if device is None else v.to(device)).to(dtype)
+
+
+def convert_mmdit_state(state: Dict[str, torch.Tensor], dtype=torch.bfloat16,
+                        device=None) -> dict:
+    """A diffusers transformer state -> deepv_tpu's MMDiT tree, every leaf
+    cast to ``dtype``; the ``pos_embed.pos_embed`` table is then cast back to
+    float32 (deepv_tpu keeps an f32 copy: the file's values rounded to
+    ``dtype``)."""
+    tree: dict = {}
+    for k, v in state.items():
+        _set(tree, _rewrite(k, _MMDIT_RULES), _leaf(v, dtype, device))
+    if isinstance(tree.get("pos_embed"), dict) and "pos_embed" in tree["pos_embed"]:
+        tree["pos_embed"]["pos_embed"] = tree["pos_embed"]["pos_embed"].to(torch.float32)
+    return tree
+
+
+def convert_vae_state(state: Dict[str, torch.Tensor], dtype=torch.bfloat16,
+                      device=None) -> dict:
+    """A diffusers causal-VAE state -> deepv_tpu's VAE tree: the quant convs,
+    which the checkpoint keeps beside the encoder and decoder, nest as
+    ``encoder.quant_conv`` and ``decoder.post_quant_conv``."""
+    tree: dict = {}
+    for k, v in state.items():
+        k2 = _rewrite(k, _VAE_RULES)
+        if k2.startswith("quant_conv."):
+            k2 = "encoder." + k2
+        elif k2.startswith("post_quant_conv."):
+            k2 = "decoder." + k2
+        _set(tree, k2, _leaf(v, dtype, device))
+    return tree
+
+
+def load_checkpoint(model_path: str, dtype=torch.bfloat16, device=None
+                    ) -> Tuple[MMDiTConfig, VAEConfig, dict]:
+    """A DeepVerse snapshot's ``transformer/`` and ``causal_video_vae/`` ->
+    (MMDiTConfig, VAEConfig, {"mmdit": tree, "vae": tree}). The configs come
+    from each ``config.json``, or are the defaults where it is absent; each
+    leaf is read into a CPU tensor and moved to ``device`` once (None: it
+    stays on the CPU)."""
+    tdir = os.path.join(model_path, "transformer")
+    vdir = os.path.join(model_path, "causal_video_vae")
+    tjson, vjson = os.path.join(tdir, "config.json"), os.path.join(vdir, "config.json")
+    mcfg = MMDiTConfig.from_json(tjson) if os.path.exists(tjson) else MMDiTConfig()
+    vcfg = VAEConfig.from_json(vjson) if os.path.exists(vjson) else VAEConfig()
+    params = {
+        "mmdit": convert_mmdit_state(safetensors.load_dir(tdir), dtype, device),
+        "vae": convert_vae_state(safetensors.load_dir(vdir), dtype, device),
+    }
+    return mcfg, vcfg, params
+
+
+def convert_text_embeds_pt(pt_path: str, npz_path: str) -> None:
+    """Convert the reference's torch text-embedding cache
+    (``assets/text_embeds_len77.pt``: prompt -> field -> tensor) to the
+    port's npz format (``io/text_embeds.load_text_embeds``)."""
+    from .text_embeds import save_text_embeds
+
+    raw = torch.load(pt_path, map_location="cpu")
+    cache = {prompt: {field: t.float().numpy() for field, t in fields.items()}
+             for prompt, fields in raw.items()}
+    save_text_embeds(npz_path, cache)
+
+
+# --- text encoder towers (CLIP-L / CLIP-G / T5) ------------------------------
+
+#: tower name -> its snapshot directory (and ``tokenizer{,_2,_3}`` beside)
+TEXT_TOWER_DIRS = {"clip_l": "text_encoder", "clip_g": "text_encoder_2", "t5": "text_encoder_3"}
+
+
+def convert_text_tower_state(state: Dict[str, torch.Tensor], dtype=torch.bfloat16,
+                             device=None) -> dict:
+    """HF ``CLIPTextModelWithProjection`` / ``T5EncoderModel`` state -> tree.
+    The keys are already the tree's paths (``models/text_encoders.py``);
+    keys the towers never read (T5's tied ``encoder.embed_tokens.weight``)
+    are kept."""
+    tree: dict = {}
+    for k, v in state.items():
+        _set(tree, k, _leaf(v, dtype, device))
+    return tree
+
+
+def load_text_towers(model_path: str, dtype=torch.bfloat16, device="cuda"):
+    """The three towers of a snapshot's ``text_encoder{,_2,_3}/`` on
+    ``device``: ``(params, configs)``, keyed "clip_l", "clip_g", "t5". Each
+    config comes from the tower's ``config.json``: ``num_attention_heads``,
+    ``hidden_act`` (default quick_gelu) and ``eos_token_id`` (default 2) for
+    a CLIP, ``num_heads`` and ``feed_forward_proj`` (gated unless it says
+    otherwise) for T5."""
+    params, configs = {}, {}
+    for name, sub in TEXT_TOWER_DIRS.items():
+        d = os.path.join(model_path, sub)
+        with open(os.path.join(d, "config.json")) as f:
+            raw = json.load(f)
+        params[name] = convert_text_tower_state(safetensors.load_dir(d), dtype, device)
+        if name == "t5":
+            configs[name] = {
+                "num_heads": raw["num_heads"],
+                "gated_act": "gated" in raw.get("feed_forward_proj", "gated-gelu"),
+            }
+        else:
+            configs[name] = {
+                "num_heads": raw["num_attention_heads"],
+                "act": raw.get("hidden_act", "quick_gelu"),
+                "eos_token_id": raw.get("eos_token_id", 2),
+            }
+    return params, configs
+
+
+def load_text_encoders(model_path: str, dtype=torch.bfloat16, device="cuda"):
+    """An ``SD3TextEncoder`` on ``device`` from a snapshot's towers and
+    tokenizers, or None when any of ``text_encoder{,_2,_3}/`` is absent.
+    Tokenising needs the ``transformers`` package (ImportError without
+    it)."""
+    from ..models.text_encoders import SD3TextEncoder
+
+    if not all(os.path.isdir(os.path.join(model_path, d)) for d in TEXT_TOWER_DIRS.values()):
+        return None
+    params, configs = load_text_towers(model_path, dtype, device)
+    return SD3TextEncoder(model_path, params, configs, dtype=dtype, device=device)

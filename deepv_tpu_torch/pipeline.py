@@ -343,7 +343,9 @@ class InferencePipeline:
     card); they are loaded onto ``device`` in their own dtype.
     ``text_embeds`` maps a motion sentence to {"prompt_embeds" [1, 77, Dt],
     "prompt_attention_mask" [1, 77], "pooled_prompt_embeds" [1, Dp]}; the
-    negative prompt is ``'empty'``."""
+    negative prompt is ``'empty'``. A prompt the cache does not hold (a
+    ``prompt_type="text"`` rollout) is encoded by ``text_encoder``
+    (``io/weights.load_text_encoders``), once per prompt."""
 
     def __init__(self, cfg: PipelineConfig, mmdit_cfg: MMDiTConfig,
                  vae_cfg: VAEConfig, params: Dict, text_embeds: Dict,
@@ -355,8 +357,6 @@ class InferencePipeline:
                  prime_decoder_cache: bool = True, carry_latents: bool = False,
                  encode_window: int = 16, device="cuda"):
         # deepv_tpu's parameters in its order, then the port's device
-        if text_encoder is not None:
-            _not_ported("text_encoder", "M15 text encoders")
         if mesh is not None:
             _not_ported("mesh", "M17 parallelism")
         if use_tiling:
@@ -430,6 +430,9 @@ class InferencePipeline:
             need = decoder_prime_need(vae_cfg)
             if need is not None and self.vae.decoder.conv_out.weight.shape[2] == 3:
                 self._prime_need = need
+        #: live encoder for prompts the cache does not hold (an
+        #: ``SD3TextEncoder``: ``encoder(prompt) -> (embeds, mask, pooled)``)
+        self.text_encoder = text_encoder
         self._embed_memo: Dict[str, Tuple] = {}
         self.schedule = FlowMatchSchedule(cfg.scheduler)
         self.timer = PhaseTimer(sync=False, device=self.device)
@@ -444,14 +447,20 @@ class InferencePipeline:
         cached = self._embed_memo.get(prompt)
         if cached is not None:
             return cached
-        if prompt not in self.text_embeds:
-            raise KeyError(f"prompt {prompt!r} not in the precomputed text-embedding cache")
-        e = self.text_embeds[prompt]
-        out = (torch.as_tensor(np.asarray(e["prompt_embeds"]), device=self.device).to(self.dtype),
-               torch.as_tensor(np.asarray(e["prompt_attention_mask"]),
-                               device=self.device).to(torch.int32),
-               torch.as_tensor(np.asarray(e["pooled_prompt_embeds"]),
-                               device=self.device).to(self.dtype))
+        if prompt in self.text_embeds:
+            e = self.text_embeds[prompt]
+            pe, mask, pooled = (torch.as_tensor(np.asarray(e[k])) for k in (
+                "prompt_embeds", "prompt_attention_mask", "pooled_prompt_embeds"))
+        elif self.text_encoder is not None:
+            pe, mask, pooled = self.text_encoder(prompt)
+        else:
+            raise KeyError(
+                f"prompt {prompt!r} not in the precomputed text-embedding cache and no "
+                "live text encoder is configured")
+        out = (pe.to(self.device, self.dtype), mask.to(self.device, torch.int32),
+               pooled.to(self.device, self.dtype))
+        # memoised: a prompt repeats for every unit of every chunk, and the
+        # live encoder would otherwise tokenise and encode it each time
         self._embed_memo[prompt] = out
         return out
 

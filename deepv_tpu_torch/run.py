@@ -1,10 +1,14 @@
 """CLI entry point of the port, with deepv_tpu's run.py flags.
 
     python -m deepv_tpu_torch.run --input_image img.png --model_path ./ckpts \\
-        --random_weights --prompt_type action --prompt '(FN)(FN)(SR)'
+        --prompt_type text --prompt 'A red car drives down the road.'
 
-Runs on the CUDA card. Only random weights are ported (``--random_weights``;
-``DEEPV_TINY=1`` selects the small smoke-run architecture); flags of paths
+Runs on the CUDA card. ``--model_path`` names a DeepVerse snapshot
+(``transformer/``, ``causal_video_vae/`` and, for text prompts,
+``text_encoder{,_2,_3}/`` with ``tokenizer{,_2,_3}/``); a text prompt needs
+the ``transformers`` package to tokenise. ``--random_weights``, or a path
+that is not a directory, builds seeded random weights instead
+(``DEEPV_TINY=1`` selects the small smoke-run architecture). Flags of paths
 not ported yet raise NotImplementedError naming their ROADMAP item.
 ``--fast`` is the quality-gated fast preset (flow caching "skip_odd", the
 W8A8 denoise linears and the int8 VAE conv); ``--flow_cache`` overrides its
@@ -24,7 +28,7 @@ import torch
 
 from .actions import action_vocabulary, prepare_motion_prompts
 from .config import MMDiTConfig, PipelineConfig, VAEConfig, create_model_config
-from .io.text_embeds import random_text_embeds
+from .io.text_embeds import load_text_embeds, random_text_embeds
 from .pipeline import InferencePipeline
 
 VIDEO_LENGTH = 57
@@ -70,34 +74,50 @@ def load_pipeline(model_path: str, model_cfg: PipelineConfig,
                   tp_shards: int = 1, fast: bool = False,
                   flow_cache: Optional[str] = None, carry_latents: bool = False,
                   device=None, seed: int = 0) -> InferencePipeline:
-    """Random-weight pipeline on ``device`` (default "cuda"; raises when no
-    GPU is present, pass "cpu" explicitly to run on the CPU). ``fast``:
+    """The pipeline on ``device`` (default "cuda"; raises when no GPU is
+    present, pass "cpu" explicitly to run on the CPU). Weights come from the
+    snapshot at ``model_path`` (``io/weights.load_checkpoint``), with its text
+    encoders where it has them; ``random_weights``, or a ``model_path`` that
+    is not a directory, draws seeded random ones instead. The action
+    embeddings come from ``model_cfg.text_embeds_path`` where that file
+    exists, else from the snapshot's encoders, else random ones. ``fast``:
     flow_cache="skip_odd", denoise_int8 and ``VAEConfig(conv_impl="int8")``;
     ``flow_cache`` (when given) overrides the preset's choice."""
     if tp_shards != 1:
         raise NotImplementedError("tp_shards: not ported yet (ROADMAP M17 parallelism)")
-    if not random_weights:
-        raise NotImplementedError("checkpoint loading: not ported yet (ROADMAP M15 text "
-                                  "encoders + checkpoint loader); pass random_weights=True")
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
-    from .io.weights import random_params
+    from .io import weights
 
-    if os.environ.get("DEEPV_TINY") == "1":
-        mcfg, vcfg = tiny_configs()
+    text_encoder = embeds = None
+    if random_weights or not os.path.isdir(model_path):
+        if os.environ.get("DEEPV_TINY") == "1":
+            mcfg, vcfg = tiny_configs()
+        else:
+            mcfg, vcfg = MMDiTConfig(), VAEConfig()
+        params = weights.random_params(mcfg, vcfg, dtype=dtype, seed=seed, device=device)
     else:
-        mcfg, vcfg = MMDiTConfig(), VAEConfig()
-    params = random_params(mcfg, vcfg, dtype=dtype, seed=seed, device=device)
-    embeds = random_text_embeds(0, action_vocabulary(), joint_dim=mcfg.joint_attention_dim,
-                                pooled_dim=mcfg.pooled_projection_dim)
+        mcfg, vcfg, params = weights.load_checkpoint(model_path, dtype=dtype, device=device)
+        text_encoder = weights.load_text_encoders(model_path, dtype=dtype, device=device)
+        embeds_path = model_cfg.text_embeds_path
+        if embeds_path and os.path.exists(embeds_path):
+            embeds = load_text_embeds(embeds_path)
+        elif text_encoder is not None:
+            # the closed action vocabulary, made again from the snapshot's own
+            # encoders (the reference's cache asset is missing upstream)
+            from .io.build_embeds import build_action_embeds
+            embeds = build_action_embeds(text_encoder)
+    if embeds is None:
+        embeds = random_text_embeds(0, action_vocabulary(), joint_dim=mcfg.joint_attention_dim,
+                                    pooled_dim=mcfg.pooled_projection_dim)
     if flow_cache is None:
         flow_cache = "skip_odd" if fast else "none"
     if fast:
         vcfg = dataclasses.replace(vcfg, conv_impl="int8")
     return InferencePipeline(model_cfg, mcfg, vcfg, params, embeds, dtype=dtype,
-                             device=device, flow_cache=flow_cache, denoise_int8=fast,
-                             carry_latents=carry_latents)
+                             text_encoder=text_encoder, device=device, flow_cache=flow_cache,
+                             denoise_int8=fast, carry_latents=carry_latents)
 
 
 def main(input_image: str, model_path: str, prompt_type: str = "text",
@@ -156,7 +176,7 @@ def cli():
                    help="not ported yet (raises)")
     p.add_argument("--random_weights", action="store_true",
                    help="random-initialise the full model with a seeded torch "
-                        "generator (the only weights ported so far)")
+                        "generator instead of loading the snapshot at --model_path")
     p.add_argument("--output_path", default="output/generated_video.mp4")
     p.add_argument("--height", type=int, default=VIDEO_HEIGHT)
     p.add_argument("--width", type=int, default=VIDEO_WIDTH)

@@ -476,7 +476,10 @@ def prewarm(pipe: InferencePipeline, height: int = 384, width: int = 512,
 
 
 def cli():
-    """python -m deepv_tpu_torch.serve --model_path ./ckpts --random_weights [--port 8631] ..."""
+    """python -m deepv_tpu_torch.serve --model_path ./ckpts [--random_weights] [--port 8631] ...
+
+    ``--model_path`` names a DeepVerse snapshot (``run.load_pipeline``);
+    ``--random_weights`` draws seeded random weights instead."""
     import argparse
 
     from .config import create_model_config
@@ -490,7 +493,7 @@ def cli():
     p.add_argument("--no_need_depth", action="store_true")
     p.add_argument("--random_weights", action="store_true",
                    help="random-initialise the full model with a seeded torch generator "
-                        "(the only weights ported so far)")
+                        "instead of loading the snapshot at --model_path")
     p.add_argument("--tp_shards", type=int, default=1, help="only 1 is ported")
     p.add_argument("--streams", type=int, default=1,
                    help="run this many INDEPENDENT pipelines, one per card (multi-stream "

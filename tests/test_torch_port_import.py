@@ -2,7 +2,10 @@
 
 The import check runs in a fresh, isolated interpreter (this test process
 has JAX loaded by the conftest). A source scan backs it up for imports that
-only run inside functions.
+only run inside functions. No port module imports ``safetensors`` or
+``transformers`` when it is imported: the port reads safetensors files
+itself, and only the text encoder's tokenising needs ``transformers``,
+imported when an encoder is built.
 """
 
 import ast
@@ -16,6 +19,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "deepv_tpu_torch"
+#: packages the port does not depend on: imported by no module when it is imported
+ABSENT_ON_CARD = ("safetensors", "transformers")
 
 
 def port_modules():
@@ -33,7 +38,8 @@ def test_every_module_imports_without_jax():
         f"for m in {port_modules()!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'deepv_tpu', 'optax', 'orbax'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'deepv_tpu', 'optax', 'orbax',\n"
+        "                                    'safetensors', 'transformers'))\n"
         "print(json.dumps(bad))\n")
     proc = subprocess.run([sys.executable, "-I", "-c", code], capture_output=True, text=True,
                           timeout=300, cwd=str(ROOT))
@@ -42,24 +48,43 @@ def test_every_module_imports_without_jax():
     assert len(port_modules()) >= 20
 
 
+def imported_names(node):
+    """Absolute module names an import statement names ([] for others)."""
+    if isinstance(node, ast.Import):
+        return [a.name for a in node.names]
+    if isinstance(node, ast.ImportFrom) and node.level == 0:
+        return [node.module or ""]
+    return []
+
+
+def module_level_nodes(tree):
+    """The nodes that run when the module is imported: all but the bodies
+    of functions and lambdas."""
+    todo = list(ast.iter_child_nodes(tree))
+    while todo:
+        node = todo.pop()
+        yield node
+        if not isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+            todo.extend(ast.iter_child_nodes(node))
+
+
 @pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                                                     ROOT / "tools" / "profile_port.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_no_jax_or_deepv_tpu(path):
     """Also function-level imports: no ``import jax...``, no optax or orbax
     and no import of ``deepv_tpu`` (the port keeps its own copies of what it
-    needs)."""
+    needs). At module level, no ``safetensors`` or ``transformers`` either:
+    a machine without them still imports every module."""
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            names = [a.name for a in node.names]
-        elif isinstance(node, ast.ImportFrom):
-            names = [node.module or ""] if node.level == 0 else []
-        else:
-            continue
-        for name in names:
+        for name in imported_names(node):
             assert name.split(".")[0] not in ("jax", "jaxlib", "deepv_tpu", "optax", "orbax"), \
                 f"{path.name}:{node.lineno} imports {name}"
+    for node in module_level_nodes(tree):
+        for name in imported_names(node):
+            assert name.split(".")[0] not in ABSENT_ON_CARD, \
+                f"{path.name}:{node.lineno} imports {name} at module level"
 
 
 def test_source_scan_reaches_every_kernel_module():

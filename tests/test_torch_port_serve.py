@@ -534,14 +534,15 @@ def test_serve_help_runs():
 @pytest.mark.parametrize("argv, error, match", [
     (["--random_weights", "--aot_cache", "d"], NotImplementedError, "M19c"),
     (["--random_weights", "--tp_shards", "2"], NotImplementedError, "M17"),
-    ([], NotImplementedError, "M15"),
+    ([], RuntimeError, "no CUDA device"),
     (["--random_weights", "--streams", "2", "--tp_shards", "2"], SystemExit, "exclusive"),
     (["--random_weights", "--streams", "2"], SystemExit, "visible devices"),
     (["--random_weights"], RuntimeError, "no CUDA device"),
 ])
 def test_cli_refuses_what_it_cannot_run(monkeypatch, argv, error, match):
-    """The CLI runs on the card; unported options raise naming their ROADMAP
-    item, and --streams is checked against the visible cards."""
+    """The CLI runs on the card, with a snapshot or --random_weights;
+    unported options raise naming their ROADMAP item, and --streams is
+    checked against the visible cards."""
     monkeypatch.setenv("DEEPV_TINY", "1")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
