@@ -190,7 +190,29 @@ Phases, in order; any failure exits non-zero before the last line:
      InferencePipeline(text_encoder=...) on phase 16's loaded MMDiT and VAE:
      counts set to 0 just before and read just after, K1 4,320, 89 finite
      frames, the encoder called once (the pipeline's memo); prints the peak.
-Phases 5, 7, 11, 12, 13, 16 and 17 also check that the backward never launched.
+ 18. spatial tiling (M17a): phase 5's weights, image, prompt and seed through
+     InferencePipeline(VAEConfig(conv_impl="igemm"), stream_decode=False),
+     first untiled (exact boundary priming), then with use_tiling=True
+     (deepv_tpu's 256-pixel tiles: the encodes on a 2 x 3 grid of 256/192 x
+     256/256/128 pixels, the end-of-chunk decodes on 32/24 x 32/32/16
+     latents; no priming). Counts set to 0 just before and read just after
+     each: K1 4,320, K2 (wgmma and cl paths) as the tile grid and the
+     windows imply, the cl path once per tile of each full-mode encode. A
+     spy records every K2 shape of the tiled run; K2 is then held to its
+     plain version at each distinct one (random inputs, x channels-last
+     where the rollout's was) in bf16 and f32 with phase 4's tolerances.
+     Prints both runs' wall time, phase seconds and peak device memory,
+     the 8-bit gap between their frames (not gated: tiles see zero
+     borders), and the 8-bit gap of each tiled igemm decode to a tiled
+     cuDNN decode of the same latents;
+ 19. PLY export (M19b): io/ply.save_ply of phase 5's output on the card,
+     every 8th frame (12 files) into a temporary directory of the checkout,
+     removed at the end; prints the seconds and the points written. Then
+     depth_edge on the card equal to the CPU's and backproject within
+     2^-20 of the absolute sum of each point's terms (TF32 off) for the
+     same 12 frames.
+Phases 5, 7, 11, 12, 13, 16, 17 and 18 also check that the backward never
+launched.
 The line before the last is a JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}. Extra detail goes to chiprun_out/.
 """
@@ -1006,7 +1028,8 @@ def run_main_path(device, results):
             == main["int_mm_calls"] == 0), main
     log("main path:", json.dumps(main))
     results["main_path"] = main
-    return pipe, main["attention_launches"], out["pred_img"], out["pred_disparity"]
+    return (pipe, main["attention_launches"], out["pred_img"], out["pred_disparity"],
+            (out["trans3d"], out["trans2d"]))
 
 
 def check_forward(pipe, device, results):
@@ -1083,6 +1106,35 @@ def conv_case_inputs(mode: str, ci: int, co: int, h: int, w: int, n: int, gen, d
     return x, types.SimpleNamespace(weight=weight, bias=bias), 2 if mode == "full" else 0
 
 
+def k2_against_plain(x, p, time_pad: int, what: str):
+    """K2 and its plain version on the same input, checking by the counters
+    that the kernel ``kernel_for(x)`` names ran (for f32 also the split
+    kernel), with phase 4's tolerances: f32 at atol 2e-4 / rtol 1e-4, bf16
+    within one bf16 ulp of the larger value plus 2e-4. Returns (y, the
+    plain output, |y - plain|, the largest excess over the bf16 bound, 0
+    for f32)."""
+    import torch
+    from deepv_tpu_torch.ops import conv_igemm as cig
+
+    kernel = cig.kernel_for(x)
+    before = [getattr(cig, name) for name in K2_COUNTERS]
+    y = cig.conv3d_igemm(x, p, time_pad)
+    r = cig.conv3d_igemm_plain(x, p, time_pad)
+    torch.cuda.synchronize()
+    ran = [k for k, name, c0 in zip(("wgmma", "cl", "tf32x3", "split"), K2_COUNTERS, before)
+           if getattr(cig, name) != c0]
+    want = [kernel] if kernel != "tf32x3" else ["tf32x3", "split"]
+    assert ran == want, f"{what}: expected the {kernel} kernel, ran {ran}"
+    err = (y.float() - r.float()).abs()
+    if x.dtype == torch.float32:
+        torch.testing.assert_close(y, r, atol=2e-4, rtol=1e-4)
+        return y, r, err, 0.0
+    bound = bf16_ulp(torch.maximum(y.float().abs(), r.float().abs())) + 2e-4
+    excess = float((err - bound).max())
+    assert excess <= 0, f"{what} bf16: kernel vs plain beyond one ulp"
+    return y, r, err, excess
+
+
 def check_conv_igemm(device, results):
     """Phase 4: K2 against its plain version at every eligible conv class
     and at the edge shapes."""
@@ -1106,14 +1158,7 @@ def check_conv_igemm(device, results):
             p = p32 if dtype == torch.float32 else type(p32)(
                 weight=p32.weight.to(dtype), bias=p32.bias.to(dtype))
             kernel = cig.kernel_for(x)
-            before = [getattr(cig, name) for name in K2_COUNTERS]
-            y = cig.conv3d_igemm(x, p, tp)
-            r = cig.conv3d_igemm_plain(x, p, tp)
-            torch.cuda.synchronize()
-            ran = [k for k, name, c0 in zip(("wgmma", "cl", "tf32x3", "split"), K2_COUNTERS,
-                                            before) if getattr(cig, name) != c0]
-            want = [kernel] if kernel != "tf32x3" else ["tf32x3", "split"]
-            assert ran == want, f"{layer} {mode}: expected the {kernel} kernel, ran {ran}"
+            y, r, err, excess = k2_against_plain(x, p, tp, f"{layer} {mode}")
             split = None
             if kernel == "tf32x3":
                 # the split kernel alone: both planes equal the plain split's
@@ -1130,14 +1175,6 @@ def check_conv_igemm(device, results):
                                  lambda: cig.conv3d_tf32x3_planes(xp, wp, bv, tp), 3, 1))
                 del xp, wp
             assert tuple(y.shape) == (b, co, n, h, w), tuple(y.shape)
-            err = (y.float() - r.float()).abs()
-            if dtype == torch.float32:
-                torch.testing.assert_close(y, r, atol=2e-4, rtol=1e-4)
-                excess = 0.0
-            else:
-                bound = bf16_ulp(torch.maximum(y.float().abs(), r.float().abs())) + 2e-4
-                excess = float((err - bound).max())
-                assert excess <= 0, f"{layer} {mode} bf16: kernel vs plain beyond one ulp"
             # F.conv3d on the same input (full mode: the zero frames prepended
             # outside the timed call); a yardstick the igemm path never calls
             xl = F.pad(x, (0, 0, 0, 0, tp, 0)) if tp else x
@@ -2542,6 +2579,297 @@ def run_text_path(device, results, pipe, root):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phases 18-19: spatial VAE tiling (M17a) and the PLY export (M19b)
+# ---------------------------------------------------------------------------
+
+#: phase 18's tile edge in pixels, deepv_tpu's default tile_sample_min_size
+TILE_PIXELS = 256
+#: phase 19 writes every PLY_STRIDE-th frame of phase 5's 89 (12 files)
+PLY_STRIDE = 8
+#: phase 19: the card's back-projection against the CPU's, per point, within
+#: this share of the sum of the absolute terms of its three-term product
+#: plus translation (a few f32 ulps; cuBLAS and the CPU may sum in other
+#: orders, TF32 is off)
+PLY_REL_TERMS = 2.0 ** -20
+
+
+def tile_count(h: int, w: int, unit: int) -> int:
+    """Tiles of ``models/vae._tiled`` over an h x w plane, ``unit`` a side."""
+    step = int(unit * 0.75)
+    return len(range(0, h, step)) * len(range(0, w, step))
+
+
+def expected_tiled_conv_launches(pipe, decode_frames, boundaries: int):
+    """K2 launches (all, cl path) of one tiled end-of-chunk igemm rollout,
+    from the code: every tile runs the eligible convs of each of its
+    temporal windows (``eligible_convs``). ``decode_frames``: the latent
+    frames of each tiled decode call (rgb and disparity per chunk)."""
+    from deepv_tpu_torch.models.vae import _split_windows
+
+    pcfg = pipe.cfg
+    window, _, _, encoder = eligible_convs(pipe.vcfg)
+    dec_tiles = tile_count(HEIGHT // 8, WIDTH // 8, TILE_PIXELS // 8)
+    enc_tiles = tile_count(HEIGHT, WIDTH, TILE_PIXELS)
+    decoder_windows = sum(len(_split_windows(t, pipe.decode_window)) for t in decode_frames)
+    # the first image, then per boundary the carried rgb and disparity clips
+    # (in windows) and the history frame's rgb and disparity
+    clip_windows = len(_split_windows(pcfg.num_input_image, pipe.encode_window))
+    encoder_windows = 1 + boundaries * (2 * clip_windows + 2)
+    # the cl path: the mid block's resnet after its attention in every
+    # full-mode encoder call, per tile
+    full_encodes = 1 + 2 * boundaries
+    return (window * dec_tiles * decoder_windows + encoder * enc_tiles * encoder_windows,
+            enc_tiles * full_encodes)
+
+
+def check_conv_shapes(device, shapes):
+    """K2 against its plain version at each (b, ci, co, t_in, h, w,
+    time_pad, kernel) of ``shapes``, in bf16 (the kernel the rollout ran
+    there: x channels-last for the cl path) and f32, with phase 4's
+    tolerances. Returns one row per shape and dtype."""
+    import types
+    import torch
+    from deepv_tpu_torch.ops import conv_igemm as cig
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(18)
+    rows = []
+    for key in sorted(shapes):
+        b, ci, co, t_in, h, w, tp, kernel = key
+        x32 = torch.randn((b, ci, t_in, h, w), generator=gen, device=device)
+        if kernel == "cl":
+            x32 = x32.to(memory_format=torch.channels_last_3d)
+        p32 = types.SimpleNamespace(
+            weight=0.02 * torch.randn((co, ci, 3, 3, 3), generator=gen, device=device),
+            bias=0.1 * torch.randn((co,), generator=gen, device=device))
+        for dtype in (torch.bfloat16, torch.float32):
+            x = x32.to(dtype)
+            p = p32 if dtype == torch.float32 else types.SimpleNamespace(
+                weight=p32.weight.to(dtype), bias=p32.bias.to(dtype))
+            want = cig.kernel_for(x)
+            assert dtype == torch.float32 or want == kernel, (key, want)
+            y, r, err, excess = k2_against_plain(x, p, tp, str(key))
+            assert tuple(y.shape) == (b, co, t_in + tp - 2, h, w), tuple(y.shape)
+            rows.append(dict(batch=b, ci=ci, co=co, t_in=t_in, frames=t_in + tp - 2, h=h, w=w,
+                             time_pad=tp, kernel=want, dtype=str(dtype).split(".")[-1],
+                             launches_in_rollout=shapes[key], max_abs_err=float(err.max()),
+                             ulp_excess=excess))
+            del x, y, r, err
+        del x32, p32
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_tiled_path(device, results, ref_frames):
+    """Phase 18 (M17a): phase 5's rollout through InferencePipeline with
+    VAEConfig(conv_impl="igemm") and stream_decode=False, untiled and then
+    with use_tiling=True; K2 at every shape the tiled run launched, and the
+    tiled decode against a tiled cuDNN decode of the same latents. Returns
+    the tiled run's launches and K2's check rows."""
+    import torch
+    from deepv_tpu_torch import pipeline as pl
+    from deepv_tpu_torch.actions import action_vocabulary
+    from deepv_tpu_torch.config import MMDiTConfig, VAEConfig, create_model_config
+    from deepv_tpu_torch.io.text_embeds import random_text_embeds
+    from deepv_tpu_torch.io.weights import random_params
+    from deepv_tpu_torch.models.vae import vae_decode
+    from deepv_tpu_torch.ops import causal_conv
+    from deepv_tpu_torch.ops import conv_igemm as cig
+
+    cfg = create_model_config("none", use_motion_prompt=True)
+    mcfg, vcfg = MMDiTConfig(), VAEConfig(conv_impl="igemm")
+    embeds = random_text_embeds(0, action_vocabulary(), joint_dim=mcfg.joint_attention_dim,
+                                pooled_dim=mcfg.pooled_projection_dim)
+    t0 = time.perf_counter()
+    params = random_params(mcfg, vcfg, dtype=torch.bfloat16, seed=0, device=device)
+    torch.cuda.synchronize()
+    params_s = time.perf_counter() - t0
+    orig_conv, orig_decode = causal_conv.conv3d_igemm, pl.vae_decode
+    runs, frames = {}, {}
+    for name, tiling in (("untiled", False), ("tiled", True)):
+        t0 = time.perf_counter()
+        pipe = pl.InferencePipeline(cfg, mcfg, vcfg, params, embeds, dtype=torch.bfloat16,
+                                    device=device, use_tiling=tiling, stream_decode=False)
+        torch.cuda.synchronize()
+        setup_s = params_s + time.perf_counter() - t0
+        # spies: each K2 dispatch's shape and route, each end-of-chunk
+        # decode's latents (the kernel counts stay the wrappers')
+        shapes, decodes = {}, []
+
+        def conv_spy(x, p, time_pad=2):
+            key = (x.shape[0], x.shape[1], p.weight.shape[0], x.shape[2], x.shape[3],
+                   x.shape[4], time_pad, cig.kernel_for(x))
+            shapes[key] = shapes.get(key, 0) + 1
+            return orig_conv(x, p, time_pad)
+
+        def decode_spy(cfg_, p, z, **kwargs):
+            decodes.append(z)
+            return orig_decode(cfg_, p, z, **kwargs)
+
+        causal_conv.conv3d_igemm, pl.vae_decode = conv_spy, decode_spy
+        try:
+            summary, out, conv_launches = drive_rollout(pipe, setup_s)
+        finally:
+            causal_conv.conv3d_igemm, pl.vae_decode = orig_conv, orig_decode
+        assert summary["forwards"] == FORWARDS, summary["forwards"]
+        assert summary["attention_launches"] == FORWARDS * mcfg.num_layers == 4320, summary
+        assert pipe._prime_need is None if tiling else pipe._prime_need is not None
+        assert ("prime" in summary["phases_s"]) != tiling, summary["phases_s"]
+        k2 = conv_launches["launches"] + conv_launches["cl_launches"]
+        assert k2 == sum(shapes.values()), (k2, sum(shapes.values()))
+        summary.update(conv_igemm_dispatches=k2, conv_shapes=len(shapes),
+                       decode_latent_frames=[z.shape[2] for z in decodes])
+        runs[name] = summary
+        frames[name] = out["pred_img"].cpu()
+        del out
+        if not tiling:
+            del pipe, decodes
+            gc.collect()
+            torch.cuda.empty_cache()
+    del params
+    tiled = runs["tiled"]
+    # K2's count from the code: 2 decode calls (rgb, disparity) a chunk
+    assert len(decodes) == 4, [z.shape for z in decodes]
+    expected, expected_cl = expected_tiled_conv_launches(
+        pipe, tiled["decode_latent_frames"], len(tiled["history_index"]))
+    got = tiled["conv_igemm_launches"]
+    log(f"tiled path: K2 {got['launches']} wgmma + {got['cl_launches']} cl launches, "
+        f"expected {expected - expected_cl} + {expected_cl}")
+    assert got["launches"] + got["cl_launches"] == expected, (got, expected)
+    assert got["cl_launches"] == expected_cl, (got, expected_cl)
+    tiled.update(expected_conv_igemm_launches=expected,
+                 expected_conv_igemm_cl_launches=expected_cl)
+    for name in ("untiled", "tiled"):
+        s = runs[name]
+        log(f"tiled path: {name} rollout {s['wall_s']:.2f} s ({s['fps']:.2f} fps), peak "
+            f"{s['max_memory_allocated_gib']:.2f} GiB ({s['resident_gib']:.2f} resident), "
+            f"K2 {s['conv_igemm_dispatches']} launches at {s['conv_shapes']} shapes; phases "
+            + json.dumps({k: round(v, 3) for k, v in s["phases_s"].items()}))
+    untiled = frames["untiled"].to(device)
+    gaps = dict(zip(("mean", "p95"), eight_bit_gap(frames["tiled"].to(device), untiled)))
+    gaps_main = dict(zip(("mean", "p95"), eight_bit_gap(untiled, ref_frames.to(device))))
+    log(f"tiled path: 8-bit gap tiled vs untiled frames mean {gaps['mean']:.4f}, p95 "
+        f"{gaps['p95']:.4f}; untiled igemm vs phase 5 mean {gaps_main['mean']:.4f} (printed, "
+        "not gated: tiles see zero borders)")
+    del frames, untiled
+
+    # K2 held to its plain version at every distinct shape the tiled rollout
+    # launched; the spy recorded them in the tiled run (the last one)
+    t0 = time.perf_counter()
+    rows = check_conv_shapes(device, shapes)
+    check_s = time.perf_counter() - t0
+    by_kernel = {}
+    for r in rows:
+        k = by_kernel.setdefault(f"{r['kernel']} {r['dtype']}", dict(shapes=0, max_abs_err=0.0,
+                                                                     max_ulp_excess=-1.0))
+        k["shapes"] += 1
+        k["max_abs_err"] = max(k["max_abs_err"], r["max_abs_err"])
+        k["max_ulp_excess"] = max(k["max_ulp_excess"], r["ulp_excess"])
+    narrow = sorted({r["w"] for r in rows if r["w"] % 64})
+    log(f"tiled path: K2 equals its plain version at all {len(shapes)} shapes of the tiled "
+        f"rollout in bf16 and f32 ({check_s:.1f} s; widths not a multiple of 64: {narrow}): "
+        + json.dumps(by_kernel))
+
+    # the tiled igemm decode against a tiled cuDNN decode of the same latents
+    xla = VAEConfig(conv_impl="xla")
+    gap_rows = []
+    with torch.inference_mode():
+        for i, z in enumerate(decodes):
+            kw = dict(temporal_chunk=True, window_size=pipe.decode_window, use_tiling=True)
+            a = vae_decode(vcfg, pipe.vae, z, **kw)
+            b = vae_decode(xla, pipe.vae, z, **kw)
+            assert a.shape == b.shape and bool(torch.isfinite(a).all()), a.shape
+            mean8, p95 = eight_bit_gap(a, b)
+            gap_rows.append(dict(stream=("rgb", "disparity")[i % 2], chunk=i // 2 + 1,
+                                 frames=a.shape[2], gap_8bit_mean=mean8, gap_8bit_p95=p95,
+                                 max_abs=float((a.float() - b.float()).abs().max())))
+            del a, b
+    log("tiled path: igemm vs cuDNN tiled decode of the rollout's latents (8-bit units): "
+        + json.dumps(gap_rows))
+    tiled.update(gap_vs_untiled_8bit=gaps, untiled_gap_vs_main_path_8bit=gaps_main,
+                 conv_check_s=check_s, conv_check_by_kernel=by_kernel, narrow_widths=narrow,
+                 decode_gap_vs_cudnn=gap_rows)
+    results["tiled_path"] = dict(runs=runs, conv_shapes=rows)
+    del pipe, decodes
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(attention=tiled["attention_launches"], **tiled["conv_igemm_launches"]), rows
+
+
+def ply_points(path: str) -> int:
+    """The vertex count in a PLY file's header."""
+    with open(path) as f:
+        for line in f:
+            if line.startswith("element vertex"):
+                return int(line.split()[-1])
+            if line.strip() == "end_header":
+                break
+    raise ValueError(f"{path}: no vertex count in the header")
+
+
+def run_ply_path(device, results, output):
+    """Phase 19 (M19b): io/ply.save_ply of phase 5's output on the card, and
+    depth_edge and backproject on the card against the CPU for the same
+    frames."""
+    import torch
+    from deepv_tpu_torch.io import ply
+
+    n_frames = output["pred_img"].shape[2]
+    tmp = tempfile.mkdtemp(prefix="_ply_", dir=HERE)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        paths = ply.save_ply(output, os.path.join(tmp, "rollout.ply"),
+                             frame_stride=PLY_STRIDE, device=device)
+        seconds = time.perf_counter() - t0
+        want = [os.path.join(tmp, f"rollout_frame{i}.ply") for i in range(0, n_frames, PLY_STRIDE)]
+        assert paths == want and len(paths) == 12, paths
+        points = [ply_points(p) for p in paths]
+        file_bytes = sum(os.path.getsize(p) for p in paths)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    assert sum(points) > 0, points
+    log(f"ply path: save_ply wrote {len(paths)} files, {sum(points)} points "
+        f"({min(points)}-{max(points)} a frame, {file_bytes / 1e6:.1f} MB) in {seconds:.2f} s")
+
+    # the card's per-pixel ops against the same functions on the CPU
+    disparity = output["pred_disparity"][0].float().cpu().mean(dim=0)
+    c2w_list, k_list = ply.interpolate_cameras(output["trans3d"][0].float().cpu().numpy(),
+                                               output["trans2d"][0].float().cpu().numpy())
+    max_err, max_share, edges = 0.0, 0.0, 0
+    checked = range(0, n_frames, PLY_STRIDE)
+    for i in checked:
+        d = 1.0 / disparity[i]
+        K = torch.as_tensor(k_list[i], dtype=torch.float32)
+        c2w = torch.as_tensor(c2w_list[i], dtype=torch.float32)
+        edge = ply.depth_edge(d.to(device)).cpu()
+        assert torch.equal(edge, ply.depth_edge(d)), f"frame {i}: depth_edge differs from the CPU"
+        edges += int(edge.sum())
+        pg = ply.backproject(d.to(device), K.to(device), c2w.to(device)).cpu()
+        pc = ply.backproject(d, K, c2w)
+        fin = torch.isfinite(pc)
+        assert torch.equal(fin, torch.isfinite(pg)), f"frame {i}: non-finite points differ"
+        assert torch.equal(pg[~fin].nan_to_num(0.0), pc[~fin].nan_to_num(0.0)), i
+        h, w = d.shape
+        u = torch.arange(w, dtype=torch.float32)[None, :]
+        v = torch.arange(h, dtype=torch.float32)[:, None]
+        cam = torch.stack([(u - K[0, 2]) * d / K[0, 0], (v - K[1, 2]) * d / K[1, 1], d], -1)
+        terms = cam.abs() @ c2w[:3, :3].abs().T + c2w[:3, 3].abs()
+        err, tol = (pg - pc).abs()[fin], PLY_REL_TERMS * terms[fin]
+        assert bool((err <= tol).all()), f"frame {i}: backproject differs from the CPU"
+        if err.numel():
+            share = float(torch.where(err > 0, err / tol, torch.zeros_like(err)).max())
+            max_err, max_share = max(max_err, float(err.max())), max(max_share, share)
+    log(f"ply path: depth_edge equal to the CPU's on {len(checked)} frames "
+        f"({edges} edge pixels); backproject within {PLY_REL_TERMS:.3g} of its terms' "
+        f"absolute sum (max abs {max_err:.3e}, {max_share:.3f} of the tolerance)")
+    results["ply_path"] = dict(files=len(paths), points=points, file_mb=file_bytes / 1e6,
+                               seconds=seconds, edge_pixels=edges,
+                               backproject_max_abs_err=max_err,
+                               backproject_tolerance_share=max_share)
+
+
 def main() -> int:
     import torch
 
@@ -2586,7 +2914,7 @@ def main() -> int:
 
     rows = check_attention(device, results)
     conv_rows = check_conv_igemm(device, results)
-    pipe, launches, ref_frames, ref_disparity = run_main_path(device, results)
+    pipe, launches, ref_frames, ref_disparity, ref_poses = run_main_path(device, results)
     check_forward(pipe, device, results)
     del pipe
     gc.collect()
@@ -2601,8 +2929,7 @@ def main() -> int:
     fast, k3_frames_by_class = run_fast_path(device, results, ref_frames)
     run_adaptive_boundary_path(device, results, ref_frames)
     run_serving_path(device, results, ref_frames, ref_disparity, launches)
-    ref_frames = ref_frames.cpu()
-    del ref_disparity
+    ref_frames, ref_disparity = ref_frames.cpu(), ref_disparity.cpu()
     gc.collect()
     torch.cuda.empty_cache()
     bwd_rows, bwd_timing = check_attention_backward(device, results)
@@ -2613,9 +2940,13 @@ def main() -> int:
         run_text_path(device, results, pipe, snapshot)
     finally:
         shutil.rmtree(snapshot, ignore_errors=True)
-    del pipe, ref_frames
+    del pipe
     gc.collect()
     torch.cuda.empty_cache()
+    tiled_launches, tiled_rows = run_tiled_path(device, results, ref_frames)
+    run_ply_path(device, results, {"pred_img": ref_frames, "pred_disparity": ref_disparity,
+                                   "trans3d": ref_poses[0], "trans2d": ref_poses[1]})
+    del ref_frames, ref_disparity, ref_poses
 
     assert launches == sum(r["launches_per_rollout"] for r in rows), (
         "K1's launches per layout do not add up to the rollout's")
@@ -2633,6 +2964,7 @@ def main() -> int:
         "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
         "shape": f"stage 2, b={head['b']}, S={head['S']}, h={head['heads']}, d={head['head_dim']}, bf16",
+        "launches_tiled": tiled_launches["attention"],
     }]
     # K1's f32 forward and the backward kernels: launches from phase 15's
     # training steps, errors from phase 14, times at the stage-2 training
@@ -2717,11 +3049,12 @@ def main() -> int:
     # same kernel template with A read channels-last) at the encoder case,
     # where the rollout runs it
     on_path = next(r for r in bf16 if r["layer"] == CONV_EDGE_CASES[0][0])
+    tiled_bf16 = [r for r in tiled_rows if r["dtype"] == "bfloat16"]
     for name, counter, row, rows in (
             ("conv3d_igemm_wgmma", "launches", top,
-             [r for r in bf16 if r["kernel"] == "wgmma"]),
+             [r for r in bf16 + tiled_bf16 if r["kernel"] == "wgmma"]),
             ("conv3d_igemm_wgmma_cl", "cl_launches", on_path,
-             [r for r in bf16 if r["kernel"] == "cl"])):
+             [r for r in bf16 + tiled_bf16 if r["kernel"] == "cl"])):
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -2736,7 +3069,9 @@ def main() -> int:
             "library_ms": row["library_ms"],
             "shape": (f"{row['ci']}->{row['co']} @{row['h']}x{row['w']}, {row['frames']} output "
                       f"frames, {row['mode']} mode, bf16"
-                      + (", x channels-last" if row is on_path else "")),
+                      + (", x channels-last" if row is on_path else "")
+                      + "; max_abs_err also over phase 18's tile shapes"),
+            "launches_tiled": tiled_launches[counter],
         })
     # K2's f32 kernel and its split kernel at 128->128 @384x512 in prime
     # mode, the class with the most time in the decoder; launches from phase
@@ -2750,7 +3085,8 @@ def main() -> int:
         "source": "deepv_tpu_torch/csrc/conv_igemm.cu",
         "replaces": "deepv_tpu/ops/conv_igemm.py:57",
         "launches": decode_f32["f32_launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in f32_conv),
+        "max_abs_err": max(r["max_abs_err"] for r in f32_conv + [
+            r for r in tiled_rows if r["dtype"] == "float32"]),
         "ms": top32["kernel_ms"],
         "plain_ms": top32["plain_ms"],
         "bound_ms": top32["bound_ms"],

@@ -1,11 +1,12 @@
 """Causal video VAE with explicit temporal caches.
 
-Counterpart of ``deepv_tpu/models/vae.py`` (single device, untiled): an 8x
+Counterpart of ``deepv_tpu/models/vae.py`` (single device): an 8x
 spatial and 8x temporal compressing KL autoencoder (57 pixel frames <-> 8
 latent frames) built from causal 3D convolutions. Chunked encode/decode
 thread the conv caches as nested dicts, so chunked == full exactly, and the
 decoder's chunk-boundary priming rebuilds the last block's caches from the
-trailing frames it needs.
+trailing frames it needs. Spatial tiling (``use_tiling``) bounds the
+activations of a large plane: overlapping tiles, blended at the seams.
 
 ``VAE`` is an ``nn.Module`` named as deepv_tpu's parameter tree
 (``encoder.down_blocks.0.resnets.0.conv1.weight``, ...), built on the
@@ -446,23 +447,89 @@ def chunk_decode_cont(cfg: VAEConfig, p: Decoder, z: torch.Tensor, cache,
     return (out, cache) if return_cache else out
 
 
+def _blend_v(a: torch.Tensor, b: torch.Tensor, extent: int) -> torch.Tensor:
+    """Blend the top rows of tile b into the bottom rows of tile a above it,
+    weights ``arange(extent) / extent`` made in float32 and cast to the
+    tiles' dtype."""
+    extent = min(a.shape[3], b.shape[3], extent)
+    w = (torch.arange(extent, dtype=torch.float32, device=b.device) / extent).to(a.dtype)
+    w = w.reshape(1, 1, 1, extent, 1)
+    seam = a[:, :, :, -extent:, :] * (1 - w) + b[:, :, :, :extent, :] * w
+    return torch.cat([seam, b[:, :, :, extent:, :]], dim=3)
+
+
+def _blend_h(a: torch.Tensor, b: torch.Tensor, extent: int) -> torch.Tensor:
+    """``_blend_v`` along the width: tile b's left columns into tile a's
+    right ones."""
+    extent = min(a.shape[4], b.shape[4], extent)
+    w = (torch.arange(extent, dtype=torch.float32, device=b.device) / extent).to(a.dtype)
+    w = w.reshape(1, 1, 1, 1, extent)
+    seam = a[:, :, :, :, -extent:] * (1 - w) + b[:, :, :, :, :extent] * w
+    return torch.cat([seam, b[:, :, :, :, extent:]], dim=4)
+
+
+def _tiled(x: torch.Tensor, core, in_unit: int, out_unit: int,
+           overlap_factor: float) -> torch.Tensor:
+    """Spatial tiling: ``core`` on overlapping ``in_unit`` tiles of x's
+    plane (stride ``in_unit * (1 - overlap_factor)``), the seams blended
+    over ``out_unit * overlap_factor`` output rows and columns, each tile
+    cropped to the stride in output units."""
+    overlap = int(in_unit * (1 - overlap_factor))
+    blend = int(out_unit * overlap_factor)
+    row_limit = out_unit - blend
+    rows = []
+    for i in range(0, x.shape[3], overlap):
+        rows.append([core(x[:, :, :, i:i + in_unit, j:j + in_unit])
+                     for j in range(0, x.shape[4], overlap)])
+    result_rows = []
+    for i, row in enumerate(rows):
+        result = []
+        for j, tile in enumerate(row):
+            if i > 0:
+                tile = _blend_v(rows[i - 1][j], tile, blend)
+            if j > 0:
+                tile = _blend_h(row[j - 1], tile, blend)
+            result.append(tile[:, :, :, :row_limit, :row_limit])
+        result_rows.append(torch.cat(result, dim=4))
+    return torch.cat(result_rows, dim=3)
+
+
 def vae_encode(cfg: VAEConfig, p, x: torch.Tensor, *, temporal_chunk: bool = False,
-               window_size: int = 16, use_tiling: bool = False) -> torch.Tensor:
-    """Encode pixels [b, 3, t, H, W] -> Gaussian moments [b, 2z, t', H/8, W/8]."""
-    if use_tiling:
-        raise NotImplementedError("use_tiling: spatial tiling is not ported yet")
+               window_size: int = 16, use_tiling: bool = False,
+               tile_sample_min_size: int = 256) -> torch.Tensor:
+    """Encode pixels [b, 3, t, H, W] -> Gaussian moments [b, 2z, t', H/8, W/8].
+    ``use_tiling`` encodes a plane larger than ``tile_sample_min_size``
+    pixels tile by tile (``_tiled``), each tile temporally chunked when
+    ``temporal_chunk``."""
     pe = getattr(p, "encoder", p)
+    if use_tiling and (x.shape[-1] > tile_sample_min_size
+                       or x.shape[-2] > tile_sample_min_size):
+        if temporal_chunk:
+            core = lambda t: chunk_encode(cfg, pe, t, window_size)
+        else:
+            core = lambda t: _enc_window(cfg, pe, t, None, "full")[0]
+        return _tiled(x, core, tile_sample_min_size,
+                      tile_sample_min_size // cfg.downsample_scale, 0.25)
     if temporal_chunk:
         return chunk_encode(cfg, pe, x, window_size)
     return _enc_window(cfg, pe, x, None, "full")[0]
 
 
 def vae_decode(cfg: VAEConfig, p, z: torch.Tensor, *, temporal_chunk: bool = False,
-               window_size: int = 2, use_tiling: bool = False) -> torch.Tensor:
-    """Decode latents [b, z, t', h, w] -> pixels [b, 3, t, 8h, 8w]."""
-    if use_tiling:
-        raise NotImplementedError("use_tiling: spatial tiling is not ported yet")
+               window_size: int = 2, use_tiling: bool = False,
+               tile_sample_min_size: int = 256) -> torch.Tensor:
+    """Decode latents [b, z, t', h, w] -> pixels [b, 3, t, 8h, 8w].
+    ``use_tiling`` decodes a plane larger than ``tile_sample_min_size``
+    pixels (``tile_sample_min_size / 8`` latents) tile by tile."""
     pd = getattr(p, "decoder", p)
+    tile_latent_min_size = tile_sample_min_size // cfg.downsample_scale
+    if use_tiling and (z.shape[-1] > tile_latent_min_size
+                       or z.shape[-2] > tile_latent_min_size):
+        if temporal_chunk:
+            core = lambda t: chunk_decode(cfg, pd, t, window_size)
+        else:
+            core = lambda t: _dec_window(cfg, pd, t, None, "full")[0]
+        return _tiled(z, core, tile_latent_min_size, tile_sample_min_size, 0.25)
     if temporal_chunk:
         return chunk_decode(cfg, pd, z, window_size)
     return _dec_window(cfg, pd, z, None, "full")[0]

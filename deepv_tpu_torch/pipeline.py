@@ -359,8 +359,9 @@ class InferencePipeline:
         # deepv_tpu's parameters in its order, then the port's device
         if mesh is not None:
             _not_ported("mesh", "M17 parallelism")
-        if use_tiling:
-            _not_ported("use_tiling", "M17 parallelism (spatial tiling)")
+        if reuse_decoder_cache and use_tiling:
+            raise ValueError("reuse_decoder_cache carries untiled decoder caches; "
+                             "it cannot be combined with use_tiling")
         if decode_batched:
             raise NotImplementedError(
                 "decode_batched: not ported (ROADMAP queue 1: only deepv_tpu's bench.py tiny "
@@ -423,10 +424,14 @@ class InferencePipeline:
         #: decode each unit's latent as soon as it is denoised (exact: the
         #: causal VAE's chunked decode equals the full decode)
         self.stream_decode = stream_decode
+        #: spatial tiling of the VAE's encodes and end-of-chunk decodes
+        #: (``models/vae._tiled``); the streamed windows stay untiled
+        self.use_tiling = use_tiling
         #: exact chunk-boundary cache priming: rebuild the decoder caches the
         #: overlap re-decode exists to produce without computing its pixels
+        #: (untiled caches only, so off under tiling)
         self._prime_need = None
-        if prime_decoder_cache and not reuse_decoder_cache:
+        if prime_decoder_cache and not reuse_decoder_cache and not use_tiling:
             need = decoder_prime_need(vae_cfg)
             if need is not None and self.vae.decoder.conv_out.weight.shape[2] == 3:
                 self._prime_need = need
@@ -478,7 +483,8 @@ class InferencePipeline:
         frames), then sample the posterior once for all rows."""
         chunked = x.shape[2] > 17
         parts = [vae_encode(self.vcfg, self.vae, x[i:i + 1].to(self.dtype),
-                            temporal_chunk=chunked, window_size=self.encode_window)
+                            temporal_chunk=chunked, window_size=self.encode_window,
+                            use_tiling=self.use_tiling)
                  for i in range(x.shape[0])]
         moments = torch.cat(parts, dim=0)
         mean_shape = (moments.shape[0], moments.shape[1] // 2) + tuple(moments.shape[2:])
@@ -559,9 +565,10 @@ class InferencePipeline:
                                  self.decode_window, return_cache=True)
 
     def _decode_latents(self, lat: torch.Tensor) -> torch.Tensor:
-        """Un-normalise + chunked decode."""
+        """Un-normalise + chunked (and, ``use_tiling``, tiled) decode."""
         return vae_decode(self.vcfg, self.vae, self._unnorm_latents(lat).to(self.dtype),
-                          temporal_chunk=True, window_size=self.decode_window)
+                          temporal_chunk=True, window_size=self.decode_window,
+                          use_tiling=self.use_tiling)
 
     # -- per-unit sampler ---------------------------------------------------
 

@@ -13,6 +13,8 @@ not ported yet raise NotImplementedError naming their ROADMAP item.
 ``--fast`` is the quality-gated fast preset (flow caching "skip_odd", the
 W8A8 denoise linears and the int8 VAE conv); ``--flow_cache`` overrides its
 flow-cache choice and ``--carry_latents`` adds the boundary carry mode.
+``--add_ply`` also writes every 8th frame as a PLY point cloud
+(``io/ply.save_ply``, on the pipeline's device).
 """
 
 from __future__ import annotations
@@ -129,10 +131,8 @@ def main(input_image: str, model_path: str, prompt_type: str = "text",
          tp_shards: int = 1, icon_assets: Optional[str] = None, fast: bool = False,
          flow_cache: Optional[str] = None, carry_latents: bool = False,
          aot_cache: Optional[str] = None, device: Optional[str] = None):
-    if add_ply:
-        raise NotImplementedError("add_ply: PLY export is not ported yet (ROADMAP M19 utilities)")
     if aot_cache:
-        raise NotImplementedError("aot_cache: not ported yet (ROADMAP M19 utilities)")
+        raise NotImplementedError("aot_cache: not ported yet (ROADMAP M19c AOT cache)")
     from .io.video import save_video
 
     model_cfg = create_model_config(model_path, no_need_depth=no_need_depth,
@@ -157,6 +157,9 @@ def main(input_image: str, model_path: str, prompt_type: str = "text",
                          add_controler=(add_controler and prompt_type == "action"),
                          add_depth=(add_depth and not no_need_depth),
                          icon_assets=icon_assets)
+    if add_ply and not no_need_depth:
+        from .io.ply import save_ply
+        save_ply(output, output_path.replace(".mp4", ".ply"), device=pipeline.device)
     print(f"[info] save result at {written}")
     return written
 
@@ -173,7 +176,8 @@ def cli():
     p.add_argument("--add_controler", action="store_true")
     p.add_argument("--add_depth", action="store_true")
     p.add_argument("--add_ply", action="store_true",
-                   help="not ported yet (raises)")
+                   help="also write every 8th frame as a PLY point cloud "
+                        "(<output_path without .mp4>_frame<i>.ply)")
     p.add_argument("--random_weights", action="store_true",
                    help="random-initialise the full model with a seeded torch "
                         "generator instead of loading the snapshot at --model_path")
@@ -192,7 +196,8 @@ def cli():
     p.add_argument("--flow_cache", default=None,
                    help="flow-caching mode: none | skip_odd | adaptive[:tau] (overrides "
                         "the --fast preset's choice)")
-    p.add_argument("--aot_cache", default=None, metavar="DIR", help="not ported yet (raises)")
+    p.add_argument("--aot_cache", default=None, metavar="DIR",
+                   help="not ported yet (raises; ROADMAP M19c AOT cache)")
     p.add_argument("--device", default=None, help="torch device (default: cuda)")
     args = p.parse_args()
     main(**vars(args))

@@ -515,7 +515,8 @@ def cli():
     p.add_argument("--no_prewarm", action="store_true",
                    help="skip the pre-bind warm-up session; the first client request then "
                         "pays the first-use costs (kernel builds, cuDNN, allocator)")
-    p.add_argument("--aot_cache", default=None, metavar="DIR", help="not ported yet (raises)")
+    p.add_argument("--aot_cache", default=None, metavar="DIR",
+                   help="not ported yet (raises; ROADMAP M19c AOT cache)")
     p.add_argument("--height", type=int, default=384)
     p.add_argument("--width", type=int, default=512)
     args = p.parse_args()

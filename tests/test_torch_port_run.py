@@ -1,7 +1,7 @@
 """The port's CLI entry point on the CPU: one tiny rollout written to an mp4,
 the GPU default of ``load_pipeline``, the ``fast`` preset and its options
-through ``load_pipeline`` and ``main``, a tiny rollout with the igemm conv
-backend, and the options not ported yet, which raise
+through ``load_pipeline`` and ``main`` (with the PLY export), a tiny rollout
+with the igemm conv backend, and the options not ported yet, which raise
 ``NotImplementedError`` instead of running another path."""
 
 import numpy as np
@@ -55,7 +55,8 @@ def test_load_pipeline_refuses_what_is_not_ported(monkeypatch, kwargs, item):
 
 @pytest.mark.parametrize("kwargs, item", [
     (dict(mesh=object()), "M17"),
-    (dict(use_tiling=True), "M17"),
+    # tiling is ported; a mesh is refused with it too
+    pytest.param(dict(mesh=object(), use_tiling=True), "M17", id="kwargs1-M17"),
 ])
 def test_pipeline_refuses_what_is_not_ported(kwargs, item):
     mcfg, vcfg = MMDiTConfig.tiny(), VAEConfig.tiny()
@@ -91,7 +92,8 @@ def test_load_pipeline_fast_builds_the_int8_models(monkeypatch, kwargs, flow_cac
 def test_main_writes_a_fast_video_on_the_cpu(tmp_path, monkeypatch):
     """``run.main`` with ``fast``, ``carry_latents`` and adaptive caching: a
     2-chunk DEEPV_TINY rollout at 64x128 (so every int8 product has more
-    than 16 rows) written as an mp4."""
+    than 16 rows) written as an mp4, and with ``add_ply`` every 8th of its
+    89 frames as a PLY point cloud beside it."""
     image = tmp_path / "in.png"
     pixels = np.random.default_rng(1).integers(0, 256, (64, 128, 3), dtype=np.uint8)
     Image.fromarray(pixels).save(image)
@@ -101,8 +103,13 @@ def test_main_writes_a_fast_video_on_the_cpu(tmp_path, monkeypatch):
                        prompt="(FN)(FN)(FN)(FN)(FN)(FN)(FN)(fRL)(SR)(BL)(FN)",
                        random_weights=True, height=64, width=128, fast=True,
                        carry_latents=True, flow_cache="adaptive:0.5", device="cpu",
-                       output_path=str(out))
+                       output_path=str(out), add_ply=True)
     assert out.is_file() and out.stat().st_size > 0 and str(written) == str(out)
+    plys = sorted(p.name for p in tmp_path.glob("*.ply"))
+    assert plys == sorted(f"fast_frame{i}.ply" for i in range(0, 89, 8))
+    for name in plys:
+        header = (tmp_path / name).read_text().split("end_header")[0]
+        assert "element vertex" in header and "property uchar red" in header
 
 
 def test_pipeline_runs_the_igemm_conv_backend(monkeypatch):
@@ -148,8 +155,11 @@ def test_pipeline_runs_the_igemm_conv_backend(monkeypatch):
                                    rtol=0, atol=1e-4, err_msg=key)
 
 
-@pytest.mark.parametrize("kwargs, item", [(dict(add_ply=True), "M19"),
-                                          (dict(aot_cache="cache"), "M19")])
+@pytest.mark.parametrize("kwargs, item", [
+    # PLY export is ported; it does not get past the AOT cache's refusal
+    pytest.param(dict(add_ply=True, aot_cache="cache"), "M19c AOT cache", id="kwargs0-M19"),
+    pytest.param(dict(aot_cache="cache"), "M19c AOT cache", id="kwargs1-M19"),
+])
 def test_main_refuses_what_is_not_ported(tmp_path, kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
         run.main(str(tmp_path / "absent.png"), "none", random_weights=True, device="cpu",
