@@ -211,8 +211,34 @@ Phases, in order; any failure exits non-zero before the last line:
      depth_edge on the card equal to the CPU's and backproject within
      2^-20 of the absolute sum of each point's terms (TF32 off) for the
      same 12 frames.
-Phases 5, 7, 11, 12, 13, 16, 17 and 18 also check that the backward never
-launched.
+ 20. multi-card inference (M17b) on this one card: (c) K1 at 12 and 6 heads
+     (the per-rank heads of tp 2 and 4) at phase 3's rollout layouts,
+     against its plain version with phase 3's tolerances, timed (back to
+     back and as device time from a CUDA graph) beside the 24-head kernel
+     at the same layout, SDPA and the bound; (e) run.main(tp_shards=2) refused,
+     naming the number of cards (NCCL runs one rank per card); (a) phase
+     5's weights, image, prompt and seed through InferencePipeline(mesh=
+     make_mesh((2,), ("tp",), devices=["cuda:0"] * 2, backend="gloo")), two
+     processes sharing the card (parallel/launch.spawn): all_reduce (sum in
+     bf16 and f32, max), all_gather and broadcast checked on CUDA tensors
+     over gloo first; then counts set to 0 just before generate() and read
+     just after, on each rank: 89 finite frames, K1 4,320 launches all at
+     12 heads, its f32 kernel and the backward never, rank 1's frames equal
+     to rank 0's bit for bit; printed (not gated): each rank's wall time,
+     phase seconds and peak memory, the row-split reductions (94 a
+     forward: 16,920) and every collective's calls and bytes, the 8-bit gap
+     to phase 5's frames (bf16 sums in another order, random weights). Every
+     time there is two ranks sharing one card over gloo, not a deployment
+     number; (b) on the same two ranks in f32 (TF32 off) at full width, each
+     mesh call against the single-device call on rank 0: one denoise forward
+     at chunk 1's stage-2 layout (b = 2), cp_dec_window init then cont (2
+     latent frames each), cp_vae_encode_chunked of a 17-frame 384x512 carry
+     (window 8), within relative L2 MESH_F32_REL_L2 and max |err|
+     MESH_F32_MAX_ABS; (d) world size 1 over NCCL: one f32 forward and one
+     decode window through the mesh code within (b)'s tolerance, printing
+     whether each is bit-equal to the single-device call.
+Phases 5, 7, 11, 12, 13, 16, 17, 18 and 20 also check that the backward
+never launched.
 The line before the last is a JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}. Extra detail goes to chiprun_out/.
 """
@@ -2870,6 +2896,389 @@ def run_ply_path(device, results, output):
                                backproject_tolerance_share=max_share)
 
 
+
+# ---------------------------------------------------------------------------
+# phase 20: multi-card inference (M17b), as two gloo ranks on this one card
+# ---------------------------------------------------------------------------
+
+#: phase 20's mesh: two processes sharing cuda:0 over gloo (NCCL refuses two
+#: ranks on one card, and gloo sends no CUDA tensor point to point)
+MESH_RANKS = 2
+#: row-split linears of one full-width forward, each one all_reduce: 4 in
+#: each of the 23 joint blocks, 2 in the context-pre-only last one
+MESH_REDUCTIONS_PER_FORWARD = 4 * 23 + 2
+#: K1 at the per-rank head counts of tp 2 and 4 (24 heads)
+MESH_HEADS = (12, 6)
+#: phase 20 (b): each f32 mesh call (TF32 off) against the single-device
+#: call on the same inputs, as relative L2 and as max |err|. The two sum in
+#: other orders (the row-split partial products over the ranks, the CP group
+#: norm's E[x^2] - mean^2 against the two-pass norm) and K1 runs 3xTF32 on
+#: 12 heads a rank; on an H100 (NVIDIA H100 80GB HBM3, 700 W) the largest
+#: were relative L2 5.8e-6 and max |err| 2.4e-5 (the cont decode window),
+#: the forward 6.5e-7 and 4.9e-6. The bounds leave ~8x room
+MESH_F32_REL_L2 = 5e-5
+MESH_F32_MAX_ABS = 2e-4
+
+
+def gloo_cuda_collectives(device) -> dict:
+    """all_reduce (sum in bf16 and f32, max), all_gather and broadcast once
+    each on CUDA tensors over this rank's gloo group; raises unless every
+    one gave the right values. Returns {collective: True}."""
+    import torch
+    import torch.distributed as dist
+    r, n = dist.get_rank(), dist.get_world_size()
+    total = float(sum(range(1, n + 1)))
+    got = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.full((4096,), float(r + 1), dtype=dtype, device=device)
+        dist.all_reduce(x)
+        got[f"all_reduce sum {dtype}"] = bool((x.float() == total).all())
+    x = torch.full((8,), float(r + 1), device=device)
+    dist.all_reduce(x, op=dist.ReduceOp.MAX)
+    got["all_reduce max"] = bool((x == float(n)).all())
+    parts = [torch.empty(3, device=device) for _ in range(n)]
+    dist.all_gather(parts, torch.full((3,), float(r), device=device))
+    got["all_gather"] = all(bool((p == i).all()) for i, p in enumerate(parts))
+    y = torch.full((4,), float(r + 7), device=device)
+    dist.broadcast(y, 0)
+    got["broadcast"] = bool((y == 7.0).all())
+    assert all(got.values()), f"gloo collectives on CUDA tensors: {got}"
+    return got
+
+
+def mesh_rank_mesh():
+    """This rank's two-rank gloo mesh on cuda:0, with the kernels loaded."""
+    from deepv_tpu_torch.ops import attention as att
+    from deepv_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh((MESH_RANKS,), ("tp",), devices=["cuda:0"] * MESH_RANKS, backend="gloo")
+    att.load_library()
+    return mesh
+
+
+def mesh_rollout_rank() -> dict:
+    """Phase 20 (a), one rank: phase 5's rollout (weights from seed 0,
+    image, prompt, seed) through InferencePipeline(mesh=...), K1's launch
+    and head counts, the reductions, and the frames (rank 0) or their hash."""
+    import hashlib
+    import torch
+    from deepv_tpu_torch.actions import action_vocabulary
+    from deepv_tpu_torch.config import MMDiTConfig, VAEConfig, create_model_config
+    from deepv_tpu_torch.io.text_embeds import random_text_embeds
+    from deepv_tpu_torch.io.weights import random_params
+    from deepv_tpu_torch.models import mmdit as mm
+    from deepv_tpu_torch.ops import attention as att
+    from deepv_tpu_torch.parallel import comm
+    from deepv_tpu_torch.pipeline import InferencePipeline
+
+    mesh = mesh_rank_mesh()
+    collectives = gloo_cuda_collectives(mesh.device)
+    t0 = time.perf_counter()
+    cfg = create_model_config("none", use_motion_prompt=True)
+    mcfg, vcfg = MMDiTConfig(), VAEConfig()
+    params = random_params(mcfg, vcfg, dtype=torch.bfloat16, seed=0, device=mesh.device)
+    embeds = random_text_embeds(0, action_vocabulary(), joint_dim=mcfg.joint_attention_dim,
+                                pooled_dim=mcfg.pooled_projection_dim)
+    pipe = InferencePipeline(cfg, mcfg, vcfg, params, embeds, dtype=torch.bfloat16, mesh=mesh)
+    del params
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    # spies: K1's head count per call, the MMDiT's row-split reductions
+    heads, rows = [], [0, 0]
+    orig_attention, orig_row = mm.attention, mm._row_linear
+
+    def attention_spy(q, k, v, valid, times, n_last=0):
+        heads.append(q.shape[2])
+        return orig_attention(q, k, v, valid, times, n_last=n_last)
+
+    def row_spy(x, p, tp_group):
+        y = orig_row(x, p, tp_group)
+        rows[0] += 1
+        rows[1] += y.numel() * y.element_size()
+        return y
+
+    pipe.timer.sync = True
+    torch.cuda.reset_peak_memory_stats()
+    mm.attention, mm._row_linear = attention_spy, row_spy
+    att.launches = att.f32_launches = att.bwd_launches = 0
+    comm.reset_counts()
+    t0 = time.perf_counter()
+    try:
+        out = pipe.generate(rollout_batch(), seed=666)
+        torch.cuda.synchronize()
+    finally:
+        mm.attention, mm._row_linear = orig_attention, orig_row
+    wall = time.perf_counter() - t0
+    img = out["pred_img"]
+    finite = all(bool(torch.isfinite(out[k]).all())
+                 for k in ("pred_img", "pred_disparity", "trans3d", "trans2d"))
+    stats = pipe.timer.stats()
+    return dict(rank=mesh.rank, collectives=collectives, setup_s=setup_s, wall_s=wall,
+                frames=img.shape[2], shape=tuple(img.shape), finite=finite,
+                launches=att.launches, f32_launches=att.f32_launches,
+                bwd_launches=att.bwd_launches, heads=sorted(set(heads)),
+                forwards=sum(map(sum, pipe.recompute_log)),
+                row_reductions=rows[0], row_reduction_bytes=rows[1],
+                all_reduce=comm.counts["all_reduce"], all_reduce_bytes=comm.nbytes["all_reduce"],
+                all_gather=comm.counts["all_gather"], all_gather_bytes=comm.nbytes["all_gather"],
+                phases_s={k: v["total_s"] for k, v in stats.items()},
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                sha256=hashlib.sha256(img.view(torch.int16).cpu().numpy().tobytes()).hexdigest(),
+                pred_img=img.cpu() if mesh.rank == 0 else None,
+                history_index=out["history_index"])
+
+
+def mesh_forward_inputs(device):
+    """One denoise forward's arguments at chunk 1's stage-2 layout (2 CFG
+    rows, unit 3, the first-frame mask), f32, from a seeded generator:
+    (args, kwargs) of ``mmdit_forward`` after the model."""
+    import torch
+    from deepv_tpu_torch.config import MMDiTConfig, PipelineConfig
+    from deepv_tpu_torch.pipeline import _pyramid_list, padded_conditions
+
+    mcfg, pcfg = MMDiTConfig(), PipelineConfig()
+    g = torch.Generator(device=device)
+    g.manual_seed(21)
+    lh, lw = HEIGHT // 8, WIDTH // 8
+    gen = torch.randn((1, mcfg.in_channels, 4, lh, lw), generator=g, device=device)
+    clips, ftimes, fvalid = padded_conditions(pcfg, _pyramid_list(gen, 2), 3, True, 2)[2]
+    lat = torch.randn((1, mcfg.in_channels, 1, lh, lw), generator=g, device=device)
+    mask = torch.zeros((2, 77), dtype=torch.int32, device=device)
+    mask[:, :11] = 1
+    text = torch.randn((2, 77, mcfg.joint_attention_dim), generator=g, device=device)
+    pooled = torch.randn((2, mcfg.pooled_projection_dim), generator=g, device=device)
+    args = (list(clips) + [torch.cat([lat] * 2)], text, mask, pooled,
+            torch.full((2,), 700.0, device=device))
+    return args, dict(frame_times=list(ftimes), frame_valid=list(fvalid), split_last_attn=True)
+
+
+def diff_stats(got, ref) -> dict:
+    """max |got - ref| and relative L2 (f32 values)."""
+    d = (got.float() - ref.float())
+    return dict(max_abs=float(d.abs().max()), rel_l2=float(d.norm() / ref.float().norm()))
+
+
+def mesh_f32_rank() -> dict:
+    """Phase 20 (b), one rank: f32 at full width (TF32 off), each mesh call
+    and, on rank 0, the single-device call on the same inputs: one denoise
+    forward, cp_dec_window init then cont (2 latent frames each), and
+    cp_vae_encode_chunked of a 17-frame 384x512 carry (window 8)."""
+    import torch
+    from deepv_tpu_torch.config import MMDiTConfig, VAEConfig
+    from deepv_tpu_torch.io.weights import params_from_numpy, random_params
+    from deepv_tpu_torch.models.mmdit import MMDiT, mmdit_forward
+    from deepv_tpu_torch.models.vae import VAE, _dec_window, chunk_encode
+    from deepv_tpu_torch.ops import attention as att
+    from deepv_tpu_torch.parallel.cp import cp_dec_window, cp_vae_encode_chunked
+    from deepv_tpu_torch.parallel.tp import shard_mmdit_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = mesh_rank_mesh()
+    dev, lead = mesh.device, mesh.rank == 0
+    mcfg, vcfg = MMDiTConfig(), VAEConfig()
+    params = random_params(mcfg, vcfg, dtype=torch.float32, seed=0, device=dev)
+    vae = params_from_numpy(VAE(vcfg), params["vae"], dev)
+    out = {}
+    with torch.inference_mode():
+        args, kw = mesh_forward_inputs(dev)
+        model = params_from_numpy(MMDiT(mcfg, tp_group=mesh.group("tp")),
+                                  shard_mmdit_params(params["mmdit"], mesh), dev)
+        before = att.f32_launches
+        v_mesh = mmdit_forward(model, *args, **kw)
+        assert att.f32_launches - before == mcfg.num_layers, "mesh forward missed attn_fwd_tf32x3"
+        del model
+        if lead:
+            v_single = mmdit_forward(params_from_numpy(MMDiT(mcfg), params["mmdit"]), *args, **kw)
+            out["forward"] = diff_stats(v_mesh, v_single)
+            del v_single
+        del params, args, kw, v_mesh
+        g = torch.Generator(device=dev)
+        g.manual_seed(22)
+        zs = [torch.randn((1, vcfg.encoder_out_channels, 2, HEIGHT // 8, WIDTH // 8),
+                          generator=g, device=dev) for _ in range(2)]
+        y0, cache = cp_dec_window(vcfg, vae.decoder, zs[0], None, "init", mesh)
+        y1, cache = cp_dec_window(vcfg, vae.decoder, zs[1], cache, "cont", mesh)
+        del cache
+        if lead:
+            r0, ref_cache = _dec_window(vcfg, vae.decoder, zs[0], None, "init")
+            out["dec_window_init"] = diff_stats(y0, r0)
+            del r0
+            r1, ref_cache = _dec_window(vcfg, vae.decoder, zs[1], ref_cache, "cont")
+            out["dec_window_cont"] = diff_stats(y1, r1)
+            del r1, ref_cache
+        del y0, y1
+        x = torch.randn((1, 3, 17, HEIGHT, WIDTH), generator=g, device=dev)
+        m = cp_vae_encode_chunked(vcfg, vae, x, mesh, "tp", window_size=8)
+        if lead:
+            out["encode_chunked"] = diff_stats(m, chunk_encode(vcfg, vae.encoder, x, 8))
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def mesh_nccl_rank() -> dict:
+    """Phase 20 (d): world size 1 over NCCL (the multi-card backend), one f32
+    forward and one init decode window through the mesh code, each against
+    the single-device call on the same inputs."""
+    import torch
+    import torch.distributed as dist
+    from deepv_tpu_torch.config import MMDiTConfig, VAEConfig
+    from deepv_tpu_torch.io.weights import params_from_numpy, random_params
+    from deepv_tpu_torch.models.mmdit import MMDiT, mmdit_forward
+    from deepv_tpu_torch.models.vae import VAE, _dec_window
+    from deepv_tpu_torch.ops import attention as att
+    from deepv_tpu_torch.parallel.cp import cp_dec_window
+    from deepv_tpu_torch.parallel.mesh import make_mesh
+    from deepv_tpu_torch.parallel.tp import shard_mmdit_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh((1,), ("tp",))
+    att.load_library()
+    dev = mesh.device
+    mcfg, vcfg = MMDiTConfig(), VAEConfig()
+    params = random_params(mcfg, vcfg, dtype=torch.float32, seed=0, device=dev)
+    vae = params_from_numpy(VAE(vcfg), params["vae"], dev)
+    out = dict(backend=dist.get_backend(), device=str(dev))
+    with torch.inference_mode():
+        args, kw = mesh_forward_inputs(dev)
+        v_mesh = mmdit_forward(params_from_numpy(MMDiT(mcfg, tp_group=mesh.group("tp")),
+                                                 shard_mmdit_params(params["mmdit"], mesh), dev),
+                               *args, **kw)
+        v_single = mmdit_forward(params_from_numpy(MMDiT(mcfg), params["mmdit"]), *args, **kw)
+        out["forward"] = dict(diff_stats(v_mesh, v_single), bit_equal=bool(torch.equal(v_mesh,
+                                                                                     v_single)))
+        del params, v_mesh, v_single
+        g = torch.Generator(device=dev)
+        g.manual_seed(22)
+        z = torch.randn((1, vcfg.encoder_out_channels, 2, HEIGHT // 8, WIDTH // 8), generator=g,
+                        device=dev)
+        y, _ = cp_dec_window(vcfg, vae.decoder, z, None, "init", mesh)
+        r, _ = _dec_window(vcfg, vae.decoder, z, None, "init")
+        out["dec_window_init"] = dict(diff_stats(y, r), bit_equal=bool(torch.equal(y, r)))
+    return out
+
+
+def check_mesh_heads(device, results):
+    """Phase 20 (c): K1 at 12 and 6 heads (tp 2 and 4) at phase 3's rollout
+    layouts, against its plain version with phase 3's bf16 tolerances;
+    timed beside the 24-head kernel at the same layout (back to back, host
+    time included, and as device time from a CUDA graph), SDPA and the
+    bound."""
+    import torch
+    import torch.nn.functional as F
+    from deepv_tpu_torch.config import MMDiTConfig
+    from deepv_tpu_torch.models.mmdit import PackedLayout, packed_mask
+    from deepv_tpu_torch.ops import attention as att
+
+    mcfg = MMDiTConfig()
+    d = mcfg.attention_head_dim
+    gen = torch.Generator(device=device)
+    gen.manual_seed(23)
+    out = []
+    for name, b, shapes, ctx, ftimes, fvalid in rollout_layouts(device):
+        layout = PackedLayout(mcfg, shapes, ctx.shape[1])
+        valid, times = packed_mask(layout, ctx, ftimes, fvalid)
+        s, n_last = layout.seq_len, layout.clip_tokens[-1]
+        allowed = ((valid[:, :, None] == valid[:, None, :])
+                   & (times[:, None] >= times[None, :])[None])
+        pairs = int(allowed.sum())
+        times24 = None
+        for h in (mcfg.num_attention_heads,) + MESH_HEADS:
+            q, k, v = (torch.randn((b, s, h, d), generator=gen, device=device) for _ in range(3))
+            if h == mcfg.num_attention_heads:     # checked in phase 3
+                qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+                errs = {}
+            else:
+                (qb, kb, vb), errs = check_attention_bf16(f"{name} h={h}", q, k, v, valid,
+                                                          times, n_last)
+            flops = 4 * pairs * h * d
+            nbytes = 4 * b * s * h * d * 2 + valid.numel() * 4 + times.numel() * 4
+            t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+            call = lambda: att.attention(qb, kb, vb, valid, times, n_last=n_last)
+            ms, device_ms = cuda_time_ms(call, 20), graph_ms(call, 20)
+            if times24 is None:
+                times24 = (ms, device_ms)
+                continue
+            qt, kt, vt = (x.transpose(1, 2) for x in (qb, kb, vb))
+            library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=allowed[:, None]), 10)
+            row = dict(layout=name, heads=h, b=b, S=s, ctas=math.ceil(s / 128) * b * h, ms=ms,
+                       graph_ms=device_ms, ms_24_heads=times24[0],
+                       graph_ms_24_heads=times24[1], library_ms=library_ms,
+                       bound_ms=1e3 * max(t_ops, t_bytes),
+                       bound_by="operations" if t_ops >= t_bytes else "bytes",
+                       tflops=flops / (device_ms * 1e-3) / 1e12, **errs)
+            out.append(row)
+            log("mesh path (c): K1", json.dumps(row))
+            del qt, kt, vt
+        del q, k, v, qb, kb, vb, allowed
+    results["mesh_heads"] = out
+    return out
+
+
+def run_mesh_path(device, results, ref_frames):
+    """Phase 20 (M17b): (c) K1 at the per-rank head counts, (e) run.py
+    --tp_shards 2 refused on this one-card machine, (a) phase 5's rollout
+    through InferencePipeline(mesh=...) on two gloo ranks sharing the card,
+    (b) the f32 gates on the same two ranks, (d) world size 1 over NCCL.
+    Returns (a)'s K1 launches per rank."""
+    import torch
+    from deepv_tpu_torch import run
+    from deepv_tpu_torch.config import MMDiTConfig
+    from deepv_tpu_torch.parallel.launch import spawn
+
+    label = "two ranks sharing one card over gloo, not a deployment number"
+    heads = check_mesh_heads(device, results)
+    cards = torch.cuda.device_count()
+    n = max(2, cards + 1)
+    try:
+        run.main("unused.png", "none", prompt="(FN)", random_weights=True, tp_shards=n)
+    except RuntimeError as e:
+        assert f"this machine has {cards}" in str(e), str(e)
+        log(f"mesh path (e): run.main(tp_shards={n}) on {cards} card(s) refused: {e}")
+    else:
+        raise AssertionError(f"run.main(tp_shards={n}) ran on {cards} card(s)")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = spawn(mesh_rollout_rank, MESH_RANKS, backend="gloo")
+    spawn_s = time.perf_counter() - t0
+    log(f"mesh path (a): gloo on CUDA tensors: {ranks[0]['collectives']}")
+    expected = FORWARDS * MMDiTConfig().num_layers
+    for r in ranks:
+        assert r["shape"] == (1, 3, 89, HEIGHT, WIDTH) and r["finite"], (r["rank"], r["shape"])
+        assert r["forwards"] == FORWARDS, r["forwards"]
+        assert r["launches"] == expected, f"rank {r['rank']}: K1 launched {r['launches']} times"
+        assert r["heads"] == [24 // MESH_RANKS], f"rank {r['rank']}: K1 at heads {r['heads']}"
+        assert r["bwd_launches"] == 0 and r["f32_launches"] == 0, r
+    assert ranks[1]["sha256"] == ranks[0]["sha256"], "rank 1's frames differ from rank 0's"
+    gap = eight_bit_gap(ranks[0]["pred_img"], ref_frames)
+    summary = [{k: v for k, v in r.items() if k not in ("pred_img", "collectives")}
+               for r in ranks]
+    for r in summary:
+        log(f"mesh path (a), rank {r['rank']} ({label}):", json.dumps(r))
+    log(f"mesh path (a): {MESH_RANKS} ranks' frames bit-equal; K1 {expected} launches per rank at "
+        f"{24 // MESH_RANKS} heads; row-split reductions {ranks[0]['row_reductions']} "
+        f"(expected {MESH_REDUCTIONS_PER_FORWARD * FORWARDS}); 8-bit gap to phase 5's frames "
+        f"mean {gap[0]:.4f}, p95 {gap[1]:.4f}; spawn to return {spawn_s:.1f} s")
+    del ranks[0]["pred_img"]
+
+    f32 = spawn(mesh_f32_rank, MESH_RANKS, backend="gloo")[0]
+    log("mesh path (b): f32 mesh vs single device:", json.dumps(f32))
+    for key in ("forward", "dec_window_init", "dec_window_cont", "encode_chunked"):
+        e = f32[key]
+        assert e["rel_l2"] <= MESH_F32_REL_L2 and e["max_abs"] <= MESH_F32_MAX_ABS, (key, e)
+    nccl = spawn(mesh_nccl_rank, 1, backend="nccl")[0]
+    log("mesh path (d): world size 1 over NCCL:", json.dumps(nccl))
+    for key in ("forward", "dec_window_init"):
+        e = nccl[key]
+        assert e["rel_l2"] <= MESH_F32_REL_L2 and e["max_abs"] <= MESH_F32_MAX_ABS, (key, e)
+    results["mesh_path"] = dict(rollout=summary, gap_8bit=gap, spawn_s=spawn_s, f32=f32,
+                                nccl_world_1=nccl, label=label)
+    return expected, heads
+
+
 def main() -> int:
     import torch
 
@@ -2946,7 +3355,11 @@ def main() -> int:
     tiled_launches, tiled_rows = run_tiled_path(device, results, ref_frames)
     run_ply_path(device, results, {"pred_img": ref_frames, "pred_disparity": ref_disparity,
                                    "trans3d": ref_poses[0], "trans2d": ref_poses[1]})
-    del ref_frames, ref_disparity, ref_poses
+    del ref_disparity, ref_poses
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_launches, mesh_heads = run_mesh_path(device, results, ref_frames)
+    del ref_frames
 
     assert launches == sum(r["launches_per_rollout"] for r in rows), (
         "K1's launches per layout do not add up to the rollout's")
@@ -2965,6 +3378,15 @@ def main() -> int:
         "library_ms": head["library_ms"],
         "shape": f"stage 2, b={head['b']}, S={head['S']}, h={head['heads']}, d={head['head_dim']}, bf16",
         "launches_tiled": tiled_launches["attention"],
+        # phase 20 (a): per rank of the two-rank mesh, every call at 12 heads;
+        # (c): the kernel at the stage-2 b=2 layout with the per-rank heads
+        "launches_mesh": mesh_launches,
+        "mesh_heads": 24 // MESH_RANKS,
+        "ms_by_heads": {str(r["heads"]): r["ms"] for r in mesh_heads
+                        if r["layout"] == "stage2_b2"},
+        "device_ms_by_heads": {str(h): ms for r in mesh_heads if r["layout"] == "stage2_b2"
+                               for h, ms in ((r["heads"], r["graph_ms"]),
+                                             (24, r["graph_ms_24_heads"]))},
     }]
     # K1's f32 forward and the backward kernels: launches from phase 15's
     # training steps, errors from phase 14, times at the stage-2 training

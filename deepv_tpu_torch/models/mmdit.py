@@ -10,6 +10,14 @@ per-token ``valid`` vector and per-token times (``ops/attention.py``).
 deepv_tpu's parameter tree (e.g. ``transformer_blocks.3.attn.to_q.weight``)
 with the same torch layouts. It is built with its parameters on the
 ``meta`` device; ``io/weights.params_from_numpy`` loads real tensors.
+
+Tensor parallel (``MMDiT(cfg, tp_group=group)``, ``parallel/tp.py``): each
+rank holds its share of the heads and of the feed-forward width, the
+column-split and row-split linears at 1/n of their width. The attention
+runs on the rank's heads, read from the projections' width; after each
+row-split linear the partial products are summed over the group
+(``parallel/comm.all_reduce``) and the bias is added once, after the sum.
+All else is computed whole on every rank, with the same bits.
 """
 
 from __future__ import annotations
@@ -19,6 +27,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.nn.functional as F
 from torch import nn
 
 from ..config import MMDiTConfig
@@ -27,6 +37,7 @@ from ..ops.basic import gelu_tanh, layer_norm, linear, rms_norm, silu
 from ..ops.linear_int8 import quantize_linear
 from ..ops.resample import down2x_bilinear, resize_bilinear
 from ..ops.rope import apply_rope, rope_tables_torch
+from ..parallel import comm
 
 
 # ---------------------------------------------------------------------------
@@ -146,10 +157,10 @@ class _AdaLN(nn.Module):
 
 
 class _FeedForward(nn.Module):
-    def __init__(self, dim: int, device):
+    def __init__(self, dim: int, device, tp: int = 1):
         super().__init__()
-        self.proj = nn.Linear(dim, 4 * dim, device=device)
-        self.out = nn.Linear(4 * dim, dim, device=device)
+        self.proj = nn.Linear(dim, 4 * dim // tp, device=device)
+        self.out = nn.Linear(4 * dim // tp, dim, device=device)
 
 
 class _MLPEmbed(nn.Module):
@@ -177,31 +188,31 @@ class _PatchEmbed(nn.Module):
 
 
 class _JointAttention(nn.Module):
-    def __init__(self, cfg: MMDiTConfig, last: bool, device):
+    def __init__(self, cfg: MMDiTConfig, last: bool, device, tp: int = 1):
         super().__init__()
         D, hd = cfg.inner_dim, cfg.attention_head_dim
-        for name in ("to_q", "to_k", "to_v", "add_q_proj", "add_k_proj",
-                     "add_v_proj", "to_out"):
-            setattr(self, name, nn.Linear(D, D, device=device))
+        for name in ("to_q", "to_k", "to_v", "add_q_proj", "add_k_proj", "add_v_proj"):
+            setattr(self, name, nn.Linear(D, D // tp, device=device))
+        self.to_out = nn.Linear(D // tp, D, device=device)
         for name in ("norm_q", "norm_k", "norm_add_q", "norm_add_k"):
             setattr(self, name, _Weight(hd, device))
         if not last:
-            self.to_add_out = nn.Linear(D, D, device=device)
+            self.to_add_out = nn.Linear(D // tp, D, device=device)
 
 
 class JointBlock(nn.Module):
     """JointTransformerBlock; the last block is context-pre-only."""
 
-    def __init__(self, cfg: MMDiTConfig, last: bool, device):
+    def __init__(self, cfg: MMDiTConfig, last: bool, device, tp: int = 1):
         super().__init__()
         D = cfg.inner_dim
         self.context_pre_only = last
         self.norm1 = _AdaLN(D, 6 * D, device)
         self.norm1_context = _AdaLN(D, 2 * D if last else 6 * D, device)
-        self.attn = _JointAttention(cfg, last, device)
-        self.ff = _FeedForward(D, device)
+        self.attn = _JointAttention(cfg, last, device, tp)
+        self.ff = _FeedForward(D, device, tp)
         if not last:
-            self.ff_context = _FeedForward(D, device)
+            self.ff_context = _FeedForward(D, device, tp)
 
 
 class Int8Linear(nn.Module):
@@ -243,18 +254,25 @@ def quantize_mmdit(model: "MMDiT") -> "MMDiT":
 
 
 class MMDiT(nn.Module):
-    """The denoiser's parameters; ``forward`` is :func:`mmdit_forward`."""
+    """The denoiser's parameters; ``forward`` is :func:`mmdit_forward`.
+    With ``tp_group`` (a process group of n ranks) it holds this rank's
+    tensor-parallel share (``parallel/tp.shard_mmdit_params`` cuts it) and
+    its forward sums the row-split products over the group."""
 
-    def __init__(self, cfg: MMDiTConfig, device="meta"):
+    def __init__(self, cfg: MMDiTConfig, device="meta", tp_group=None):
         super().__init__()
         self.cfg = cfg
+        self.tp_group = tp_group
+        tp = 1 if tp_group is None else dist.get_world_size(tp_group)
+        if cfg.num_attention_heads % tp:
+            raise ValueError(f"{cfg.num_attention_heads} heads do not split over {tp} ranks")
         D = cfg.inner_dim
         self.pos_embed = _PatchEmbed(cfg, device)
         self.time_text_embed = _TimeTextEmbed(cfg, device)
         self.context_embedder = nn.Linear(cfg.joint_attention_dim,
                                           cfg.caption_projection_dim, device=device)
         self.transformer_blocks = nn.ModuleList(
-            JointBlock(cfg, i == cfg.num_layers - 1, device) for i in range(cfg.num_layers))
+            JointBlock(cfg, i == cfg.num_layers - 1, device, tp) for i in range(cfg.num_layers))
         self.norm_out = _AdaLN(D, 2 * D, device)
         self.proj_out = nn.Linear(D, cfg.patch_size ** 2 * cfg.out_channels, device=device)
 
@@ -350,42 +368,53 @@ def _adaln_continuous(p: _AdaLN, x: torch.Tensor, emb: torch.Tensor) -> torch.Te
     return layer_norm(x) * (1 + scale[:, None]) + shift[:, None]
 
 
-def _ff(p: _FeedForward, x: torch.Tensor) -> torch.Tensor:
-    return linear(gelu_tanh(linear(x, p.proj)), p.out)
+def _row_linear(x: torch.Tensor, p, tp_group) -> torch.Tensor:
+    """A row-split linear: without a group, ``linear``; with one, this
+    rank's partial product summed over the group, then the bias once."""
+    if tp_group is None:
+        return linear(x, p)
+    y = comm.all_reduce(F.linear(x, p.weight.to(x.dtype)), tp_group)
+    return y + p.bias.to(y.dtype)
+
+
+def _ff(p: _FeedForward, x: torch.Tensor, tp_group=None) -> torch.Tensor:
+    return _row_linear(gelu_tanh(linear(x, p.proj)), p.out, tp_group)
 
 
 def joint_attention(cfg: MMDiTConfig, p: _JointAttention, hidden: torch.Tensor,
                     ctx: torch.Tensor, valid: torch.Tensor, times: torch.Tensor,
                     n_last: int, rope_cos: torch.Tensor, rope_sin: torch.Tensor,
-                    context_pre_only: bool):
+                    context_pre_only: bool, tp_group=None):
     """Joint text+video attention over the packed sequence; ctx tokens
-    lead. ``valid`` [b, S] int32 and ``times`` [S] float32 define the mask."""
+    lead. ``valid`` [b, S] int32 and ``times`` [S] float32 define the mask.
+    The head count is the projections' width over the head dim: all heads,
+    or this rank's under tensor parallelism."""
     b, lv, _ = hidden.shape
     lc = ctx.shape[1]
-    nh, hd = cfg.num_attention_heads, cfg.attention_head_dim
+    hd = cfg.attention_head_dim
 
-    q = rms_norm(linear(hidden, p.to_q).reshape(b, lv, nh, hd), p.norm_q.weight, 1e-5)
-    k = rms_norm(linear(hidden, p.to_k).reshape(b, lv, nh, hd), p.norm_k.weight, 1e-5)
-    v = linear(hidden, p.to_v).reshape(b, lv, nh, hd)
-    cq = rms_norm(linear(ctx, p.add_q_proj).reshape(b, lc, nh, hd), p.norm_add_q.weight, 1e-5)
-    ck = rms_norm(linear(ctx, p.add_k_proj).reshape(b, lc, nh, hd), p.norm_add_k.weight, 1e-5)
-    cv = linear(ctx, p.add_v_proj).reshape(b, lc, nh, hd)
+    q = rms_norm(linear(hidden, p.to_q).reshape(b, lv, -1, hd), p.norm_q.weight, 1e-5)
+    k = rms_norm(linear(hidden, p.to_k).reshape(b, lv, -1, hd), p.norm_k.weight, 1e-5)
+    v = linear(hidden, p.to_v).reshape(b, lv, -1, hd)
+    cq = rms_norm(linear(ctx, p.add_q_proj).reshape(b, lc, -1, hd), p.norm_add_q.weight, 1e-5)
+    ck = rms_norm(linear(ctx, p.add_k_proj).reshape(b, lc, -1, hd), p.norm_add_k.weight, 1e-5)
+    cv = linear(ctx, p.add_v_proj).reshape(b, lc, -1, hd)
 
     q = apply_rope(torch.cat([cq, q], dim=1), rope_cos, rope_sin)
     k = apply_rope(torch.cat([ck, k], dim=1), rope_cos, rope_sin)
     v = torch.cat([cv, v], dim=1)
 
-    out = attention(q, k, v, valid, times, n_last=n_last).reshape(b, lc + lv, nh * hd)
+    out = attention(q, k, v, valid, times, n_last=n_last).reshape(b, lc + lv, -1)
     ctx_out, vid_out = out[:, :lc], out[:, lc:]
-    vid_out = linear(vid_out, p.to_out)
+    vid_out = _row_linear(vid_out, p.to_out, tp_group)
     if not context_pre_only:
-        ctx_out = linear(ctx_out, p.to_add_out)
+        ctx_out = _row_linear(ctx_out, p.to_add_out, tp_group)
     return vid_out, ctx_out
 
 
 def joint_block(cfg: MMDiTConfig, p: JointBlock, hidden: torch.Tensor, ctx: torch.Tensor,
                 temb: torch.Tensor, valid: torch.Tensor, times: torch.Tensor, n_last: int,
-                rope_cos: torch.Tensor, rope_sin: torch.Tensor):
+                rope_cos: torch.Tensor, rope_sin: torch.Tensor, tp_group=None):
     """JointTransformerBlock."""
     pre_only = p.context_pre_only
     hn, gate_msa, shift_mlp, scale_mlp, gate_mlp = _adaln_zero(p.norm1, hidden, temb)
@@ -396,16 +425,16 @@ def joint_block(cfg: MMDiTConfig, p: JointBlock, hidden: torch.Tensor, ctx: torc
             p.norm1_context, ctx, temb)
 
     attn_out, ctx_attn = joint_attention(cfg, p.attn, hn, cn, valid, times, n_last,
-                                         rope_cos, rope_sin, pre_only)
+                                         rope_cos, rope_sin, pre_only, tp_group)
     hidden = hidden + gate_msa * attn_out
     hn2 = layer_norm(hidden) * (1 + scale_mlp) + shift_mlp
-    hidden = hidden + gate_mlp * _ff(p.ff, hn2)
+    hidden = hidden + gate_mlp * _ff(p.ff, hn2, tp_group)
 
     if pre_only:
         return hidden, ctx
     ctx = ctx + c_gate_msa * ctx_attn
     cn2 = layer_norm(ctx) * (1 + c_scale_mlp) + c_shift_mlp
-    ctx = ctx + c_gate_mlp * _ff(p.ff_context, cn2)
+    ctx = ctx + c_gate_mlp * _ff(p.ff_context, cn2, tp_group)
     return hidden, ctx
 
 
@@ -456,7 +485,7 @@ def mmdit_forward(model: MMDiT, clips: List[torch.Tensor],
     hidden = embed_clips(cfg, model.pos_embed, clips)
     for bp in model.transformer_blocks:
         hidden, ctx = joint_block(cfg, bp, hidden, ctx, temb, valid, times, n_last,
-                                  rope_cos, rope_sin)
+                                  rope_cos, rope_sin, model.tp_group)
 
     hidden = _adaln_continuous(model.norm_out, hidden, temb)
     hidden = linear(hidden, model.proj_out)

@@ -1,12 +1,18 @@
 """Causal video VAE with explicit temporal caches.
 
-Counterpart of ``deepv_tpu/models/vae.py`` (single device): an 8x
-spatial and 8x temporal compressing KL autoencoder (57 pixel frames <-> 8
-latent frames) built from causal 3D convolutions. Chunked encode/decode
-thread the conv caches as nested dicts, so chunked == full exactly, and the
-decoder's chunk-boundary priming rebuilds the last block's caches from the
-trailing frames it needs. Spatial tiling (``use_tiling``) bounds the
-activations of a large plane: overlapping tiles, blended at the seams.
+Counterpart of ``deepv_tpu/models/vae.py``: an 8x spatial and 8x temporal
+compressing KL autoencoder (57 pixel frames <-> 8 latent frames) built from
+causal 3D convolutions. Chunked encode/decode thread the conv caches as
+nested dicts, so chunked == full exactly, and the decoder's chunk-boundary
+priming rebuilds the last block's caches from the trailing frames it needs.
+Spatial tiling (``use_tiling``) bounds the activations of a large plane:
+overlapping tiles, blended at the seams.
+
+Context parallelism (``parallel/cp.py``): every function from the resnet up
+takes ``cp_group`` (x is this rank's slice of the height) and ``tp_group``
+(this rank's slice of time), passed down to every conv
+(``ops/causal_conv.py``). Under ``cp_group`` the group norms sum their
+statistics over the group and the mid block's attention gathers the rows.
 
 ``VAE`` is an ``nn.Module`` named as deepv_tpu's parameter tree
 (``encoder.down_blocks.0.resnets.0.conv1.weight``, ...), built on the
@@ -19,11 +25,13 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..config import VAEConfig
 from ..ops.basic import compute_dtype, exp_f32, group_norm, linear, silu
 from ..ops.causal_conv import causal_conv3d
+from ..parallel import comm
 
 
 def _get(cache, key):
@@ -139,23 +147,39 @@ class VAE(nn.Module):
 # building blocks
 # ---------------------------------------------------------------------------
 
-def causal_group_norm(x: torch.Tensor, num_groups: int, p) -> torch.Tensor:
-    """GroupNorm per frame: statistics never cross the time axis."""
+def causal_group_norm(x: torch.Tensor, num_groups: int, p, cp_group=None) -> torch.Tensor:
+    """GroupNorm per frame: statistics never cross the time axis.
+
+    Under ``cp_group`` the statistics are the whole height's: deepv_tpu's
+    formula, the sum and the sum of squares in at-least-f32 summed over the
+    group (one ``all_reduce``), then ``var = E[x^2] - mean^2``, eps 1e-6."""
     b, c, t, h, w = x.shape
-    x2 = x.transpose(1, 2).reshape(b * t, c, h, w)
-    y = group_norm(x2, num_groups, p.weight, p.bias)
-    return y.reshape(b, t, c, h, w).transpose(1, 2)
+    if cp_group is None:
+        x2 = x.transpose(1, 2).reshape(b * t, c, h, w)
+        y = group_norm(x2, num_groups, p.weight, p.bias)
+        return y.reshape(b, t, c, h, w).transpose(1, 2)
+    g, ct = num_groups, compute_dtype(x.dtype)
+    xf = x.to(ct).transpose(1, 2).reshape(b * t, g, c // g, h * w)
+    sums = comm.all_reduce(torch.stack([xf.sum(dim=(2, 3)), xf.square().sum(dim=(2, 3))]),
+                           cp_group)
+    n = (c // g) * h * w * dist.get_world_size(cp_group)
+    mean = (sums[0] / n)[:, :, None, None]
+    var = (sums[1] / n)[:, :, None, None] - mean.square()
+    xf = ((xf - mean) * torch.rsqrt(var + 1e-6)).reshape(b * t, c, h, w)
+    out = xf * p.weight.to(ct).reshape(1, c, 1, 1) + p.bias.to(ct).reshape(1, c, 1, 1)
+    return out.to(x.dtype).reshape(b, t, c, h, w).transpose(1, 2)
 
 
 def resnet_apply(p: _Resnet, x: torch.Tensor, cache, mode: str, groups: int,
-                 impl: str = "xla"):
+                 impl: str = "xla", cp_group=None, tp_group=None):
     """CausalResnetBlock3D; ``impl`` routes conv1/conv2, not the shortcut."""
-    h = silu(causal_group_norm(x, groups, p.norm1))
-    h, c1 = causal_conv3d(h, p.conv1, _get(cache, "conv1"), mode=mode, impl=impl)
-    h = silu(causal_group_norm(h, groups, p.norm2))
-    h, c2 = causal_conv3d(h, p.conv2, _get(cache, "conv2"), mode=mode, impl=impl)
+    par = dict(cp_group=cp_group, tp_group=tp_group)
+    h = silu(causal_group_norm(x, groups, p.norm1, cp_group))
+    h, c1 = causal_conv3d(h, p.conv1, _get(cache, "conv1"), mode=mode, impl=impl, **par)
+    h = silu(causal_group_norm(h, groups, p.norm2, cp_group))
+    h, c2 = causal_conv3d(h, p.conv2, _get(cache, "conv2"), mode=mode, impl=impl, **par)
     if hasattr(p, "conv_shortcut"):
-        x, _ = causal_conv3d(x, p.conv_shortcut, None, mode=mode)
+        x, _ = causal_conv3d(x, p.conv_shortcut, None, mode=mode, cp_group=cp_group)
     if mode == "prime":
         # each prime-mode conv consumed kt-1 leading context frames: align
         # the residual with the main path's (4 frames shorter) trailing frames
@@ -163,9 +187,15 @@ def resnet_apply(p: _Resnet, x: torch.Tensor, cache, mode: str, groups: int,
     return x + h, {"conv1": c1, "conv2": c2}
 
 
-def attn2d_apply(p: _Attn2d, x: torch.Tensor, groups: int) -> torch.Tensor:
+def attn2d_apply(p: _Attn2d, x: torch.Tensor, groups: int, cp_group=None) -> torch.Tensor:
     """Per-frame single-head spatial self-attention with residual: group
-    norm -> qkv -> f32 softmax -> out proj -> + residual (plain matmuls)."""
+    norm -> qkv -> f32 softmax -> out proj -> + residual (plain matmuls).
+    Under ``cp_group`` (at the bottleneck's resolution) the rows are
+    gathered, attended whole, and this rank's slice kept."""
+    if cp_group is not None:
+        h_local = x.shape[3]
+        y = attn2d_apply(p, comm.all_gather(x, 3, cp_group), groups)
+        return y.narrow(3, dist.get_rank(cp_group) * h_local, h_local)
     b, c, t, h, w = x.shape
     x2 = x.transpose(1, 2).reshape(b * t, c, h * w)
     xn = group_norm(x2, groups, p.group_norm.weight, p.group_norm.bias).transpose(1, 2)
@@ -179,40 +209,48 @@ def attn2d_apply(p: _Attn2d, x: torch.Tensor, groups: int) -> torch.Tensor:
 
 
 def midblock_apply(p: _MidBlock, x: torch.Tensor, cache, mode: str, groups: int,
-                   impl: str = "xla"):
+                   impl: str = "xla", cp_group=None, tp_group=None):
     """CausalUNetMidBlock2D: resnet, then (attn, resnet) pairs."""
+    par = dict(cp_group=cp_group, tp_group=tp_group)
     res_cache = _get(cache, "resnets")
-    x, c0 = resnet_apply(p.resnets[0], x, _idx(res_cache, 0), mode, groups, impl)
+    x, c0 = resnet_apply(p.resnets[0], x, _idx(res_cache, 0), mode, groups, impl, **par)
     caches = [c0]
     for i, attn in enumerate(p.attentions):
-        x = attn2d_apply(attn, x, groups)
-        x, ci = resnet_apply(p.resnets[i + 1], x, _idx(res_cache, i + 1), mode, groups, impl)
+        x = attn2d_apply(attn, x, groups, cp_group)
+        x, ci = resnet_apply(p.resnets[i + 1], x, _idx(res_cache, i + 1), mode, groups, impl,
+                             **par)
         caches.append(ci)
     return x, {"resnets": caches}
 
 
-def spatial_down_apply(p, x, cache, mode: str):
+def spatial_down_apply(p, x, cache, mode: str, cp_group=None, tp_group=None):
     """CausalDownsample2x: causal conv with stride (1, 2, 2)."""
-    return causal_conv3d(x, p, cache, mode=mode, stride=(1, 2, 2))
+    return causal_conv3d(x, p, cache, mode=mode, stride=(1, 2, 2), cp_group=cp_group,
+                         tp_group=tp_group)
 
 
-def temporal_down_apply(p, x, cache, mode: str):
+def temporal_down_apply(p, x, cache, mode: str, cp_group=None, tp_group=None):
     """CausalTemporalDownsample2x: causal conv with stride (2, 1, 1)."""
-    return causal_conv3d(x, p, cache, mode=mode, stride=(2, 1, 1))
+    return causal_conv3d(x, p, cache, mode=mode, stride=(2, 1, 1), cp_group=cp_group,
+                         tp_group=tp_group)
 
 
-def spatial_up_apply(p, x, cache, mode: str, impl: str = "xla"):
+def spatial_up_apply(p, x, cache, mode: str, impl: str = "xla", cp_group=None,
+                     tp_group=None):
     """CausalUpsample2x: conv to 4c then a 2x2 pixel shuffle."""
-    y, c = causal_conv3d(x, p, cache, mode=mode, impl=impl)
+    y, c = causal_conv3d(x, p, cache, mode=mode, impl=impl, cp_group=cp_group,
+                         tp_group=tp_group)
     b, c4, t, h, w = y.shape
     y = y.reshape(b, c4 // 4, 2, 2, t, h, w).permute(0, 1, 4, 5, 2, 6, 3)
     return y.reshape(b, c4 // 4, t, h * 2, w * 2), c
 
 
-def temporal_up_apply(p, x, cache, mode: str, impl: str = "xla"):
+def temporal_up_apply(p, x, cache, mode: str, impl: str = "xla", cp_group=None,
+                      tp_group=None):
     """CausalTemporalUpsample2x: conv to 2c, temporal unshuffle, and in
     full/init mode drop the duplicated first frame."""
-    y, c = causal_conv3d(x, p, cache, mode=mode, impl=impl)
+    y, c = causal_conv3d(x, p, cache, mode=mode, impl=impl, cp_group=cp_group,
+                         tp_group=tp_group)
     b, c2, t, h, w = y.shape
     y = y.reshape(b, c2 // 2, 2, t, h, w).transpose(2, 3).reshape(b, c2 // 2, t * 2, h, w)
     if mode in ("full", "init"):
@@ -225,91 +263,98 @@ def temporal_up_apply(p, x, cache, mode: str, impl: str = "xla"):
 # ---------------------------------------------------------------------------
 
 def encoder_apply(cfg: VAEConfig, p: Encoder, x: torch.Tensor, cache=None,
-                  mode: str = "full"):
+                  mode: str = "full", cp_group=None, tp_group=None):
     """Encoder + quant conv -> Gaussian moments, and the new caches."""
     groups, impl = cfg.encoder_norm_num_groups, cfg.conv_impl
+    par = dict(cp_group=cp_group, tp_group=tp_group)
     caches = {}
     x, caches["conv_in"] = causal_conv3d(x, p.conv_in, _get(cache, "conv_in"), mode=mode,
-                                         impl=impl)
+                                         impl=impl, **par)
     block_caches = []
     for i, bp in enumerate(p.down_blocks):
         bc = _idx(_get(cache, "down_blocks"), i)
         rcaches = []
         for j, rp in enumerate(bp.resnets):
-            x, rc = resnet_apply(rp, x, _idx(_get(bc, "resnets"), j), mode, groups, impl)
+            x, rc = resnet_apply(rp, x, _idx(_get(bc, "resnets"), j), mode, groups, impl,
+                                 **par)
             rcaches.append(rc)
         out = {"resnets": rcaches}
         if cfg.encoder_spatial_down_sample[i]:
             x, out["downsampler"] = spatial_down_apply(bp.downsampler, x,
-                                                       _get(bc, "downsampler"), mode)
+                                                       _get(bc, "downsampler"), mode, **par)
         if cfg.encoder_temporal_down_sample[i]:
             x, out["temporal_downsampler"] = temporal_down_apply(
-                bp.temporal_downsampler, x, _get(bc, "temporal_downsampler"), mode)
+                bp.temporal_downsampler, x, _get(bc, "temporal_downsampler"), mode, **par)
         block_caches.append(out)
     caches["down_blocks"] = block_caches
     x, caches["mid_block"] = midblock_apply(p.mid_block, x, _get(cache, "mid_block"),
-                                            mode, groups, impl)
-    x = silu(causal_group_norm(x, groups, p.conv_norm_out))
+                                            mode, groups, impl, **par)
+    x = silu(causal_group_norm(x, groups, p.conv_norm_out, cp_group))
     x, caches["conv_out"] = causal_conv3d(x, p.conv_out, _get(cache, "conv_out"), mode=mode,
-                                          impl=impl)
-    moments, _ = causal_conv3d(x, p.quant_conv, None, mode=mode)
+                                          impl=impl, **par)
+    moments, _ = causal_conv3d(x, p.quant_conv, None, mode=mode, cp_group=cp_group)
     return moments, caches
 
 
-def _up_block(cfg: VAEConfig, i: int, bp: _Block, x: torch.Tensor, bc, mode: str):
+def _up_block(cfg: VAEConfig, i: int, bp: _Block, x: torch.Tensor, bc, mode: str,
+              cp_group=None, tp_group=None):
     groups, impl = cfg.decoder_norm_num_groups, cfg.conv_impl
+    par = dict(cp_group=cp_group, tp_group=tp_group)
     rcaches = []
     for j, rp in enumerate(bp.resnets):
-        x, rc = resnet_apply(rp, x, _idx(_get(bc, "resnets"), j), mode, groups, impl)
+        x, rc = resnet_apply(rp, x, _idx(_get(bc, "resnets"), j), mode, groups, impl, **par)
         rcaches.append(rc)
     out = {"resnets": rcaches}
     if cfg.decoder_spatial_up_sample[i]:
         x, out["upsampler"] = spatial_up_apply(bp.upsampler, x, _get(bc, "upsampler"), mode,
-                                               impl)
+                                               impl, **par)
     if cfg.decoder_temporal_up_sample[i]:
         x, out["temporal_upsampler"] = temporal_up_apply(
-            bp.temporal_upsampler, x, _get(bc, "temporal_upsampler"), mode, impl)
+            bp.temporal_upsampler, x, _get(bc, "temporal_upsampler"), mode, impl, **par)
     return x, out
 
 
 def decoder_front(cfg: VAEConfig, p: Decoder, z: torch.Tensor, cache=None,
-                  mode: str = "full"):
+                  mode: str = "full", cp_group=None, tp_group=None):
     """post-quant conv + conv_in + mid block + every up block but the last.
     Returns the last block's input stream and the partial caches."""
     groups, impl = cfg.decoder_norm_num_groups, cfg.conv_impl
+    par = dict(cp_group=cp_group, tp_group=tp_group)
     caches = {}
-    z, _ = causal_conv3d(z, p.post_quant_conv, None, mode=mode)
+    z, _ = causal_conv3d(z, p.post_quant_conv, None, mode=mode, cp_group=cp_group)
     x, caches["conv_in"] = causal_conv3d(z, p.conv_in, _get(cache, "conv_in"), mode=mode,
-                                         impl=impl)
+                                         impl=impl, **par)
     x, caches["mid_block"] = midblock_apply(p.mid_block, x, _get(cache, "mid_block"),
-                                            mode, groups, impl)
+                                            mode, groups, impl, **par)
     block_caches = []
     for i in range(len(p.up_blocks) - 1):
         x, out = _up_block(cfg, i, p.up_blocks[i], x,
-                           _idx(_get(cache, "up_blocks"), i), mode)
+                           _idx(_get(cache, "up_blocks"), i), mode, **par)
         block_caches.append(out)
     caches["up_blocks"] = block_caches
     return x, caches
 
 
 def decoder_tail(cfg: VAEConfig, p: Decoder, x: torch.Tensor, cache=None,
-                 mode: str = "full"):
+                 mode: str = "full", cp_group=None, tp_group=None):
     """The last up block + conv_norm_out + conv_out; ``cache`` is the full
     decoder cache dict. Returns (pixels, partial caches)."""
+    par = dict(cp_group=cp_group, tp_group=tp_group)
     i = len(p.up_blocks) - 1
-    x, out = _up_block(cfg, i, p.up_blocks[i], x, _idx(_get(cache, "up_blocks"), i), mode)
+    x, out = _up_block(cfg, i, p.up_blocks[i], x, _idx(_get(cache, "up_blocks"), i), mode,
+                       **par)
     caches = {"up_blocks_last": out}
-    x = silu(causal_group_norm(x, cfg.decoder_norm_num_groups, p.conv_norm_out))
+    x = silu(causal_group_norm(x, cfg.decoder_norm_num_groups, p.conv_norm_out, cp_group))
     x, caches["conv_out"] = causal_conv3d(x, p.conv_out, _get(cache, "conv_out"), mode=mode,
-                                          impl=cfg.conv_impl)
+                                          impl=cfg.conv_impl, **par)
     return x, caches
 
 
 def decoder_apply(cfg: VAEConfig, p: Decoder, z: torch.Tensor, cache=None,
-                  mode: str = "full"):
+                  mode: str = "full", cp_group=None, tp_group=None):
     """post-quant conv + decoder -> pixels, and the new caches."""
-    x, caches = decoder_front(cfg, p, z, cache, mode)
-    x, tail = decoder_tail(cfg, p, x, cache, mode)
+    x, caches = decoder_front(cfg, p, z, cache, mode, cp_group, tp_group)
+    x, tail = decoder_tail(cfg, p, x, cache, mode, cp_group, tp_group)
     caches["up_blocks"] = caches["up_blocks"] + [tail["up_blocks_last"]]
     caches["conv_out"] = tail["conv_out"]
     return x, caches
@@ -376,12 +421,14 @@ def _split_windows(t: int, window: int):
     return sizes
 
 
-def _enc_window(cfg: VAEConfig, p: Encoder, x, cache, mode: str):
-    return encoder_apply(cfg, p, x, cache, mode)
+def _enc_window(cfg: VAEConfig, p: Encoder, x, cache, mode: str, cp_group=None,
+                tp_group=None):
+    return encoder_apply(cfg, p, x, cache, mode, cp_group, tp_group)
 
 
-def _dec_window(cfg: VAEConfig, p: Decoder, z, cache, mode: str):
-    return decoder_apply(cfg, p, z, cache, mode)
+def _dec_window(cfg: VAEConfig, p: Decoder, z, cache, mode: str, cp_group=None,
+                tp_group=None):
+    return decoder_apply(cfg, p, z, cache, mode, cp_group, tp_group)
 
 
 def _dec_prime_warm(cfg: VAEConfig, p: Decoder, z: torch.Tensor):

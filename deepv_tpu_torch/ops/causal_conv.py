@@ -1,9 +1,9 @@
 """Causal 3D convolution with an explicit temporal cache.
 
-Counterpart of ``deepv_tpu/ops/causal_conv.py`` (without the context- and
-temporal-parallel halos). The temporal axis is padded only in the past; a
-chunked pass carries the last two input frames of every kt=3 layer, so
-consecutive chunks give the same output as one full pass. Modes:
+Counterpart of ``deepv_tpu/ops/causal_conv.py``. The temporal axis is
+padded only in the past; a chunked pass carries the last two input frames
+of every kt=3 layer, so consecutive chunks give the same output as one full
+pass. Modes:
 
   - ``full``:  whole clip at once, 2 zero frames of temporal padding;
   - ``init``:  first chunk; output as ``full``, and the cache is the last 2
@@ -23,6 +23,20 @@ conv reads: the cache frames with x in ``init``/``cont``/``prime`` mode, x
 alone in ``full`` mode. The other layers (1x1 shortcuts, strided
 down-samplers, narrow in/out convs, and for int8 the levels below
 ``MIN_H``) keep ``F.conv3d``, as deepv_tpu keeps XLA's conv for them.
+
+Context parallelism (``parallel/cp.py``), one process per rank:
+
+  - ``cp_group``: x is this rank's slice of the image height. A k=3 conv
+    takes one row from each neighbour (``parallel/comm.halo``, zeros at
+    the ends: the conv's own zero padding) and pads H no further; a
+    spatially strided conv, whose windows start at even rows, takes the
+    row above only. W keeps its padding. The cache is the last frames of
+    the halo-extended input, so a carried cache already holds the
+    neighbours' rows. Under ``cp_group`` every layer takes ``F.conv3d``,
+    as deepv_tpu leaves its igemm and int8 layers to XLA's conv there.
+  - ``tp_group``: x is this rank's slice of time, in ``cont`` mode only,
+    at least 2 frames: the temporal context is the previous rank's last 2
+    input frames, and rank 0 takes ``cache`` (the first window's).
 """
 
 from __future__ import annotations
@@ -30,7 +44,9 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
+from ..parallel import comm
 from .basic import conv3d
 from .conv_igemm import conv3d_igemm, supports_igemm
 from .conv_int8 import conv3d_int8, supports_int8
@@ -38,20 +54,35 @@ from .conv_int8 import conv3d_int8, supports_int8
 
 def causal_conv3d(x: torch.Tensor, p, cache: Optional[torch.Tensor], *,
                   mode: str = "full", stride: Tuple[int, int, int] = (1, 1, 1),
-                  impl: str = "xla") -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                  impl: str = "xla", cp_group=None, tp_group=None
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Apply a causal conv3d (``p`` holds weight [co, ci, kt, kh, kw] and
     bias). Returns ``(y, new_cache)``; the cache is None in ``full`` mode
     and for kt == 1 layers. ``impl`` is "xla" (``F.conv3d``), "igemm" or
-    "int8"."""
+    "int8". ``cp_group`` / ``tp_group``: x is this rank's slice of the
+    height / of time (the module docstring)."""
     kt, kh, kw = p.weight.shape[2:]
     hp, wp = kh // 2, kw // 2
     time_pad = kt - 1
     if mode != "full" and kt not in (1, 3):
         raise ValueError(f"cached conv modes support kt in (1, 3); got kt={kt}")
+    if cp_group is not None and kh == 3:
+        top, bottom = comm.halo(x, 3, cp_group, before=1, after=1 if stride[1] == 1 else 0)
+        x, hp = torch.cat([top, x, bottom], dim=3), 0
+    if tp_group is not None and kt > 1:
+        if mode != "cont" or cache is None:
+            raise ValueError("temporal CP runs every rank in cont mode, with the first "
+                             "window's cache")
+        if x.shape[2] < 2:
+            raise ValueError("temporal CP needs >= 2 local frames at every temporal level")
+        prev, _ = comm.halo(x, 2, tp_group, before=2, after=0)
+        if dist.get_rank(tp_group) > 0:
+            cache = prev
     spatial = ((hp, hp), (wp, wp))
-    igemm = impl == "igemm" and supports_igemm(p.weight.shape, stride, x.dtype,
-                                               x.shape[3], x.shape[4])
-    int8 = impl == "int8" and supports_int8(p.weight.shape, stride, x.shape[3])
+    split = cp_group is not None
+    igemm = impl == "igemm" and not split and supports_igemm(p.weight.shape, stride, x.dtype,
+                                                             x.shape[3], x.shape[4])
+    int8 = impl == "int8" and not split and supports_int8(p.weight.shape, stride, x.shape[3])
 
     def conv(xp, pad_t):
         # eligible layers: the kernel, with the cache frames already in xp

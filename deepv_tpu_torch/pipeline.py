@@ -9,6 +9,12 @@ they finish through the causal VAE's carried caches; at a chunk boundary the
 decoder caches are primed exactly from the carried latents, the overlap
 pixels are re-encoded, and a history frame is retrieved by camera nearness.
 
+On a mesh (``mesh=parallel.mesh.make_mesh(...)``, one process per rank, all
+running the same rollout) the MMDiT is tensor-parallel over the axis
+``mesh_axis`` (``parallel/tp.py``) and every VAE encode and decode is
+spatially context-parallel over the same ranks (``parallel/cp.py``). Every
+rank holds the whole latents, frames and poses, with the same bits.
+
 The quality-gated fast modes are options of the same rollout: flow caching
 (``flow_cache="skip_odd"`` or ``"adaptive[:tau]"``), the W8A8 denoise
 linears (``denoise_int8``), the int8 VAE conv (``VAEConfig(conv_impl=
@@ -41,6 +47,9 @@ from .ops.basic import fma_f32
 from .ops.block_noise import block_noise_from_z, block_noise_shape
 from .ops.conv_int8 import quantize_vae_convs
 from .ops.resample import down2x_bilinear, up2x_nearest
+from .parallel.cp import cp_dec_window, cp_vae_decode_chunked, cp_vae_encode, cp_vae_encode_chunked
+from .parallel.mesh import Mesh
+from .parallel.tp import shard_mmdit_params
 from .raymap import raymap_from_camera_batch, raymap_to_camera
 from .utils.profiling import PhaseTimer
 
@@ -345,7 +354,16 @@ class InferencePipeline:
     "prompt_attention_mask" [1, 77], "pooled_prompt_embeds" [1, Dp]}; the
     negative prompt is ``'empty'``. A prompt the cache does not hold (a
     ``prompt_type="text"`` rollout) is encoded by ``text_encoder``
-    (``io/weights.load_text_encoders``), once per prompt."""
+    (``io/weights.load_text_encoders``), once per prompt.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``, made by every rank inside its
+    process group): the pipeline runs on ``mesh.device``, holds this rank's
+    tensor-parallel share of the MMDiT (cut from the whole ``params``) and
+    the whole VAE, and runs every encode and decode context-parallel over
+    the ranks of ``mesh_axis``; exact priming is off. Latent H must divide
+    by the axis size and pixel H by 8 times it. ``use_tiling`` and
+    ``reuse_decoder_cache`` raise ValueError with a mesh, and the int8 paths
+    NotImplementedError."""
 
     def __init__(self, cfg: PipelineConfig, mmdit_cfg: MMDiTConfig,
                  vae_cfg: VAEConfig, params: Dict, text_embeds: Dict,
@@ -358,7 +376,22 @@ class InferencePipeline:
                  encode_window: int = 16, device="cuda"):
         # deepv_tpu's parameters in its order, then the port's device
         if mesh is not None:
-            _not_ported("mesh", "M17 parallelism")
+            if use_tiling:
+                raise ValueError("spatial tiling and spatial CP both bound memory by splitting "
+                                 "H; use one or the other")
+            if reuse_decoder_cache:
+                raise ValueError("reuse_decoder_cache carries single-device decoder caches; "
+                                 "it cannot be combined with a mesh")
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a parallel.mesh.Mesh (make_mesh), got "
+                                f"{type(mesh).__name__}")
+            if mesh_axis not in mesh.axis_names:
+                raise ValueError(f"mesh has axes {mesh.axis_names}, expected {mesh_axis!r}")
+            if denoise_int8 or vae_cfg.conv_impl == "int8":
+                _not_ported("the int8 paths on a mesh", "M17c")
+            if torch.device(device).type != mesh.device.type:
+                raise ValueError(f"device {device!r} and the mesh's {mesh.device} differ")
+            device = mesh.device
         if reuse_decoder_cache and use_tiling:
             raise ValueError("reuse_decoder_cache carries untiled decoder caches; "
                              "it cannot be combined with use_tiling")
@@ -366,8 +399,8 @@ class InferencePipeline:
             raise NotImplementedError(
                 "decode_batched: not ported (ROADMAP queue 1: only deepv_tpu's bench.py tiny "
                 "TPU preset sets it, bench.py:288)")
-        #: the mesh axis deepv_tpu shards over; kept for its signature (no
-        #: mesh is taken until M17)
+        #: multi-card inference: this rank's view of the mesh, or None
+        self.mesh = mesh
         self.mesh_axis = mesh_axis
         self.cfg = cfg
         self.mcfg = mmdit_cfg
@@ -389,7 +422,12 @@ class InferencePipeline:
         #: first), 1 for each step whose forward ran and 0 for each skipped
         #: one; ``generate_i2v`` appends its units' stages
         self.recompute_log: List[Tuple[int, ...]] = []
-        self.mmdit = params_from_numpy(MMDiT(mmdit_cfg), params["mmdit"], self.device)
+        if mesh is None:
+            self.mmdit = params_from_numpy(MMDiT(mmdit_cfg), params["mmdit"], self.device)
+        else:
+            self.mmdit = params_from_numpy(
+                MMDiT(mmdit_cfg, tp_group=mesh.group(mesh_axis)),
+                shard_mmdit_params(params["mmdit"], mesh, mesh_axis), self.device)
         #: W8A8 denoise linears (quality-gated, ops/linear_int8.py): the
         #: block linears are replaced by int8 ones and their floating-point
         #: weights dropped; AdaLN, embedders and proj_out stay exact
@@ -429,9 +467,9 @@ class InferencePipeline:
         self.use_tiling = use_tiling
         #: exact chunk-boundary cache priming: rebuild the decoder caches the
         #: overlap re-decode exists to produce without computing its pixels
-        #: (untiled caches only, so off under tiling)
+        #: (untiled, single-device caches only, so off under tiling or a mesh)
         self._prime_need = None
-        if prime_decoder_cache and not reuse_decoder_cache and not use_tiling:
+        if prime_decoder_cache and not reuse_decoder_cache and not use_tiling and mesh is None:
             need = decoder_prime_need(vae_cfg)
             if need is not None and self.vae.decoder.conv_out.weight.shape[2] == 3:
                 self._prime_need = need
@@ -478,14 +516,22 @@ class InferencePipeline:
         rest = (lat[:, :, 1:] - c.vae_video_shift_factor) * c.vae_video_scale_factor
         return torch.cat([first, rest], dim=2)
 
+    def _encode_row(self, x: torch.Tensor, chunked: bool) -> torch.Tensor:
+        """One batch row's moments; on a mesh context-parallel, chunked in
+        windows of 8 as deepv_tpu's mesh path."""
+        if self.mesh is None:
+            return vae_encode(self.vcfg, self.vae, x, temporal_chunk=chunked,
+                              window_size=self.encode_window, use_tiling=self.use_tiling)
+        if chunked:
+            return cp_vae_encode_chunked(self.vcfg, self.vae, x, self.mesh, self.mesh_axis,
+                                         window_size=8)
+        return cp_vae_encode(self.vcfg, self.vae, x, self.mesh, self.mesh_axis)
+
     def _encode_pixels(self, x: torch.Tensor, noise) -> torch.Tensor:
         """Encode each batch row (serially, temporally chunked past 17
         frames), then sample the posterior once for all rows."""
         chunked = x.shape[2] > 17
-        parts = [vae_encode(self.vcfg, self.vae, x[i:i + 1].to(self.dtype),
-                            temporal_chunk=chunked, window_size=self.encode_window,
-                            use_tiling=self.use_tiling)
-                 for i in range(x.shape[0])]
+        parts = [self._encode_row(x[i:i + 1].to(self.dtype), chunked) for i in range(x.shape[0])]
         moments = torch.cat(parts, dim=0)
         mean_shape = (moments.shape[0], moments.shape[1] // 2) + tuple(moments.shape[2:])
         return gaussian_sample(moments, noise.normal("posterior", mean_shape, moments.dtype))
@@ -505,6 +551,9 @@ class InferencePipeline:
         else:
             z = z / c.vae_video_scale_factor + c.vae_video_shift_factor
             mode = "cont"
+        if self.mesh is not None:
+            return cp_dec_window(self.vcfg, self.vae.decoder, z.to(self.dtype), cache, mode,
+                                 self.mesh, self.mesh_axis)
         return _dec_window(self.vcfg, self.vae.decoder, z.to(self.dtype), cache, mode)
 
     def _carry_rgb_latent(self, lat_img: torch.Tensor) -> torch.Tensor:
@@ -565,10 +614,14 @@ class InferencePipeline:
                                  self.decode_window, return_cache=True)
 
     def _decode_latents(self, lat: torch.Tensor) -> torch.Tensor:
-        """Un-normalise + chunked (and, ``use_tiling``, tiled) decode."""
-        return vae_decode(self.vcfg, self.vae, self._unnorm_latents(lat).to(self.dtype),
-                          temporal_chunk=True, window_size=self.decode_window,
-                          use_tiling=self.use_tiling)
+        """Un-normalise + chunked (and, ``use_tiling``, tiled; on a mesh,
+        context-parallel) decode."""
+        lat = self._unnorm_latents(lat).to(self.dtype)
+        if self.mesh is not None:
+            return cp_vae_decode_chunked(self.vcfg, self.vae, lat, self.mesh, self.mesh_axis,
+                                         window_size=self.decode_window)
+        return vae_decode(self.vcfg, self.vae, lat, temporal_chunk=True,
+                          window_size=self.decode_window, use_tiling=self.use_tiling)
 
     # -- per-unit sampler ---------------------------------------------------
 

@@ -15,6 +15,12 @@ W8A8 denoise linears and the int8 VAE conv); ``--flow_cache`` overrides its
 flow-cache choice and ``--carry_latents`` adds the boundary carry mode.
 ``--add_ply`` also writes every 8th frame as a PLY point cloud
 (``io/ply.save_ply``, on the pipeline's device).
+
+``--tp_shards N`` runs the rollout on N ranks, one process each
+(``parallel/launch.spawn``): over NCCL on ``cuda:0`` .. ``cuda:N-1`` (the
+machine needs N cards), or over gloo with ``--device cpu``. The MMDiT is
+tensor-parallel and the VAE context-parallel over them
+(``InferencePipeline(mesh=...)``); rank 0 writes the outputs.
 """
 
 from __future__ import annotations
@@ -27,10 +33,13 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .actions import action_vocabulary, prepare_motion_prompts
 from .config import MMDiTConfig, PipelineConfig, VAEConfig, create_model_config
 from .io.text_embeds import load_text_embeds, random_text_embeds
+from .parallel.launch import spawn
+from .parallel.mesh import make_mesh
 from .pipeline import InferencePipeline
 
 VIDEO_LENGTH = 57
@@ -84,12 +93,25 @@ def load_pipeline(model_path: str, model_cfg: PipelineConfig,
     embeddings come from ``model_cfg.text_embeds_path`` where that file
     exists, else from the snapshot's encoders, else random ones. ``fast``:
     flow_cache="skip_odd", denoise_int8 and ``VAEConfig(conv_impl="int8")``;
-    ``flow_cache`` (when given) overrides the preset's choice."""
-    if tp_shards != 1:
-        raise NotImplementedError("tp_shards: not ported yet (ROADMAP M17 parallelism)")
+    ``flow_cache`` (when given) overrides the preset's choice.
+
+    ``tp_shards > 1`` is called by every rank of an initialised
+    torch.distributed process group of that size (``main`` spawns them): a
+    mesh over NCCL, one rank per card, or on the CPU over gloo. Every rank
+    draws the same random weights from ``seed``, or loads the snapshot."""
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
+    mesh = None
+    if tp_shards > 1:
+        if not (dist.is_available() and dist.is_initialized()):
+            raise RuntimeError(f"tp_shards={tp_shards} runs inside a torch.distributed process "
+                               f"group of {tp_shards} ranks (run.main spawns them); none is "
+                               "initialised")
+        cpu = device.type == "cpu"
+        mesh = make_mesh((tp_shards,), ("tp",), devices=["cpu"] * tp_shards if cpu else None,
+                         backend="gloo" if cpu else "nccl")
+        device = mesh.device
     from .io import weights
 
     text_encoder = embeds = None
@@ -119,7 +141,7 @@ def load_pipeline(model_path: str, model_cfg: PipelineConfig,
         vcfg = dataclasses.replace(vcfg, conv_impl="int8")
     return InferencePipeline(model_cfg, mcfg, vcfg, params, embeds, dtype=dtype,
                              text_encoder=text_encoder, device=device, flow_cache=flow_cache,
-                             denoise_int8=fast, carry_latents=carry_latents)
+                             denoise_int8=fast, carry_latents=carry_latents, mesh=mesh)
 
 
 def main(input_image: str, model_path: str, prompt_type: str = "text",
@@ -131,8 +153,22 @@ def main(input_image: str, model_path: str, prompt_type: str = "text",
          tp_shards: int = 1, icon_assets: Optional[str] = None, fast: bool = False,
          flow_cache: Optional[str] = None, carry_latents: bool = False,
          aot_cache: Optional[str] = None, device: Optional[str] = None):
+    """Roll out one image and write the video (and, with ``add_ply``, PLY
+    files). ``tp_shards > 1`` outside a process group spawns that many ranks
+    (NCCL on ``cuda:0..N-1``, or gloo with ``device="cpu"``), each running
+    this function inside the group; rank 0 writes the outputs. Returns the
+    path written (None on the other ranks)."""
     if aot_cache:
         raise NotImplementedError("aot_cache: not ported yet (ROADMAP M19c AOT cache)")
+    args = dict(locals())
+    if tp_shards > 1 and not (dist.is_available() and dist.is_initialized()):
+        cpu = device is not None and torch.device(device).type == "cpu"
+        if not cpu:
+            cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+            if cards < tp_shards:
+                raise RuntimeError(f"--tp_shards {tp_shards} runs one rank per card over NCCL "
+                                   f"and needs {tp_shards} cards; this machine has {cards}")
+        return spawn(_rank_main, tp_shards, (args,), backend="gloo" if cpu else "nccl")[0]
     from .io.video import save_video
 
     model_cfg = create_model_config(model_path, no_need_depth=no_need_depth,
@@ -147,6 +183,8 @@ def main(input_image: str, model_path: str, prompt_type: str = "text",
 
     st = time.time()
     output = pipeline.generate(batch, seed=seed)
+    if pipeline.mesh is not None and pipeline.mesh.rank != 0:
+        return None
     n_frames = output["pred_img"].shape[2]
     elapsed = time.time() - st
     print(f"[info] generated {n_frames} frames in {elapsed:.1f}s "
@@ -162,6 +200,11 @@ def main(input_image: str, model_path: str, prompt_type: str = "text",
         save_ply(output, output_path.replace(".mp4", ".ply"), device=pipeline.device)
     print(f"[info] save result at {written}")
     return written
+
+
+def _rank_main(args: dict):
+    """One rank of ``main``'s ``tp_shards`` run, inside the process group."""
+    return main(**args)
 
 
 def cli():
@@ -184,7 +227,9 @@ def cli():
     p.add_argument("--output_path", default="output/generated_video.mp4")
     p.add_argument("--height", type=int, default=VIDEO_HEIGHT)
     p.add_argument("--width", type=int, default=VIDEO_WIDTH)
-    p.add_argument("--tp_shards", type=int, default=1, help="only 1 is ported")
+    p.add_argument("--tp_shards", type=int, default=1,
+                   help="ranks of a tensor-parallel denoise and context-parallel VAE: one "
+                        "per card over NCCL, or gloo ranks with --device cpu")
     p.add_argument("--icon_assets", default=None,
                    help="directory with the controller icon PNGs")
     p.add_argument("--fast", action="store_true",

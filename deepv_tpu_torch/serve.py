@@ -494,7 +494,8 @@ def cli():
     p.add_argument("--random_weights", action="store_true",
                    help="random-initialise the full model with a seeded torch generator "
                         "instead of loading the snapshot at --model_path")
-    p.add_argument("--tp_shards", type=int, default=1, help="only 1 is ported")
+    p.add_argument("--tp_shards", type=int, default=1,
+                   help="only 1 is ported: serving over a mesh is not (ROADMAP M17c)")
     p.add_argument("--streams", type=int, default=1,
                    help="run this many INDEPENDENT pipelines, one per card (multi-stream "
                         "serving: request throughput scales with cards; latency per "
@@ -536,8 +537,11 @@ def cli():
             raise SystemExit(f"--streams {args.streams} > {n_cards} visible devices")
         pipe = [load_pipeline(args.model_path, model_cfg, device=f"cuda:{i}", **options)
                 for i in range(args.streams)]
+    elif args.tp_shards > 1:
+        raise NotImplementedError("tp_shards: serving over a mesh is not ported yet "
+                                  "(ROADMAP M17c)")
     else:
-        pipe = load_pipeline(args.model_path, model_cfg, tp_shards=args.tp_shards, **options)
+        pipe = load_pipeline(args.model_path, model_cfg, **options)
     if not args.no_prewarm:
         # warm BEFORE binding the port, so the first client request does not
         # pay the process's first-use costs (prewarm docstring)

@@ -1,8 +1,10 @@
 """The port's CLI entry point on the CPU: one tiny rollout written to an mp4,
 the GPU default of ``load_pipeline``, the ``fast`` preset and its options
 through ``load_pipeline`` and ``main`` (with the PLY export), a tiny rollout
-with the igemm conv backend, and the options not ported yet, which raise
-``NotImplementedError`` instead of running another path."""
+with the igemm conv backend, the options not ported yet, which raise
+``NotImplementedError`` instead of running another path, and the mesh
+options' refusals outside what they take (tests/test_torch_port_mesh_rollout.py
+runs them)."""
 
 import numpy as np
 import pytest
@@ -43,25 +45,28 @@ def test_load_pipeline_runs_on_the_card_by_default(monkeypatch):
         run.load_pipeline("none", create_model_config("none"), random_weights=True)
 
 
-@pytest.mark.parametrize("kwargs, item", [
-    pytest.param(dict(tp_shards=2), "M17", id="kwargs1-M17"),
+@pytest.mark.parametrize("kwargs, error, match", [
+    # tp_shards is ported: each rank calls load_pipeline inside a process
+    # group, and a call outside one raises
+    pytest.param(dict(tp_shards=2), RuntimeError, "torch.distributed", id="kwargs1-M17"),
 ])
-def test_load_pipeline_refuses_what_is_not_ported(monkeypatch, kwargs, item):
+def test_load_pipeline_refuses_what_is_not_ported(monkeypatch, kwargs, error, match):
     monkeypatch.setenv("DEEPV_TINY", "1")
     kwargs = dict(dict(random_weights=True, device="cpu"), **kwargs)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=match):
         run.load_pipeline("none", create_model_config("none"), **kwargs)
 
 
-@pytest.mark.parametrize("kwargs, item", [
-    (dict(mesh=object()), "M17"),
-    # tiling is ported; a mesh is refused with it too
-    pytest.param(dict(mesh=object(), use_tiling=True), "M17", id="kwargs1-M17"),
+@pytest.mark.parametrize("kwargs, error, match", [
+    # the mesh is ported: it must be a parallel.mesh.Mesh, and it is refused
+    # with tiling (both split H), as deepv_tpu/pipeline.py:303 refuses it
+    pytest.param(dict(mesh=object()), TypeError, "parallel.mesh.Mesh", id="kwargs0-M17"),
+    pytest.param(dict(mesh=object(), use_tiling=True), ValueError, "tiling", id="kwargs1-M17"),
 ])
-def test_pipeline_refuses_what_is_not_ported(kwargs, item):
+def test_pipeline_refuses_what_is_not_ported(kwargs, error, match):
     mcfg, vcfg = MMDiTConfig.tiny(), VAEConfig.tiny()
     params = random_params(mcfg, vcfg, dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=match):
         InferencePipeline(PipelineConfig(), mcfg, vcfg, params, {}, device="cpu", **kwargs)
 
 
