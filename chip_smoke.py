@@ -150,7 +150,9 @@ Phases, in order; any failure exits non-zero before the last line:
      kernels' grid (b*h, ceil(S/64)), the call's ms beside SDPA's backward's
      (back to back, host time included; and the call replayed from a CUDA
      graph beside the sum of SDPA's kernels' device time), and for f32 the
-     largest share of the tolerance used;
+     largest share of the tolerance used. Then the same checks and times at
+     the per-rank heads of tp 2 and 4 (12 and 6) at the training layouts of
+     stages 0-2, beside the 24-head call's times;
  15. training at full width: a Trainer (pyramid objective, AdamW) on an
      MMDiTConfig() model (24 layers, d=1536) in f32 with random weights from
      seed 0 and a batch of 8 latent units at 384x512 ([1, 38, 8, 48, 64]),
@@ -159,11 +161,15 @@ Phases, in order; any failure exits non-zero before the last line:
      (unit 7), one single-clip step (1 frame), Trainer.train for 4 steps;
      each with finite losses, a finite gradient for every parameter, a
      nonzero one for every block's to_q (the attention's gradient flows),
-     K1's f32 forward (attn_fwd_tf32x3) and the backward 24 times a step. The trainer is saved
-     and restored into a fresh Trainer on the card: params and AdamW state
-     equal bit for bit. Then one bf16 stage-2 step (params cast to bf16):
+     K1's f32 forward (attn_fwd_tf32x3) and the backward 24 times a step.
+     A trainer of the same width cut to CKPT_LAYERS layers takes one step,
+     is saved and restored into a fresh Trainer on the card: params and
+     AdamW state equal bit for bit. Then one bf16 stage-2 step (params cast to bf16):
      K1's wgmma forward and the bf16 backward 24 times. Prints each step's
      seconds and peak device memory, and the checkpoint's size and times.
+     Before the steps it keeps phase 21 (a)'s reference: on the fresh
+     weights, the loss and every leaf's gradient norm of a stage-2 step with
+     phase 21's draws;
  16. checkpoint (M15a): phase 5's weights (MMDiTConfig(), VAEConfig(), bf16,
      seed 0) written as a diffusers-style snapshot (transformer/ and
      causal_video_vae/: config.json and a .safetensors file each, every
@@ -217,27 +223,72 @@ Phases, in order; any failure exits non-zero before the last line:
      back and as device time from a CUDA graph) beside the 24-head kernel
      at the same layout, SDPA and the bound; (e) run.main(tp_shards=2) refused,
      naming the number of cards (NCCL runs one rank per card); (a) phase
-     5's weights, image, prompt and seed through InferencePipeline(mesh=
-     make_mesh((2,), ("tp",), devices=["cuda:0"] * 2, backend="gloo")), two
-     processes sharing the card (parallel/launch.spawn): all_reduce (sum in
-     bf16 and f32, max), all_gather and broadcast checked on CUDA tensors
-     over gloo first; then counts set to 0 just before generate() and read
-     just after, on each rank: 89 finite frames, K1 4,320 launches all at
-     12 heads, its f32 kernel and the backward never, rank 1's frames equal
-     to rank 0's bit for bit; printed (not gated): each rank's wall time,
-     phase seconds and peak memory, the row-split reductions (94 a
-     forward: 16,920) and every collective's calls and bytes, the 8-bit gap
-     to phase 5's frames (bf16 sums in another order, random weights). Every
-     time there is two ranks sharing one card over gloo, not a deployment
-     number; (b) on the same two ranks in f32 (TF32 off) at full width, each
+     5's weights, image and seed and the first chunk of its prompt (7
+     actions, 8 units: every mesh rollout of phases 20 and 22 runs these
+     units, to keep the gloo-bound mesh phases inside the time limit)
+     through InferencePipeline(mesh=make_mesh((2,), ("tp",), devices=
+     ["cuda:0"] * 2, backend="gloo")), two processes sharing the card
+     (parallel/launch.spawn): all_reduce (sum in bf16 and f32, max),
+     all_gather and broadcast checked on CUDA tensors over gloo first; then
+     counts set to 0 just before generate() and read just after, on each
+     rank: 57 finite frames, K1 2,880 launches all at 12 heads, its f32
+     kernel and the backward never, rank 1's frames equal to rank 0's bit
+     for bit; printed (not gated): each rank's wall time, phase seconds and
+     peak memory, the row-split reductions (94 a forward: 11,280) and every
+     collective's calls and bytes, the 8-bit gap to phase 5's first 57
+     frames (bf16 sums in another order, random weights). Every time there
+     is two ranks sharing one card over gloo, not a deployment number; (b)
+     on the same two ranks in f32 (TF32 off) at full width, each
      mesh call against the single-device call on rank 0: one denoise forward
      at chunk 1's stage-2 layout (b = 2), cp_dec_window init then cont (2
      latent frames each), cp_vae_encode_chunked of a 17-frame 384x512 carry
      (window 8), within relative L2 MESH_F32_REL_L2 and max |err|
      MESH_F32_MAX_ABS; (d) world size 1 over NCCL: one f32 forward and one
      decode window through the mesh code within (b)'s tolerance, printing
-     whether each is bit-equal to the single-device call.
-Phases 5, 7, 11, 12, 13, 16, 17, 18 and 20 also check that the backward
+     whether each is bit-equal to the single-device call. (a) and (b) run in
+     one spawn of the two ranks with phases 21 (a, c) and 22: a spawn costs
+     every rank a process, a CUDA context and a weight draw.
+ 21. training over a mesh (M17c) on this one card, every time gloo ranks
+     sharing it: (a) two ranks run MMDiTConfig() (24 layers, d=1536) in f32
+     (TF32 off) on phase 15's weights and batch, one Trainer pyramid step
+     at stage 2, unit 7, on each rank's tensor-parallel share; counts set
+     to 0 just before the step and read just after: K1's attn_fwd_tf32x3
+     and the f32 backward 24 times a rank, all at 12 heads; the loss within
+     MESH_TRAIN_LOSS_RTOL of phase 15's single-device step on the same
+     draws, every leaf's gradient norm (a split leaf's summed over the
+     ranks) within MESH_TRAIN_NORM_RTOL of it, the replicated leaves
+     bit-equal on both ranks after AdamW; (c) on the same ranks one bf16
+     stage-2 step: K1's attn_fwd_wgmma and the bf16 backward 24 times a
+     rank at 12 heads; (b) four ranks, dp 2 x tp 2, at full width and
+     MESH_DP_TP_DEPTH layers (printed): each rank's gradients (averaged
+     over dp) and parameters after AdamW against its slice of the
+     single-device step of the same cut model on the global batch and the
+     same draws, within MESH_GRAD_RTOL and MESH_PARAM_ATOL, and the dp
+     replicas bit-equal. Prints each rank's seconds, peak memory and the
+     collectives' calls and bytes; (d) parallel/dryrun.run_dryrun refused
+     over NCCL with more ranks than cards, naming the count, and its rank
+     body (what run_dryrun(4, shared_card=True) spawns) run on (b)'s four
+     ranks to a finite loss, the same on every rank. (a) and (c) run in
+     phase 20's spawn of the two ranks;
+ 22. serving and --fast over the mesh (M17c): two gloo ranks, one spawn, one
+     weight draw (phase 5's); (a) serve.SessionServer on rank 0 (a free
+     port of 127.0.0.1) with serve.follow on rank 1: POST /session with
+     phase 5's image and seed, one POST /step per unit of MESH_PROMPT (the
+     8th closes the chunk and opens the next), GET /metrics, POST /close;
+     counts set to 0 just before and read just after, on each rank: K1
+     2,880 launches at 12 heads, K2, K3 and the backward never; the served
+     frames equal phase 20 (a)'s mesh generate() as float16 bit for bit;
+     rank 1 ran every operation; /metrics counts 8 steps; (b) the --fast
+     preset on the same ranks (denoise_int8, VAEConfig(conv_impl="int8"),
+     flow_cache="skip_odd"): counts read around generate(): K1 72 x 24 =
+     1,728 launches a rank at 12 heads, K3 and K2 never, int_mm 285 a
+     forward as on one device, 94 int32 reductions a forward; one int8
+     denoise forward on the mesh equal to one device's on the same inputs
+     bit for bit; prints the served step times, the --fast wall time and
+     the 8-bit gap to phase 11's first chunk (not gated: phase 11's VAE runs
+     K3, this one cuDNN). It runs in phase 20's spawn of the two ranks,
+     which draws phase 5's weights once for 20 (a) and 22.
+Phases 5, 7, 11, 12, 13, 16, 17, 18, 20 and 22 also check that the backward
 never launched.
 The line before the last is a JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}. Extra detail goes to chiprun_out/.
@@ -369,6 +420,9 @@ PADDED_INT_MM_CASES = ((16, 1536, 1536), (17, 12, 20))
 HTTP_TIMEOUT = 600
 #: phase 15's pyramid steps denoise this unit (the last of 8 latent units)
 TRAIN_UNIT = 7
+#: phase 15's checkpoint round trip: a trainer of full width cut to this
+#: depth (4.2 GB; the whole model's 25 GB took ~40 s to write there)
+CKPT_LAYERS = 4
 #: K1's backward in f32 against autograd of the plain version (TF32 off).
 #: The kernel takes each product as three TF32 products (3xTF32: big.big +
 #: big.small + small.big, big = tf32(x), small = tf32(x - big)), which drops
@@ -758,12 +812,98 @@ def attention_grads(q, k, v, dout, valid, times, n_last=0):
     return (out.detach(), *torch.autograd.grad(out, leaves, dout))
 
 
+def backward_row(name, valid, times, n_last, h, d, gen):
+    """Phase 14 at one layout and head count: the backward kernels and the
+    forward's LSE against the plain backward, f32 and bf16, two runs
+    bit-equal, one forward and one backward launch per autograd call; the
+    call's time beside SDPA's backward's (back to back, and as device time).
+    Returns the layout's row."""
+    import torch
+    from deepv_tpu_torch.ops import attention as att
+
+    b, s = valid.shape
+    q, k, v, dout = (torch.randn((b, s, h, d), generator=gen, device=valid.device)
+                     for _ in range(4))
+    row = dict(layout=name, heads=h, b=b, S=s, grid=(b * h, -(-s // 64)),
+               tiles_64=tile_counts(valid, times, 64, 64))
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        qc, kc, vc, oc = (x.to(dtype) for x in (q, k, v, dout))
+        # the forward with the LSE equals the inference route's bit for bit
+        out, lse = att._forward_kernel(qc, kc, vc, valid, times, with_lse=True)
+        with torch.no_grad():
+            plain_route = att.attention(qc, kc, vc, valid, times, n_last=n_last)
+        assert torch.equal(out, plain_route), f"{name} {tag}: the LSE changed the output"
+        lse_ref = att.attention_lse_plain(qc, kc, valid, times)
+        lse_err = (lse - lse_ref).abs().max().item()
+        # sums of up to S exponentials in another order, exp2/log2 in bf16's
+        # kernel: f32 rounding of values up to ~10
+        assert lse_err <= 1e-4 + 1e-5 * lse_ref.abs().max().item(), (name, tag, lse_err)
+        # autograd: one forward launch of the dtype's kernel, one backward
+        before = (att.launches, att.f32_launches, att.bwd_launches)
+        got = attention_grads(qc, kc, vc, oc, valid, times, n_last)
+        torch.cuda.synchronize()
+        bf = int(dtype == torch.bfloat16)
+        after = (att.launches, att.f32_launches, att.bwd_launches)
+        assert after == (before[0] + bf, before[1] + 1 - bf, before[2] + 1), \
+            f"{name} {tag}: launches {before} -> {after}"
+        assert torch.equal(got[0], out), f"{name} {tag}: autograd forward differs"
+        again = att.attention_backward(qc, kc, vc, out, lse, oc, valid, times)
+        assert all(torch.equal(x, y) for x, y in zip(got[1:], again)), \
+            f"{name} {tag}: two backward runs differ"
+        plain = att.attention_backward_plain(qc, kc, vc, oc, valid, times)
+        errs = {f"{tag}_lse_err": lse_err}
+        for gname, x, ref in zip(("dq", "dk", "dv"), got[1:], plain):
+            assert bool(torch.isfinite(x).all()), f"{name} {tag}: non-finite {gname}"
+            errs[f"{tag}_{gname}_err"] = (x.float() - ref.float()).abs().max().item()
+        if dtype == torch.float32:
+            for gname, x, ref in zip(("dq", "dk", "dv"), got[1:], plain):
+                # the largest |err| / (atol + rtol |ref|): the share of the limit used
+                errs[f"f32_{gname}_limit_share"] = (
+                    (x - ref).abs() / (BWD_F32_ATOL + BWD_F32_RTOL * ref.abs())).max().item()
+                torch.testing.assert_close(x, ref, atol=BWD_F32_ATOL, rtol=BWD_F32_RTOL,
+                                           msg=lambda m: f"{name} f32 {gname}: {m}")
+        else:
+            ref32 = att.attention_backward_plain(*(x.float() for x in (qc, kc, vc, oc)),
+                                                 valid, times)
+            for gname, x, r32, rb in zip(("dq", "dk", "dv"), got[1:], ref32, plain):
+                err = (x.float() - r32).abs().max().item()
+                plain_err = (rb.float() - r32).abs().max().item()
+                rel = ((x.float() - r32).norm() / r32.norm()).item()
+                errs.update({f"bf16_{gname}_err_vs_f32": err,
+                             f"plain_bf16_{gname}_err_vs_f32": plain_err,
+                             f"bf16_{gname}_rel_l2_vs_f32": rel,
+                             f"plain_bf16_{gname}_rel_l2_vs_f32":
+                                 ((rb.float() - r32).norm() / r32.norm()).item()})
+                limit = (BWD_BF16_MAX_RATIO * plain_err
+                         + r32.abs().max().item() * 2.0 ** -9)
+                assert err <= limit and rel <= BWD_BF16_REL_L2, (
+                    f"{name} bf16 {gname}: max deviation {err} (limit {limit}), "
+                    f"relative L2 {rel} (limit {BWD_BF16_REL_L2})")
+            del ref32
+        row.update(errs)
+        # the call's time and SDPA's backward's at every layout (which
+        # kernels SDPA picks depends on the layout and the dtype): back
+        # to back, host time included; and device time alone, the call
+        # replayed from a CUDA graph against the sum of SDPA's kernels
+        call = lambda: att.attention_backward(qc, kc, vc, out, lse, oc, valid, times)
+        sdpa = sdpa_backward(qc, kc, vc, oc, valid, times)
+        row[f"{tag}_ms"] = cuda_time_ms(call, 10)
+        row[f"{tag}_sdpa_ms"] = cuda_time_ms(sdpa, 10)
+        row[f"{tag}_graph_ms"] = graph_ms(call, 10)
+        row[f"{tag}_sdpa_kernels_ms"] = sum(kernel_device_ms(sdpa).values())
+        del call, sdpa
+        del got, again, plain, out, lse, lse_ref
+    return row
+
+
 def check_attention_backward(device, results):
     """Phase 14: the backward kernels and the forward's LSE against the plain
     backward (autograd of attention_plain) on the card, f32 and bf16, every
     layout of ``backward_layouts``; two runs bit-equal; the launch counts;
     at the stage-2 training layout the kernels, the plain backward and
-    SDPA's backward timed beside the bound."""
+    SDPA's backward timed beside the bound. Then the same checks at the
+    per-rank heads of tp 2 and 4 at the training layouts."""
     import torch
     from deepv_tpu_torch.config import MMDiTConfig
     from deepv_tpu_torch.ops import attention as att
@@ -776,81 +916,21 @@ def check_attention_backward(device, results):
     gen.manual_seed(14)
     rows_out = []
     for name, valid, times, n_last in backward_layouts(device, gen):
-        b, s = valid.shape
-        q, k, v, dout = (torch.randn((b, s, h, d), generator=gen, device=device)
-                         for _ in range(4))
-        row = dict(layout=name, b=b, S=s, grid=(b * h, -(-s // 64)),
-                   tiles_64=tile_counts(valid, times, 64, 64))
-        for dtype in (torch.float32, torch.bfloat16):
-            tag = "f32" if dtype == torch.float32 else "bf16"
-            qc, kc, vc, oc = (x.to(dtype) for x in (q, k, v, dout))
-            # the forward with the LSE equals the inference route's bit for bit
-            out, lse = att._forward_kernel(qc, kc, vc, valid, times, with_lse=True)
-            with torch.no_grad():
-                plain_route = att.attention(qc, kc, vc, valid, times, n_last=n_last)
-            assert torch.equal(out, plain_route), f"{name} {tag}: the LSE changed the output"
-            lse_ref = att.attention_lse_plain(qc, kc, valid, times)
-            lse_err = (lse - lse_ref).abs().max().item()
-            # sums of up to S exponentials in another order, exp2/log2 in bf16's
-            # kernel: f32 rounding of values up to ~10
-            assert lse_err <= 1e-4 + 1e-5 * lse_ref.abs().max().item(), (name, tag, lse_err)
-            # autograd: one forward launch of the dtype's kernel, one backward
-            before = (att.launches, att.f32_launches, att.bwd_launches)
-            got = attention_grads(qc, kc, vc, oc, valid, times, n_last)
-            torch.cuda.synchronize()
-            bf = int(dtype == torch.bfloat16)
-            after = (att.launches, att.f32_launches, att.bwd_launches)
-            assert after == (before[0] + bf, before[1] + 1 - bf, before[2] + 1), \
-                f"{name} {tag}: launches {before} -> {after}"
-            assert torch.equal(got[0], out), f"{name} {tag}: autograd forward differs"
-            again = att.attention_backward(qc, kc, vc, out, lse, oc, valid, times)
-            assert all(torch.equal(x, y) for x, y in zip(got[1:], again)), \
-                f"{name} {tag}: two backward runs differ"
-            plain = att.attention_backward_plain(qc, kc, vc, oc, valid, times)
-            errs = {f"{tag}_lse_err": lse_err}
-            for gname, x, ref in zip(("dq", "dk", "dv"), got[1:], plain):
-                assert bool(torch.isfinite(x).all()), f"{name} {tag}: non-finite {gname}"
-                errs[f"{tag}_{gname}_err"] = (x.float() - ref.float()).abs().max().item()
-            if dtype == torch.float32:
-                for gname, x, ref in zip(("dq", "dk", "dv"), got[1:], plain):
-                    # the largest |err| / (atol + rtol |ref|): the share of the limit used
-                    errs[f"f32_{gname}_limit_share"] = (
-                        (x - ref).abs() / (BWD_F32_ATOL + BWD_F32_RTOL * ref.abs())).max().item()
-                    torch.testing.assert_close(x, ref, atol=BWD_F32_ATOL, rtol=BWD_F32_RTOL,
-                                               msg=lambda m: f"{name} f32 {gname}: {m}")
-            else:
-                ref32 = att.attention_backward_plain(*(x.float() for x in (qc, kc, vc, oc)),
-                                                     valid, times)
-                for gname, x, r32, rb in zip(("dq", "dk", "dv"), got[1:], ref32, plain):
-                    err = (x.float() - r32).abs().max().item()
-                    plain_err = (rb.float() - r32).abs().max().item()
-                    rel = ((x.float() - r32).norm() / r32.norm()).item()
-                    errs.update({f"bf16_{gname}_err_vs_f32": err,
-                                 f"plain_bf16_{gname}_err_vs_f32": plain_err,
-                                 f"bf16_{gname}_rel_l2_vs_f32": rel,
-                                 f"plain_bf16_{gname}_rel_l2_vs_f32":
-                                     ((rb.float() - r32).norm() / r32.norm()).item()})
-                    limit = (BWD_BF16_MAX_RATIO * plain_err
-                             + r32.abs().max().item() * 2.0 ** -9)
-                    assert err <= limit and rel <= BWD_BF16_REL_L2, (
-                        f"{name} bf16 {gname}: max deviation {err} (limit {limit}), "
-                        f"relative L2 {rel} (limit {BWD_BF16_REL_L2})")
-                del ref32
-            row.update(errs)
-            # the call's time and SDPA's backward's at every layout (which
-            # kernels SDPA picks depends on the layout and the dtype): back
-            # to back, host time included; and device time alone, the call
-            # replayed from a CUDA graph against the sum of SDPA's kernels
-            call = lambda: att.attention_backward(qc, kc, vc, out, lse, oc, valid, times)
-            sdpa = sdpa_backward(qc, kc, vc, oc, valid, times)
-            row[f"{tag}_ms"] = cuda_time_ms(call, 10)
-            row[f"{tag}_sdpa_ms"] = cuda_time_ms(sdpa, 10)
-            row[f"{tag}_graph_ms"] = graph_ms(call, 10)
-            row[f"{tag}_sdpa_kernels_ms"] = sum(kernel_device_ms(sdpa).values())
-            del call, sdpa
-            del got, again, plain, out, lse, lse_ref
+        row = backward_row(name, valid, times, n_last, h, d, gen)
         rows_out.append(row)
         log("attention backward", json.dumps(row))
+    # the per-rank heads of the tensor-parallel training step, at the
+    # training layouts (the first three), beside the 24-head row
+    mesh_rows = []
+    for (name, valid, times, n_last), row24 in zip(backward_layouts(device, gen)[:3], rows_out):
+        for heads in MESH_HEADS:
+            row = backward_row(name, valid, times, n_last, heads, d, gen)
+            for tag in ("f32", "bf16"):
+                row[f"{tag}_ms_24_heads"] = row24[f"{tag}_ms"]
+                row[f"{tag}_graph_ms_24_heads"] = row24[f"{tag}_graph_ms"]
+            mesh_rows.append(row)
+            log("attention backward (per-rank heads)", json.dumps(row))
+    results["attention_backward_mesh_heads"] = mesh_rows
 
     # timing at the stage-2 training layout
     name, valid, times, n_last = backward_layouts(device, gen)[2]
@@ -895,13 +975,13 @@ def check_attention_backward(device, results):
     results["attention_backward_layouts"] = rows_out
     results["attention_backward_timing"] = timing
     torch.cuda.empty_cache()
-    return rows_out, timing
+    return rows_out + mesh_rows, timing
 
 
-def rollout_batch():
+def rollout_batch(prompt: str = PROMPT):
     """The rollout's input: a smooth 384x512 test image with seeded noise and
-    the 11-action prompt. The image holds float16 values, so it reaches a
-    served session (float16 on the wire) unchanged."""
+    the 11-action prompt (or ``prompt``). The image holds float16 values, so
+    it reaches a served session (float16 on the wire) unchanged."""
     import numpy as np
     from deepv_tpu_torch.actions import prepare_motion_prompts
 
@@ -910,7 +990,7 @@ def rollout_batch():
     img = np.stack([np.sin(6 * xx + 2 * c) * np.cos(4 * yy - c) for c in range(3)])
     img = np.clip(img + 0.1 * rng.standard_normal(img.shape), -1, 1)[None].astype(np.float16)
     img = img.astype(np.float32)
-    return {"img": img, "prompt": np.array(prepare_motion_prompts("action", PROMPT)),
+    return {"img": img, "prompt": np.array(prepare_motion_prompts("action", prompt)),
             "prompt_type": "action"}
 
 
@@ -1780,7 +1860,7 @@ def run_fast_path(device, results, ref_frames):
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
-    return summary, rollout_frames_by_class
+    return summary, rollout_frames_by_class, frames[:, :, :MESH_FRAMES].cpu()
 
 
 def run_adaptive_boundary_path(device, results, ref_frames):
@@ -2001,10 +2081,10 @@ def run_serving_path(device, results, ref_frames, ref_disparity, main_launches: 
     return summary
 
 
-def training_batch(device, dtype):
+def training_batch(device, dtype, b: int = 1):
     """Phase 15's batch: 8 latent units at 384x512 ([1, 38, 8, 48, 64]), 77
     text tokens (11 of them unmasked) and pooled text, from a seeded
-    generator."""
+    generator (``b`` rows: phase 21 (b)'s global batch)."""
     import torch
     from deepv_tpu_torch.config import MMDiTConfig, PipelineConfig
 
@@ -2013,11 +2093,11 @@ def training_batch(device, dtype):
     g.manual_seed(15)
     lh, lw = HEIGHT // pcfg.vae_downsample, WIDTH // pcfg.vae_downsample
     draw = lambda *shape: torch.randn(shape, generator=g, device=device).to(dtype)
-    mask = torch.zeros((1, 77), dtype=torch.int32, device=device)
+    mask = torch.zeros((b, 77), dtype=torch.int32, device=device)
     mask[:, :11] = 1
-    return {"latents": draw(1, mcfg.in_channels, (TRAIN_UNIT + 1) * pcfg.frame_per_unit, lh, lw),
-            "text_embeds": draw(1, 77, mcfg.joint_attention_dim), "text_mask": mask,
-            "pooled": draw(1, mcfg.pooled_projection_dim)}
+    return {"latents": draw(b, mcfg.in_channels, (TRAIN_UNIT + 1) * pcfg.frame_per_unit, lh, lw),
+            "text_embeds": draw(b, 77, mcfg.joint_attention_dim), "text_mask": mask,
+            "pooled": draw(b, mcfg.pooled_projection_dim)}
 
 
 def checked_step(name, step, model, dtype, n_steps=1):
@@ -2065,15 +2145,19 @@ def run_training_path(device, results):
     """Phase 15: training at full width through the port's entry points:
     Trainer on an MMDiT from random_mmdit_params (f32, seed 0), one pyramid
     step at each stage (unit 7), one single-clip step, Trainer.train for 4
-    steps, save and restore into a fresh Trainer (equal bit for bit), then
-    one bf16 stage-2 step. Returns the launch counts of the f32 and the
-    bf16 steps."""
+    steps, a CKPT_LAYERS-layer trainer's step saved and restored into a
+    fresh Trainer (equal bit for bit), then one bf16 stage-2 step. First, on the fresh weights, phase 21's
+    reference: a stage-2 loss and its gradients with phase 21's draws.
+    Returns the launch counts of the f32 and the bf16 steps, and that
+    reference (the loss, each leaf's gradient norm)."""
+    import dataclasses
     import torch
     from deepv_tpu_torch.config import MMDiTConfig, PipelineConfig
     from deepv_tpu_torch.io.weights import params_from_numpy, random_mmdit_params
     from deepv_tpu_torch.models.mmdit import MMDiT
+    from deepv_tpu_torch.models.scheduler import FlowMatchSchedule
     from deepv_tpu_torch.pipeline import TorchNoise
-    from deepv_tpu_torch.training.flow_matching import make_train_step
+    from deepv_tpu_torch.training.flow_matching import make_train_step, pyramid_flow_matching_loss
     from deepv_tpu_torch.training.trainer import Trainer
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2090,6 +2174,18 @@ def run_training_path(device, results):
         f"ready in {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the card")
     batch = training_batch(device, f32)
+    # phase 21 (a)'s reference: the loss and every leaf's gradient norm of a
+    # stage-2 step on these fresh weights, with phase 21's draws
+    loss = pyramid_flow_matching_loss(model, pcfg, FlowMatchSchedule(pcfg.scheduler), batch,
+                                      TorchNoise(MESH_TRAIN_SEED, device), 2, TRAIN_UNIT)
+    loss.backward()
+    names = [n for n, _ in model.named_parameters()]
+    # a leaf no gradient reached (proj_history: no history here) has norm 0
+    norms = torch.stack([p.new_zeros(()) if p.grad is None else p.grad.norm()
+                         for p in model.parameters()]).tolist()
+    mesh_reference = dict(loss=float(loss), grad_norms=dict(zip(names, norms)))
+    trainer.optimizer.zero_grad(set_to_none=True)
+    del loss
     rows, counts = [], dict(attn_fwd_tf32x3=0, attn_bwd_f32=0)
     noise = TorchNoise(15, device)
     for stage in range(len(pcfg.stages)):
@@ -2106,16 +2202,28 @@ def run_training_path(device, results):
         counts["attn_fwd_tf32x3"] += r["launches"]["attn_fwd_tf32x3"]
         counts["attn_bwd_f32"] += r["launches"]["attn_bwd"]
 
-    # save, then restore into a fresh trainer (other random weights)
+    bf16_params = {k: v.detach().to(torch.bfloat16) for k, v in model.named_parameters()}
+    del trainer, model, single
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # save after a step, then restore into a fresh trainer (other random
+    # weights): a trainer of the same width cut to CKPT_LAYERS layers, so
+    # that the disk's write rate does not hold the script near its limit
+    ckpt_cfg = dataclasses.replace(mcfg, num_layers=CKPT_LAYERS)
+    trainer = Trainer(ckpt_cfg, params_from_numpy(MMDiT(ckpt_cfg), random_mmdit_params(
+        ckpt_cfg, f32, seed=0, device=device)), learning_rate=1e-4, weight_decay=0.01, pcfg=pcfg,
+        device=device)
+    trainer.train([batch], noise, log_every=0)
     ckpt_dir = tempfile.mkdtemp(prefix="_train_ckpt_", dir=HERE)
     try:
         t = time.perf_counter()
         path = trainer.save(os.path.join(ckpt_dir, f"step_{trainer.step:08d}"))
         save_s = time.perf_counter() - t
         trainer.optimizer.zero_grad(set_to_none=True)
-        fresh = Trainer(mcfg, params_from_numpy(MMDiT(mcfg), random_mmdit_params(
-            mcfg, f32, seed=1, device=device)), learning_rate=1e-4, weight_decay=0.01, pcfg=pcfg,
-            device=device)
+        fresh = Trainer(ckpt_cfg, params_from_numpy(MMDiT(ckpt_cfg), random_mmdit_params(
+            ckpt_cfg, f32, seed=1, device=device)), learning_rate=1e-4, weight_decay=0.01,
+            pcfg=pcfg, device=device)
         t = time.perf_counter()
         fresh.restore(path)
         torch.cuda.synchronize()
@@ -2124,19 +2232,19 @@ def run_training_path(device, results):
                       for f in fs) / 1e9
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
-    assert fresh.step == trainer.step == 4, (fresh.step, trainer.step)
+    assert fresh.step == trainer.step == 1, (fresh.step, trainer.step)
     differ = []
-    for (name, a), b in zip(model.named_parameters(), fresh.model.parameters()):
+    for (name, a), b in zip(trainer.model.named_parameters(), fresh.model.parameters()):
         sa, sb = trainer.optimizer.state[a], fresh.optimizer.state[b]
         if not (torch.equal(a, b) and torch.equal(sa["exp_avg"], sb["exp_avg"])
                 and torch.equal(sa["exp_avg_sq"], sb["exp_avg_sq"])
                 and torch.equal(sa["step"], sb["step"])):
             differ.append(name)
     assert not differ, f"restored state differs from the saved one: {differ[:5]}"
-    log(f"training: checkpoint of {ckpt_gb:.2f} GB saved in {save_s:.1f} s, restored into a "
-        f"fresh Trainer in {restore_s:.1f} s; params and AdamW state equal bit for bit")
-    bf16_params = {k: v.detach().to(torch.bfloat16) for k, v in model.named_parameters()}
-    del fresh, trainer, model, single
+    log(f"training: checkpoint of {ckpt_gb:.2f} GB ({CKPT_LAYERS} layers at full width) saved in "
+        f"{save_s:.1f} s, restored into a fresh Trainer in {restore_s:.1f} s; params and AdamW "
+        "state equal bit for bit")
+    del fresh, trainer
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2158,8 +2266,8 @@ def run_training_path(device, results):
     torch.cuda.empty_cache()
     summary = dict(params=n_params, steps=rows, checkpoint_gb=ckpt_gb, save_s=save_s,
                    restore_s=restore_s, launches=counts)
-    results["training_path"] = summary
-    return summary
+    results["training_path"] = dict(summary, mesh_reference_loss=mesh_reference["loss"])
+    return summary, mesh_reference
 
 
 # ---------------------------------------------------------------------------
@@ -2909,6 +3017,13 @@ MESH_RANKS = 2
 MESH_REDUCTIONS_PER_FORWARD = 4 * 23 + 2
 #: K1 at the per-rank head counts of tp 2 and 4 (24 heads)
 MESH_HEADS = (12, 6)
+#: every mesh rollout of phases 20 and 22 runs the same units: one chunk
+#: (the first 7 actions: 8 units, 57 frames), and a served session adds the
+#: boundary step's work (its 8th step closes the chunk and opens the next)
+MESH_PROMPT = "(FN)" * 7
+MESH_UNITS, MESH_FRAMES = 8, 57
+#: denoise forwards of the exact one-chunk rollout: 8 units x 3 stages x 5 steps
+MESH_FORWARDS = 120
 #: phase 20 (b): each f32 mesh call (TF32 off) against the single-device
 #: call on the same inputs, as relative L2 and as max |err|. The two sum in
 #: other orders (the row-split partial products over the ranks, the CP group
@@ -2955,33 +3070,17 @@ def mesh_rank_mesh():
     return mesh
 
 
-def mesh_rollout_rank() -> dict:
-    """Phase 20 (a), one rank: phase 5's rollout (weights from seed 0,
-    image, prompt, seed) through InferencePipeline(mesh=...), K1's launch
-    and head counts, the reductions, and the frames (rank 0) or their hash."""
+def mesh_rollout_part(mesh, pipe) -> dict:
+    """Phase 20 (a), one rank: ``pipe`` (phase 5's weights, seed 0, on the
+    mesh) runs phase 5's image and seed on the first chunk of its prompt
+    (``MESH_PROMPT``): K1's launch and head counts, the reductions, and the
+    frames (rank 0) or their hash."""
     import hashlib
     import torch
-    from deepv_tpu_torch.actions import action_vocabulary
-    from deepv_tpu_torch.config import MMDiTConfig, VAEConfig, create_model_config
-    from deepv_tpu_torch.io.text_embeds import random_text_embeds
-    from deepv_tpu_torch.io.weights import random_params
     from deepv_tpu_torch.models import mmdit as mm
     from deepv_tpu_torch.ops import attention as att
     from deepv_tpu_torch.parallel import comm
-    from deepv_tpu_torch.pipeline import InferencePipeline
 
-    mesh = mesh_rank_mesh()
-    collectives = gloo_cuda_collectives(mesh.device)
-    t0 = time.perf_counter()
-    cfg = create_model_config("none", use_motion_prompt=True)
-    mcfg, vcfg = MMDiTConfig(), VAEConfig()
-    params = random_params(mcfg, vcfg, dtype=torch.bfloat16, seed=0, device=mesh.device)
-    embeds = random_text_embeds(0, action_vocabulary(), joint_dim=mcfg.joint_attention_dim,
-                                pooled_dim=mcfg.pooled_projection_dim)
-    pipe = InferencePipeline(cfg, mcfg, vcfg, params, embeds, dtype=torch.bfloat16, mesh=mesh)
-    del params
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
     # spies: K1's head count per call, the MMDiT's row-split reductions
     heads, rows = [], [0, 0]
     orig_attention, orig_row = mm.attention, mm._row_linear
@@ -3003,7 +3102,7 @@ def mesh_rollout_rank() -> dict:
     comm.reset_counts()
     t0 = time.perf_counter()
     try:
-        out = pipe.generate(rollout_batch(), seed=666)
+        out = pipe.generate(rollout_batch(MESH_PROMPT), seed=666)
         torch.cuda.synchronize()
     finally:
         mm.attention, mm._row_linear = orig_attention, orig_row
@@ -3012,7 +3111,8 @@ def mesh_rollout_rank() -> dict:
     finite = all(bool(torch.isfinite(out[k]).all())
                  for k in ("pred_img", "pred_disparity", "trans3d", "trans2d"))
     stats = pipe.timer.stats()
-    return dict(rank=mesh.rank, collectives=collectives, setup_s=setup_s, wall_s=wall,
+    pipe.timer.sync = False
+    return dict(rank=mesh.rank, wall_s=wall,
                 frames=img.shape[2], shape=tuple(img.shape), finite=finite,
                 launches=att.launches, f32_launches=att.f32_launches,
                 bwd_launches=att.bwd_launches, heads=sorted(set(heads)),
@@ -3025,6 +3125,47 @@ def mesh_rollout_rank() -> dict:
                 sha256=hashlib.sha256(img.view(torch.int16).cpu().numpy().tobytes()).hexdigest(),
                 pred_img=img.cpu() if mesh.rank == 0 else None,
                 history_index=out["history_index"])
+
+
+def mesh_two_rank_main() -> dict:
+    """Phases 20 (a, b), 21 (a, c) and 22 in one spawn of the two ranks
+    sharing cuda:0 (each spawn costs every rank a process, a CUDA context and
+    a weight draw): gloo's collectives on CUDA tensors, then phase 5's
+    weights in bf16 in two mesh pipelines, the exact one and the --fast
+    preset's (20 (a), 22), then 21 (a, c), then 20 (b) in f32."""
+    import dataclasses
+    import torch
+    from deepv_tpu_torch.actions import action_vocabulary
+    from deepv_tpu_torch.config import MMDiTConfig, VAEConfig, create_model_config
+    from deepv_tpu_torch.io.text_embeds import random_text_embeds
+    from deepv_tpu_torch.io.weights import random_params
+    from deepv_tpu_torch.pipeline import InferencePipeline
+
+    mesh = mesh_rank_mesh()
+    out = dict(rank=mesh.rank, collectives=gloo_cuda_collectives(mesh.device))
+    t0 = time.perf_counter()
+    cfg = create_model_config("none", use_motion_prompt=True)
+    mcfg, vcfg = MMDiTConfig(), VAEConfig()
+    params = random_params(mcfg, vcfg, dtype=torch.bfloat16, seed=0, device=mesh.device)
+    embeds = random_text_embeds(0, action_vocabulary(), joint_dim=mcfg.joint_attention_dim,
+                                pooled_dim=mcfg.pooled_projection_dim)
+    pipe = InferencePipeline(cfg, mcfg, vcfg, params, embeds, dtype=torch.bfloat16, mesh=mesh)
+    fast = InferencePipeline(cfg, mcfg, dataclasses.replace(vcfg, conv_impl="int8"), params,
+                             embeds, dtype=torch.bfloat16, mesh=mesh, flow_cache="skip_odd",
+                             denoise_int8=True)
+    # rank 0 keeps the whole MMDiT for the single-device int8 forward
+    single_tree = params["mmdit"] if mesh.rank == 0 else None
+    del params
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    out["rollout"] = dict(mesh_rollout_part(mesh, pipe), setup_s=setup_s)
+    out["serve"] = mesh_serve_part(mesh, pipe, fast, single_tree)
+    del pipe, fast, single_tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["train"] = mesh_train_part(mesh)
+    out["f32"] = mesh_f32_part(mesh)
+    return out
 
 
 def mesh_forward_inputs(device):
@@ -3057,7 +3198,7 @@ def diff_stats(got, ref) -> dict:
     return dict(max_abs=float(d.abs().max()), rel_l2=float(d.norm() / ref.float().norm()))
 
 
-def mesh_f32_rank() -> dict:
+def mesh_f32_part(mesh) -> dict:
     """Phase 20 (b), one rank: f32 at full width (TF32 off), each mesh call
     and, on rank 0, the single-device call on the same inputs: one denoise
     forward, cp_dec_window init then cont (2 latent frames each), and
@@ -3073,7 +3214,7 @@ def mesh_f32_rank() -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    mesh = mesh_rank_mesh()
+    torch.cuda.reset_peak_memory_stats()
     dev, lead = mesh.device, mesh.rank == 0
     mcfg, vcfg = MMDiTConfig(), VAEConfig()
     params = random_params(mcfg, vcfg, dtype=torch.float32, seed=0, device=dev)
@@ -3218,10 +3359,12 @@ def check_mesh_heads(device, results):
 
 def run_mesh_path(device, results, ref_frames):
     """Phase 20 (M17b): (c) K1 at the per-rank head counts, (e) run.py
-    --tp_shards 2 refused on this one-card machine, (a) phase 5's rollout
-    through InferencePipeline(mesh=...) on two gloo ranks sharing the card,
-    (b) the f32 gates on the same two ranks, (d) world size 1 over NCCL.
-    Returns (a)'s K1 launches per rank."""
+    --tp_shards 2 refused on this one-card machine, (a) the first chunk of
+    phase 5's rollout through InferencePipeline(mesh=...) on two gloo ranks
+    sharing the card, (b) the f32 gates on the same two ranks, (d) world
+    size 1 over NCCL. (a) and (b) run in ``mesh_two_rank_main``'s spawn,
+    which also runs phases 21 (a, c) and 22. Returns (a)'s K1 launches per
+    rank, (c)'s rows, (a)'s frames and every rank's result of that spawn."""
     import torch
     from deepv_tpu_torch import run
     from deepv_tpu_torch.config import MMDiTConfig
@@ -3242,29 +3385,32 @@ def run_mesh_path(device, results, ref_frames):
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    ranks = spawn(mesh_rollout_rank, MESH_RANKS, backend="gloo")
+    two = spawn(mesh_two_rank_main, MESH_RANKS, backend="gloo")
     spawn_s = time.perf_counter() - t0
-    log(f"mesh path (a): gloo on CUDA tensors: {ranks[0]['collectives']}")
-    expected = FORWARDS * MMDiTConfig().num_layers
+    log(f"mesh path (a): gloo on CUDA tensors: {two[0]['collectives']}")
+    ranks = [r["rollout"] for r in two]
+    expected = MESH_FORWARDS * MMDiTConfig().num_layers
     for r in ranks:
-        assert r["shape"] == (1, 3, 89, HEIGHT, WIDTH) and r["finite"], (r["rank"], r["shape"])
-        assert r["forwards"] == FORWARDS, r["forwards"]
+        assert r["shape"] == (1, 3, MESH_FRAMES, HEIGHT, WIDTH) and r["finite"], (r["rank"],
+                                                                                 r["shape"])
+        assert r["forwards"] == MESH_FORWARDS, r["forwards"]
         assert r["launches"] == expected, f"rank {r['rank']}: K1 launched {r['launches']} times"
         assert r["heads"] == [24 // MESH_RANKS], f"rank {r['rank']}: K1 at heads {r['heads']}"
         assert r["bwd_launches"] == 0 and r["f32_launches"] == 0, r
     assert ranks[1]["sha256"] == ranks[0]["sha256"], "rank 1's frames differ from rank 0's"
-    gap = eight_bit_gap(ranks[0]["pred_img"], ref_frames)
-    summary = [{k: v for k, v in r.items() if k not in ("pred_img", "collectives")}
-               for r in ranks]
+    mesh_frames = ranks[0]["pred_img"]
+    gap = eight_bit_gap(mesh_frames, ref_frames[:, :, :MESH_FRAMES])
+    summary = [{k: v for k, v in r.items() if k != "pred_img"} for r in ranks]
     for r in summary:
         log(f"mesh path (a), rank {r['rank']} ({label}):", json.dumps(r))
     log(f"mesh path (a): {MESH_RANKS} ranks' frames bit-equal; K1 {expected} launches per rank at "
         f"{24 // MESH_RANKS} heads; row-split reductions {ranks[0]['row_reductions']} "
-        f"(expected {MESH_REDUCTIONS_PER_FORWARD * FORWARDS}); 8-bit gap to phase 5's frames "
-        f"mean {gap[0]:.4f}, p95 {gap[1]:.4f}; spawn to return {spawn_s:.1f} s")
+        f"(expected {MESH_REDUCTIONS_PER_FORWARD * MESH_FORWARDS}); 8-bit gap to phase 5's first "
+        f"{MESH_FRAMES} frames mean {gap[0]:.4f}, p95 {gap[1]:.4f}; the spawn of phases 20 (a, "
+        f"b), 21 (a, c) and 22 took {spawn_s:.1f} s")
     del ranks[0]["pred_img"]
 
-    f32 = spawn(mesh_f32_rank, MESH_RANKS, backend="gloo")[0]
+    f32 = two[0]["f32"]
     log("mesh path (b): f32 mesh vs single device:", json.dumps(f32))
     for key in ("forward", "dec_window_init", "dec_window_cont", "encode_chunked"):
         e = f32[key]
@@ -3276,7 +3422,515 @@ def run_mesh_path(device, results, ref_frames):
         assert e["rel_l2"] <= MESH_F32_REL_L2 and e["max_abs"] <= MESH_F32_MAX_ABS, (key, e)
     results["mesh_path"] = dict(rollout=summary, gap_8bit=gap, spawn_s=spawn_s, f32=f32,
                                 nccl_world_1=nccl, label=label)
-    return expected, heads
+    return expected, heads, mesh_frames, two
+
+
+# ---------------------------------------------------------------------------
+# phases 21-22: training and serving over a mesh (M17c), as gloo ranks on
+# this one card
+# ---------------------------------------------------------------------------
+
+#: phase 21's draws (TorchNoise seeds): (a) and (c), and (b)
+MESH_TRAIN_SEED, MESH_DP_TP_SEED = 21, 22
+#: phase 21 (a): the tp-2 f32 step against phase 15's single-device step on
+#: the same weights, batch and draws (TF32 off). Both sum in other orders
+#: (the row-split partial products over the ranks; cuBLAS picks its
+#: algorithm by shape, and every split product has half the width) and
+#: phase 20 (b) measured the f32 mesh forward within relative L2 6.5e-7 of
+#: the single-device one; a squared-error mean over 300k values and a
+#: gradient's norm average those differences out. Bounds: relative
+MESH_TRAIN_LOSS_RTOL = 1e-4
+MESH_TRAIN_NORM_RTOL = 1e-3
+#: phase 21 (b): the depth of the dp 2 x tp 2 cut model. Each of the four
+#: ranks holds the cut model whole (its single-device reference step) and
+#: its tp half, each with gradients and AdamW state, ~16 + 11 bytes a
+#: parameter at 85 M parameters a layer, plus a step's activations: at 4
+#: layers ~13 GB a rank, four ranks beside each other on the card
+MESH_DP_TP_DEPTH = 4
+#: phase 21 (b): the dp x tp step against the single-device step of the cut
+#: model on the global batch (f32, TF32 off): each gradient element within
+#: MESH_GRAD_RTOL of its leaf's largest |g| (sums in other orders, the dp
+#: mean formed as a sum over the ranks divided by 2), each parameter after
+#: AdamW within MESH_PARAM_ATOL. A first AdamW step moves a parameter by
+#: lr * g / (|g| + eps) plus the decay, lr = 1e-4, eps = 1e-8: where |g| is
+#: near eps, a gradient difference of ~1e-9 (the summation-order difference
+#: on a leaf whose largest |g| is ~1e-3) moves that by up to ~lr / 4. On an
+#: H100 the largest parameter difference was 1.06e-5 (the gradients within
+#: 2.3e-6 of their leaves' largest). Half of lr bounds it; a step that is
+#: missing or of the wrong sign moves a parameter by lr or 2 lr
+MESH_GRAD_RTOL = 1e-3
+MESH_PARAM_ATOL = 5e-5
+
+
+def attention_head_spy():
+    """Wraps models/mmdit's attention to record each call's head count.
+    Returns (the recorded list, a function that restores it)."""
+    from deepv_tpu_torch.models import mmdit as mm
+    heads, orig = [], mm.attention
+
+    def spy(q, k, v, valid, times, n_last=0):
+        heads.append(q.shape[2])
+        return orig(q, k, v, valid, times, n_last=n_last)
+
+    mm.attention = spy
+
+    def restore():
+        mm.attention = orig
+    return heads, restore
+
+
+def replicated_digest(model) -> str:
+    """A hash of the bits of every parameter the tensor-parallel split
+    leaves whole."""
+    import hashlib
+    import torch
+    from deepv_tpu_torch.parallel.tp import mmdit_param_spec
+    h = hashlib.blake2b()
+    for name, p in model.named_parameters():
+        if not mmdit_param_spec(name, p):
+            h.update(p.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def mesh_train_step(trainer, batch, noise, stage: int, name: str) -> dict:
+    """One pyramid step of ``trainer`` with K1's counts and the collectives'
+    set to 0 just before and read just after; its seconds and peak memory."""
+    import torch
+    from deepv_tpu_torch.ops import attention as att
+    from deepv_tpu_torch.parallel import comm
+    heads, restore = attention_head_spy()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    att.launches = att.f32_launches = att.bwd_launches = 0
+    comm.reset_counts()
+    t0 = time.perf_counter()
+    try:
+        loss = float(trainer.step_fn(batch, noise, stage, TRAIN_UNIT))
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    return dict(step=name, loss=loss, seconds=time.perf_counter() - t0,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                launches=dict(attn_fwd_wgmma=att.launches, attn_fwd_tf32x3=att.f32_launches,
+                              attn_bwd=att.bwd_launches),
+                heads=sorted(set(heads)), collectives=dict(calls=dict(comm.counts),
+                                                           bytes=dict(comm.nbytes)))
+
+
+def mesh_train_part(mesh) -> dict:
+    """Phase 21 (a) and (c), one rank of the two-rank mesh: (a) phase 15's
+    full-width f32 model, batch and a stage-2 step with phase 21's draws,
+    through Trainer on this rank's tensor-parallel share; each leaf's
+    squared gradient norm, the replicated leaves' digest after the step;
+    (c) one bf16 stage-2 step on bf16 weights from the same seed."""
+    import torch
+    from deepv_tpu_torch.config import MMDiTConfig, PipelineConfig
+    from deepv_tpu_torch.io.weights import params_from_numpy, random_mmdit_params
+    from deepv_tpu_torch.models.mmdit import MMDiT
+    from deepv_tpu_torch.parallel.tp import mmdit_param_spec, shard_mmdit_params
+    from deepv_tpu_torch.pipeline import TorchNoise
+    from deepv_tpu_torch.training.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    mcfg, pcfg = MMDiTConfig(), PipelineConfig()
+    out = dict(rank=mesh.rank)
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        t0 = time.perf_counter()
+        tree = random_mmdit_params(mcfg, dtype, seed=0, device=dev)
+        model = params_from_numpy(MMDiT(mcfg, tp_group=mesh.group("tp")),
+                                  shard_mmdit_params(tree, mesh), dev)
+        del tree
+        trainer = Trainer(mcfg, model, learning_rate=1e-4, weight_decay=0.01, pcfg=pcfg,
+                          device=dev)
+        batch = training_batch(dev, dtype)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        seed = MESH_TRAIN_SEED if tag == "f32" else 16
+        row = mesh_train_step(trainer, batch, TorchNoise(seed, dev), 2,
+                              f"tp 2, pyramid stage 2, unit {TRAIN_UNIT}, {tag}")
+        row.update(setup_s=setup_s, params=sum(p.numel() for p in model.parameters()))
+        if tag == "f32":
+            # each leaf's squared gradient norm, and whether it is split
+            named = list(model.named_parameters())
+            sq = torch.stack([p.grad.float().square().sum() for _, p in named])
+            out["grad_sq_norms"] = {n: (x, bool(mmdit_param_spec(n, p)))
+                                    for (n, p), x in zip(named, sq.tolist())}
+            out["grads_finite"] = bool(torch.isfinite(sq).all())
+            out["replicated_digest"] = replicated_digest(model)
+        out[tag] = row
+        del trainer, model, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_dp_tp_rank(depth: int) -> dict:
+    """Phase 21 (b), one rank of the dp 2 x tp 2 mesh (four gloo ranks on
+    cuda:0): the full-width model cut to ``depth`` layers, f32. The
+    single-device step of the whole cut model on the global batch (2 rows),
+    then the DP x TP step of this rank's share on its dp row with its slice
+    of the same draws; every gradient element and parameter after AdamW of
+    this rank's share against the single-device one's slice, and a digest
+    of the share after the step."""
+    import dataclasses
+    import hashlib
+    import torch
+    from deepv_tpu_torch.config import MMDiTConfig, PipelineConfig
+    from deepv_tpu_torch.io.weights import params_from_numpy, random_mmdit_params
+    from deepv_tpu_torch.models.mmdit import MMDiT
+    from deepv_tpu_torch.models.scheduler import FlowMatchSchedule
+    from deepv_tpu_torch.ops import attention as att
+    from deepv_tpu_torch.parallel import comm
+    from deepv_tpu_torch.parallel.dryrun import dryrun_rank
+    from deepv_tpu_torch.parallel.mesh import make_mesh
+    from deepv_tpu_torch.parallel.tp import shard_mmdit_params
+    from deepv_tpu_torch.pipeline import TorchNoise
+    from deepv_tpu_torch.training.flow_matching import BatchSliceNoise, make_pyramid_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh((2, 2), ("dp", "tp"), devices=["cuda:0"] * 4, backend="gloo")
+    att.load_library()
+    dev, f32 = mesh.device, torch.float32
+    mcfg = dataclasses.replace(MMDiTConfig(), num_layers=depth)
+    pcfg = PipelineConfig()
+    sched = FlowMatchSchedule(pcfg.scheduler)
+    adamw = lambda m: torch.optim.AdamW(m.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
+                                        weight_decay=0.01)
+    batch = training_batch(dev, f32, b=2)
+    torch.cuda.reset_peak_memory_stats()
+    single = params_from_numpy(MMDiT(mcfg), random_mmdit_params(mcfg, f32, seed=0, device=dev),
+                               dev).requires_grad_(True)
+    opt = adamw(single)
+    single_loss = float(make_pyramid_train_step(single, pcfg, sched, opt)(
+        batch, TorchNoise(MESH_DP_TP_SEED, dev), 2, TRAIN_UNIT))
+    ref_grads = shard_mmdit_params({n: p.grad for n, p in single.named_parameters()}, mesh)
+    ref_params = shard_mmdit_params({n: p.detach() for n, p in single.named_parameters()}, mesh)
+    del opt, single
+    gc.collect()
+    model = params_from_numpy(MMDiT(mcfg, tp_group=mesh.group("tp")), shard_mmdit_params(
+        random_mmdit_params(mcfg, f32, seed=0, device=dev), mesh), dev).requires_grad_(True)
+    step = make_pyramid_train_step(model, pcfg, sched, adamw(model), mesh=mesh)
+    i = mesh.index("dp")
+    att.launches = att.f32_launches = att.bwd_launches = 0
+    comm.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = float(step({k: v[i:i + 1] for k, v in batch.items()},
+                      BatchSliceNoise(TorchNoise(MESH_DP_TP_SEED, dev), i, 2), 2, TRAIN_UNIT))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    del step
+    grad_err = param_err = 0.0
+    digest = hashlib.blake2b()
+    for name, p in model.named_parameters():
+        g_ref, p_ref = ref_grads[name], ref_params[name]
+        scale = float(g_ref.abs().max())
+        grad_err = max(grad_err, float((p.grad - g_ref).abs().max()) / max(scale, 1e-30))
+        param_err = max(param_err, float((p.detach() - p_ref).abs().max()))
+        digest.update(p.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    out = dict(rank=mesh.rank, dp=i, tp=mesh.index("tp"), depth=depth, loss=loss,
+               single_loss=single_loss, seconds=seconds,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches=dict(attn_fwd_tf32x3=att.f32_launches, attn_bwd=att.bwd_launches,
+                             attn_fwd_wgmma=att.launches),
+               collectives=dict(calls=dict(comm.counts), bytes=dict(comm.nbytes)),
+               max_grad_err_rel=grad_err, max_param_err=param_err, digest=digest.hexdigest())
+    del model, ref_grads, ref_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (d) the dry run's rank body (what run_dryrun(4, shared_card=True)
+    # spawns) in this process group
+    t0 = time.perf_counter()
+    out["dryrun_loss"] = dryrun_rank(4, False, "cuda", True)
+    out["dryrun_s"] = time.perf_counter() - t0
+    return out
+
+
+def run_mesh_training_path(device, results, reference, two):
+    """Phase 21 (M17c): training over a mesh on this one card. (a) and (c)
+    ran on the two gloo ranks of phase 20's spawn (``mesh_train_part``;
+    ``two`` holds every rank's results), (b) and the dry run's rank body on
+    four (``mesh_dp_tp_rank``), (d) the dry run's entry point refused.
+    ``reference``: phase 15's single-device loss and gradient norms of (a)'s
+    step. Returns (a)'s and (c)'s K1 launches per rank."""
+    import torch
+    from deepv_tpu_torch.config import MMDiTConfig
+    from deepv_tpu_torch.parallel.dryrun import run_dryrun
+    from deepv_tpu_torch.parallel.launch import spawn
+
+    label = "gloo ranks sharing one card, not a deployment number"
+    n_layers = MMDiTConfig().num_layers
+    ranks = [r["train"] for r in two]
+    for r in ranks:
+        for tag, fwd in (("f32", "attn_fwd_tf32x3"), ("bf16", "attn_fwd_wgmma")):
+            row = r[tag]
+            want = dict(attn_fwd_wgmma=0, attn_fwd_tf32x3=0, attn_bwd=n_layers)
+            want[fwd] = n_layers
+            assert row["launches"] == want, (r["rank"], tag, row["launches"])
+            assert row["heads"] == [24 // MESH_RANKS], (r["rank"], tag, row["heads"])
+            assert math.isfinite(row["loss"]), (r["rank"], tag, row["loss"])
+        assert r["grads_finite"], r["rank"]
+    assert ranks[1]["replicated_digest"] == ranks[0]["replicated_digest"], \
+        "the ranks' replicated leaves differ after the step"
+    assert ranks[1]["f32"]["loss"] == ranks[0]["f32"]["loss"]
+    loss_rel = abs(ranks[0]["f32"]["loss"] - reference["loss"]) / abs(reference["loss"])
+    assert loss_rel <= MESH_TRAIN_LOSS_RTOL, (ranks[0]["f32"]["loss"], reference["loss"])
+    worst = (0.0, None)
+    for name, ref_norm in reference["grad_norms"].items():
+        split = ranks[0]["grad_sq_norms"][name][1]
+        sq = [r["grad_sq_norms"][name][0] for r in (ranks if split else ranks[:1])]
+        rel = abs(math.sqrt(sum(sq)) - ref_norm) / max(ref_norm, 1e-30)
+        worst = max(worst, (rel, name))
+    assert worst[0] <= MESH_TRAIN_NORM_RTOL, f"gradient norm of {worst[1]}: relative {worst[0]}"
+    summary = dict(label=label, loss_rel_err=loss_rel,
+                   grad_norm_max_rel_err=worst[0], grad_norm_worst_leaf=worst[1],
+                   reference_loss=reference["loss"],
+                   ranks=[{k: v for k, v in r.items() if k != "grad_sq_norms"} for r in ranks])
+    for r in summary["ranks"]:
+        log(f"mesh training (a, c), rank {r['rank']} ({label}):", json.dumps(r))
+    log(f"mesh training (a): tp 2 f32 step loss {ranks[0]['f32']['loss']:.6f} against the single "
+        f"device's {reference['loss']:.6f} (relative {loss_rel:.2e}); per-leaf gradient norms "
+        f"within relative {worst[0]:.2e} ({worst[1]}); replicated leaves bit-equal on both ranks")
+
+    t0 = time.perf_counter()
+    dp = spawn(mesh_dp_tp_rank, 4, (MESH_DP_TP_DEPTH,), backend="gloo")
+    dp_spawn_s = time.perf_counter() - t0
+    for r in dp:
+        assert r["launches"] == dict(attn_fwd_tf32x3=MESH_DP_TP_DEPTH, attn_bwd=MESH_DP_TP_DEPTH,
+                                     attn_fwd_wgmma=0), r
+        assert r["max_grad_err_rel"] <= MESH_GRAD_RTOL, r
+        assert r["max_param_err"] <= MESH_PARAM_ATOL, r
+        assert abs(r["loss"] - r["single_loss"]) <= MESH_TRAIN_LOSS_RTOL * abs(r["single_loss"]), r
+    for tp in (0, 1):
+        a, b = (r for r in dp if r["tp"] == tp)
+        assert a["digest"] == b["digest"] and a["loss"] == b["loss"], \
+            f"the dp replicas of tp rank {tp} differ after the step"
+    for r in dp:
+        log(f"mesh training (b), rank {r['rank']} (dp {r['dp']}, tp {r['tp']}; {label}):",
+            json.dumps({k: v for k, v in r.items() if k != "digest"}))
+    log(f"mesh training (b): dp 2 x tp 2 at depth {MESH_DP_TP_DEPTH} (full width): gradients "
+        f"within {max(r['max_grad_err_rel'] for r in dp):.2e} of each leaf's largest, params "
+        f"within {max(r['max_param_err'] for r in dp):.2e} of the single-device step; dp "
+        f"replicas bit-equal; spawn to return {dp_spawn_s:.1f} s")
+    summary["dp_tp"] = dict(depth=MESH_DP_TP_DEPTH, spawn_s=dp_spawn_s,
+                            ranks=[{k: v for k, v in r.items() if k != "digest"} for r in dp])
+
+    # (d) the dry run: its entry point refused over NCCL without a card a
+    # rank; its rank body ran on the four ranks of (b)
+    cards = torch.cuda.device_count()
+    try:
+        run_dryrun(cards + 1)
+    except RuntimeError as e:
+        assert f"this machine has {cards}" in str(e), str(e)
+    else:
+        raise AssertionError(f"run_dryrun({cards + 1}) ran on {cards} card(s)")
+    losses = [r["dryrun_loss"] for r in dp]
+    assert all(math.isfinite(x) for x in losses) and len(set(losses)) == 1, losses
+    summary["dryrun"] = dict(loss=losses[0], seconds=max(r["dryrun_s"] for r in dp))
+    log(f"mesh training (d): the dry run's rank body on four gloo ranks sharing the card: loss "
+        f"{losses[0]:.4f} on every rank in {summary['dryrun']['seconds']:.1f} s; "
+        f"run_dryrun({cards + 1}) refused on {cards} card(s)")
+    results["mesh_training_path"] = summary
+    return {tag: ranks[0][tag]["launches"] for tag in ("f32", "bf16")}
+
+
+def mesh_serve_part(mesh, pipe, fast, single_tree) -> dict:
+    """Phase 22, one rank of the two-rank mesh on phase 5's weights: (a) rank
+    0 serves ``MESH_PROMPT``'s units over HTTP through ``pipe`` with phase
+    5's image and seed while rank 1 follows; (b) the --fast preset's rollout
+    of the same units through ``fast``, then one int8 denoise forward on the
+    mesh and, on rank 0, on one device (``single_tree``, the whole MMDiT),
+    on the same inputs."""
+    import numpy as np
+    import torch
+    from deepv_tpu_torch import serve
+    from deepv_tpu_torch.config import MMDiTConfig
+    from deepv_tpu_torch.io.weights import params_from_numpy
+    from deepv_tpu_torch.models.mmdit import MMDiT, mmdit_forward, quantize_mmdit
+    from deepv_tpu_torch.ops import attention as att
+    from deepv_tpu_torch.ops import conv_igemm as cig
+    from deepv_tpu_torch.ops import conv_int8 as ci8
+    from deepv_tpu_torch.ops import linear_int8 as li8
+    from deepv_tpu_torch.parallel import comm
+
+    dev, lead = mesh.device, mesh.rank == 0
+    cfg, mcfg = pipe.cfg, MMDiTConfig()
+
+    def reset():
+        att.launches = att.f32_launches = att.bwd_launches = 0
+        for name in K2_COUNTERS:
+            setattr(cig, name, 0)
+        ci8.launches = ci8.packed_launches = ci8.quantize_launches = li8.calls = 0
+        comm.reset_counts()
+
+    def counts():
+        return dict(attn_fwd_wgmma=att.launches, attn_fwd_tf32x3=att.f32_launches,
+                    attn_bwd=att.bwd_launches,
+                    conv_igemm={name: getattr(cig, name) for name in K2_COUNTERS},
+                    conv_int8=ci8.launches + ci8.packed_launches,
+                    quantize_k3=ci8.quantize_launches, int_mm=li8.calls,
+                    all_reduce=comm.counts["all_reduce"], all_gather=comm.counts["all_gather"],
+                    all_reduce_bytes=comm.nbytes["all_reduce"],
+                    all_gather_bytes=comm.nbytes["all_gather"])
+
+    out = dict(rank=mesh.rank)
+    batch = rollout_batch(MESH_PROMPT)
+    actions = serve.InteractiveSession.actions_from_prompt_list(cfg, list(batch["prompt"]))
+    heads, restore = attention_head_spy()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    try:
+        if not lead:
+            out["followed"] = serve.follow(pipe)
+            torch.cuda.synchronize()
+            out["served"] = counts()
+        else:
+            server = serve.SessionServer(pipe, port=0)
+            port = server.start()
+            steps, times = [], []
+            try:
+                t0 = time.perf_counter()
+                status, body = http_call(port, "POST", "/session",
+                                         {"image": serve._np_b64(batch["img"]), "seed": 666})
+                assert status == 200, body
+                sid = body["session_id"]
+                for action in actions:
+                    t = time.perf_counter()
+                    status, body = http_call(port, "POST", "/step",
+                                             {"session_id": sid, "action": action})
+                    assert status == 200, body
+                    times.append(time.perf_counter() - t)
+                    steps.append(body)
+                wall = time.perf_counter() - t0
+                torch.cuda.synchronize()
+                out["served"] = counts()
+                status, metrics = http_call(port, "GET", "/metrics")
+                http_call(port, "POST", "/close", {"session_id": sid})
+            finally:
+                server.stop()
+            frames = np.concatenate([wire_f16(s["rgb"]) for s in steps], axis=2)
+            out.update(served_frames=frames, step_s=times, wall_s=wall,
+                       metrics=metrics,
+                       chunk_complete=[bool(s["chunk_complete"]) for s in steps])
+    finally:
+        restore()
+    out["served_heads"] = sorted(set(heads))
+    out["served_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # (b) --fast on the mesh: counts around generate(), the reductions' dtypes
+    reduced = {}
+    orig_reduce = comm.all_reduce
+
+    def reduce_spy(x, group, op="sum"):
+        key = f"{x.dtype} {op}"
+        reduced[key] = reduced.get(key, 0) + 1
+        return orig_reduce(x, group, op)
+
+    heads, restore = attention_head_spy()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    comm.all_reduce = reduce_spy
+    try:
+        t0 = time.perf_counter()
+        res = fast.generate(batch, seed=666)
+        torch.cuda.synchronize()
+        out["fast_wall_s"] = time.perf_counter() - t0
+    finally:
+        comm.all_reduce = orig_reduce
+        restore()
+    out["fast"] = counts()
+    out.update(fast_heads=sorted(set(heads)), fast_reductions=reduced,
+               fast_forwards=sum(map(sum, fast.recompute_log)),
+               fast_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               fast_finite=bool(torch.isfinite(res["pred_img"]).all()),
+               fast_shape=tuple(res["pred_img"].shape))
+    if lead:
+        out["fast_frames"] = res["pred_img"].cpu()
+    del res
+
+    # one int8 denoise forward: the mesh's against one device's, same inputs
+    with torch.inference_mode():
+        args, kw = mesh_forward_inputs(dev)
+        args = [[c.to(torch.bfloat16) for c in args[0]]] + [
+            a.to(torch.bfloat16) if a.is_floating_point() and a.dim() > 1 else a
+            for a in args[1:]]
+        v_mesh = mmdit_forward(fast.mmdit, *args, **kw)
+        if lead:
+            v_single = mmdit_forward(quantize_mmdit(params_from_numpy(MMDiT(mcfg), single_tree)),
+                                     *args, **kw)
+            out["int8_forward"] = dict(bit_equal=bool(torch.equal(v_mesh, v_single)),
+                                       **diff_stats(v_mesh, v_single))
+    return out
+
+
+def run_mesh_serving_path(device, results, two, mesh_frames, fast_frames):
+    """Phase 22 (M17c): serving and --fast over the two-rank mesh on this one
+    card, run in phase 20's spawn (``mesh_serve_part``; ``two`` holds every
+    rank's results). ``mesh_frames``: phase 20 (a)'s mesh generate() of the
+    same units; ``fast_frames``: phase 11's first chunk."""
+    import numpy as np
+    from deepv_tpu_torch.config import MMDiTConfig
+
+    label = "two ranks sharing one card over gloo, not a deployment number"
+    n_layers = MMDiTConfig().num_layers
+    ranks = [r["serve"] for r in two]
+    lead, follower = ranks
+    served = lead["served_frames"]
+    want = mesh_frames.float().numpy().astype(np.float16)
+    assert served.shape == (1, 3, MESH_FRAMES, HEIGHT, WIDTH), served.shape
+    assert lead["chunk_complete"] == [False] * (MESH_UNITS - 1) + [True], lead["chunk_complete"]
+    differ = int((served != want).sum())
+    assert differ == 0, f"{differ} served values differ from the mesh generate()'s"
+    ops = [op for op, _, ok in follower["followed"] if ok]
+    assert len(ops) == len(follower["followed"]), follower["followed"]
+    assert ops == ["start"] + ["step"] * MESH_UNITS + ["close", "stop"], ops
+    k1 = MESH_FORWARDS * n_layers
+    for r in ranks:
+        c = r["served"]
+        assert (c["attn_fwd_wgmma"], c["attn_fwd_tf32x3"], c["attn_bwd"]) == (k1, 0, 0), c
+        assert not any(c["conv_igemm"].values()) and c["conv_int8"] == 0, c
+        assert r["served_heads"] == [24 // MESH_RANKS], r["served_heads"]
+    assert lead["metrics"]["steps"] == MESH_UNITS, lead["metrics"]
+    # (b) the --fast preset on the mesh
+    fast_forwards = MESH_UNITS * 3 * 3
+    quantised = 12 * (n_layers - 1) + 9
+    for r in ranks:
+        c = r["fast"]
+        assert r["fast_forwards"] == fast_forwards and r["fast_finite"], r
+        assert r["fast_shape"] == (1, 3, MESH_FRAMES, HEIGHT, WIDTH), r["fast_shape"]
+        assert (c["attn_fwd_wgmma"], c["attn_fwd_tf32x3"], c["attn_bwd"]) == (
+            fast_forwards * n_layers, 0, 0), c
+        assert r["fast_heads"] == [24 // MESH_RANKS], r["fast_heads"]
+        assert c["conv_int8"] == c["quantize_k3"] == 0 and not any(c["conv_igemm"].values()), c
+        assert c["int_mm"] == fast_forwards * quantised, c
+        assert r["fast_reductions"].get("torch.int32 sum") == \
+            fast_forwards * MESH_REDUCTIONS_PER_FORWARD, r["fast_reductions"]
+    assert lead["int8_forward"]["bit_equal"], lead["int8_forward"]
+    gap = eight_bit_gap(lead["fast_frames"], fast_frames)
+    summary = dict(label=label, step_s=lead["step_s"], wall_s=lead["wall_s"],
+                   fast_gap_vs_phase11_8bit=gap,
+                   ranks=[{k: v for k, v in r.items()
+                           if k not in ("served_frames", "fast_frames", "followed")}
+                          for r in ranks])
+    for r in summary["ranks"]:
+        log(f"mesh serving (a, b), rank {r['rank']} ({label}):", json.dumps(r))
+    steps = sorted(lead["step_s"])
+    log(f"mesh serving (a): {MESH_UNITS} steps over HTTP, {MESH_FRAMES} frames equal to phase 20 "
+        f"(a)'s mesh generate() as float16 bit for bit; step median "
+        f"{steps[len(steps) // 2]:.2f} s, "
+        f"boundary step {lead['step_s'][-1]:.2f} s; rank 1 ran every operation. (b) --fast: "
+        f"{fast_forwards * n_layers} K1 launches a rank at 12 heads, K2 and K3 never, int_mm "
+        f"{fast_forwards * quantised} calls a rank, {fast_forwards * MESH_REDUCTIONS_PER_FORWARD} "
+        f"int32 reductions; the mesh int8 forward equals one device's bit for bit; 8-bit gap to "
+        f"phase 11's first chunk mean {gap[0]:.4f}, p95 {gap[1]:.4f} (not gated: phase 11's VAE "
+        f"runs K3, this one cuDNN)")
+    results["mesh_serving_path"] = summary
+    return {"served": lead["served"]["attn_fwd_wgmma"], "fast": lead["fast"]["attn_fwd_wgmma"]}
 
 
 def main() -> int:
@@ -3321,45 +3975,65 @@ def main() -> int:
     log(f"build: all kernels in {build_s:.1f} s")
     results["build_s"] = build_s
 
-    rows = check_attention(device, results)
-    conv_rows = check_conv_igemm(device, results)
-    pipe, launches, ref_frames, ref_disparity, ref_poses = run_main_path(device, results)
-    check_forward(pipe, device, results)
+    phase_s = {}
+
+    def timed(phase, fn, *args):
+        """``fn(*args)``, its wall seconds kept under ``phase``."""
+        t = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            phase_s[phase] = round(time.perf_counter() - t, 1)
+
+    rows = timed("3", check_attention, device, results)
+    conv_rows = timed("4", check_conv_igemm, device, results)
+    pipe, launches, ref_frames, ref_disparity, ref_poses = timed("5", run_main_path, device,
+                                                                  results)
+    timed("6", check_forward, pipe, device, results)
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
-    pipe, conv_launches, frames_by_class = run_igemm_path(device, results, ref_frames)
-    decode_f32 = check_decode(pipe, device, results)
+    pipe, conv_launches, frames_by_class = timed("7", run_igemm_path, device, results, ref_frames)
+    decode_f32 = timed("8", check_decode, pipe, device, results)
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
-    k3_rows = check_conv_int8(device, results)
-    check_linear_int8(device, results)
-    fast, k3_frames_by_class = run_fast_path(device, results, ref_frames)
-    run_adaptive_boundary_path(device, results, ref_frames)
-    run_serving_path(device, results, ref_frames, ref_disparity, launches)
+    k3_rows = timed("9", check_conv_int8, device, results)
+    timed("10", check_linear_int8, device, results)
+    fast, k3_frames_by_class, fast_frames = timed("11", run_fast_path, device, results, ref_frames)
+    timed("12", run_adaptive_boundary_path, device, results, ref_frames)
+    timed("13", run_serving_path, device, results, ref_frames, ref_disparity, launches)
     ref_frames, ref_disparity = ref_frames.cpu(), ref_disparity.cpu()
     gc.collect()
     torch.cuda.empty_cache()
-    bwd_rows, bwd_timing = check_attention_backward(device, results)
-    training = run_training_path(device, results)
+    bwd_rows, bwd_timing = timed("14", check_attention_backward, device, results)
+    training, mesh_train_ref = timed("15", run_training_path, device, results)
     snapshot = tempfile.mkdtemp(prefix="_snapshot_", dir=HERE)
     try:
-        pipe = run_checkpoint_path(device, results, ref_frames, snapshot)
-        run_text_path(device, results, pipe, snapshot)
+        pipe = timed("16", run_checkpoint_path, device, results, ref_frames, snapshot)
+        timed("17", run_text_path, device, results, pipe, snapshot)
     finally:
         shutil.rmtree(snapshot, ignore_errors=True)
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
-    tiled_launches, tiled_rows = run_tiled_path(device, results, ref_frames)
-    run_ply_path(device, results, {"pred_img": ref_frames, "pred_disparity": ref_disparity,
-                                   "trans3d": ref_poses[0], "trans2d": ref_poses[1]})
+    tiled_launches, tiled_rows = timed("18", run_tiled_path, device, results, ref_frames)
+    timed("19", run_ply_path, device, results, {
+        "pred_img": ref_frames, "pred_disparity": ref_disparity, "trans3d": ref_poses[0],
+        "trans2d": ref_poses[1]})
     del ref_disparity, ref_poses
     gc.collect()
     torch.cuda.empty_cache()
-    mesh_launches, mesh_heads = run_mesh_path(device, results, ref_frames)
+    # phase 20's two-rank spawn also runs 21 (a, c) and 22, whose checks follow
+    mesh_launches, mesh_heads, mesh_frames, two = timed(
+        "20 (with 21 a, c and 22)", run_mesh_path, device, results, ref_frames)
     del ref_frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_train = timed("21", run_mesh_training_path, device, results, mesh_train_ref, two)
+    mesh_serve = timed("22", run_mesh_serving_path, device, results, two, mesh_frames,
+                       fast_frames)
+    del mesh_frames, fast_frames, two
 
     assert launches == sum(r["launches_per_rollout"] for r in rows), (
         "K1's launches per layout do not add up to the rollout's")
@@ -3379,8 +4053,12 @@ def main() -> int:
         "shape": f"stage 2, b={head['b']}, S={head['S']}, h={head['heads']}, d={head['head_dim']}, bf16",
         "launches_tiled": tiled_launches["attention"],
         # phase 20 (a): per rank of the two-rank mesh, every call at 12 heads;
-        # (c): the kernel at the stage-2 b=2 layout with the per-rank heads
+        # (c): the kernel at the stage-2 b=2 layout with the per-rank heads;
+        # phase 22 (a), served, and (b), --fast; phase 21 (c), bf16 training
         "launches_mesh": mesh_launches,
+        "launches_mesh_served": mesh_serve["served"],
+        "launches_mesh_fast": mesh_serve["fast"],
+        "launches_mesh_training_bf16": mesh_train["bf16"]["attn_fwd_wgmma"],
         "mesh_heads": 24 // MESH_RANKS,
         "ms_by_heads": {str(r["heads"]): r["ms"] for r in mesh_heads
                         if r["layout"] == "stage2_b2"},
@@ -3411,7 +4089,11 @@ def main() -> int:
                   f"graph) against SDPA f32's kernels {f32_row['library_kernels_ms']:.4f} ms; "
                   f"bound_ms is 3xTF32's least time (three TF32 products a product at 495 "
                   f"TF/s), {f32_row['bound_fma_ms']:.4f} ms at the f32 FMA peak"),
+        # phase 21 (a): per rank of the tp-2 f32 step, every call at 12 heads
+        "launches_mesh_training": mesh_train["f32"]["attn_fwd_tf32x3"],
     })
+    bwd_mesh = [r for r in bwd_rows if r["heads"] != bwd_timing["heads"]
+                and r["layout"] == bwd_timing["layout"]]
     for tag, counter, route in (("f32", "attn_bwd_f32", "tf32x3"),
                                 ("bf16", "attn_bwd_bf16", "wgmma")):
         t = bwd_timing[tag]
@@ -3435,6 +4117,11 @@ def main() -> int:
                       f"phase 15's {tag} training steps; no TPU kernel: deepv_tpu differentiates "
                       "its jnp attention; plain_ms is autograd of attention_plain, library_ms "
                       "autograd of SDPA's backward" + bound),
+            # phase 21: per rank of the tp-2 step (f32: (a), bf16: (c)), at 12
+            # heads; phase 14: the call at the per-rank heads of tp 2 and 4
+            "launches_mesh_training": mesh_train[tag]["attn_bwd"],
+            "ms_by_heads": {str(r["heads"]): r[f"{tag}_ms"] for r in bwd_mesh},
+            "device_ms_by_heads": {str(r["heads"]): r[f"{tag}_graph_ms"] for r in bwd_mesh},
         })
     # K2 at the conv class with the most device time in the igemm rollout:
     # its output frames there times the kernel's ms per output frame
@@ -3619,6 +4306,8 @@ def main() -> int:
                   f"{top['quantise_ms']:.4f} ms; plain_ms includes it); no single PyTorch "
                   "call quantises into this layout"),
     })
+    log("phase seconds:", json.dumps(phase_s))
+    results["phase_s"] = phase_s
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(dict(results, kernels=kernels), f, indent=1)
     log(card)

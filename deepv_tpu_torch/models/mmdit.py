@@ -16,8 +16,16 @@ rank holds its share of the heads and of the feed-forward width, the
 column-split and row-split linears at 1/n of their width. The attention
 runs on the rank's heads, read from the projections' width; after each
 row-split linear the partial products are summed over the group
-(``parallel/comm.all_reduce``) and the bias is added once, after the sum.
-All else is computed whole on every rank, with the same bits.
+(``parallel/comm.reduce``) and the bias is added once, after the sum.
+All else is computed whole on every rank, with the same bits. The forward
+is differentiable as the single-device one: the input of every
+column-split linear and the per-head-dim RMSNorm scales (replicated, but
+each rank applies them to its own heads only) go through
+``parallel/comm.copy``, whose backward sums their gradients over the
+group, so every leaf's gradient is the single-device one. Quantised
+(``quantize_mmdit``), a row-split ``Int8Linear`` takes its weight scale
+and each token's activation scale as the maximum over the group and sums
+the int32 products over it (``ops/linear_int8.py``).
 """
 
 from __future__ import annotations
@@ -34,7 +42,7 @@ from torch import nn
 from ..config import MMDiTConfig
 from ..ops.attention import attention
 from ..ops.basic import gelu_tanh, layer_norm, linear, rms_norm, silu
-from ..ops.linear_int8 import quantize_linear
+from ..ops.linear_int8 import linear_int8, quantize_linear
 from ..ops.resample import down2x_bilinear, resize_bilinear
 from ..ops.rope import apply_rope, rope_tables_torch
 from ..parallel import comm
@@ -218,11 +226,12 @@ class JointBlock(nn.Module):
 class Int8Linear(nn.Module):
     """A linear layer quantised for the W8A8 path (``ops/linear_int8.py``):
     buffers ``weight_int8`` [out, in], ``weight_scale`` [out] and ``bias``
-    (or None). It holds no floating-point weight."""
+    (or None). It holds no floating-point weight. ``group``: the layer is
+    row-split over that group, and its weight scale is the group's maximum."""
 
-    def __init__(self, lin: nn.Linear):
+    def __init__(self, lin: nn.Linear, group=None):
         super().__init__()
-        w8, sw = quantize_linear(lin.weight)
+        w8, sw = quantize_linear(lin.weight, group)
         self.register_buffer("weight_int8", w8)
         self.register_buffer("weight_scale", sw)
         self.register_buffer("bias", None if lin.bias is None else lin.bias.detach())
@@ -240,16 +249,21 @@ def quantize_mmdit(model: "MMDiT") -> "MMDiT":
     for ``Int8Linear``s in place (deepv_tpu's ``quantize_mmdit_params`` with
     ``keep_original=False``): the model keeps no reference to their
     floating-point weights, which are freed once the caller's own
-    references go. The last block has no ``to_add_out`` or ``ff_context``."""
+    references go. The last block has no ``to_add_out`` or ``ff_context``.
+    Under tensor parallelism (``model.tp_group``) the row-split layers'
+    weight scales are the maximum over the group, as deepv_tpu's GSPMD
+    computes them on the sharded weight."""
+    group = model.tp_group
     for block in model.transformer_blocks:
         for k in INT8_ATTN_KEYS:
             if hasattr(block.attn, k):
-                setattr(block.attn, k, Int8Linear(getattr(block.attn, k)))
+                row = group if k in ("to_out", "to_add_out") else None
+                setattr(block.attn, k, Int8Linear(getattr(block.attn, k), row))
         for ff_key in INT8_FF_KEYS:
             ff = getattr(block, ff_key, None)
             if ff is not None:
                 for k in ("proj", "out"):
-                    setattr(ff, k, Int8Linear(getattr(ff, k)))
+                    setattr(ff, k, Int8Linear(getattr(ff, k), group if k == "out" else None))
     return model
 
 
@@ -370,15 +384,24 @@ def _adaln_continuous(p: _AdaLN, x: torch.Tensor, emb: torch.Tensor) -> torch.Te
 
 def _row_linear(x: torch.Tensor, p, tp_group) -> torch.Tensor:
     """A row-split linear: without a group, ``linear``; with one, this
-    rank's partial product summed over the group, then the bias once."""
+    rank's partial product summed over the group, then the bias once (an
+    ``Int8Linear``: ``linear_int8`` over the group)."""
     if tp_group is None:
         return linear(x, p)
-    y = comm.all_reduce(F.linear(x, p.weight.to(x.dtype)), tp_group)
+    if hasattr(p, "weight_int8"):
+        return linear_int8(x, p, tp_group)
+    y = comm.reduce(F.linear(x, p.weight.to(x.dtype)), tp_group)
     return y + p.bias.to(y.dtype)
 
 
+def _split_in(x: torch.Tensor, tp_group) -> torch.Tensor:
+    """``x`` as the input of this rank's share of a split computation: under
+    tensor parallelism its gradient is summed over the group."""
+    return x if tp_group is None else comm.copy(x, tp_group)
+
+
 def _ff(p: _FeedForward, x: torch.Tensor, tp_group=None) -> torch.Tensor:
-    return _row_linear(gelu_tanh(linear(x, p.proj)), p.out, tp_group)
+    return _row_linear(gelu_tanh(linear(_split_in(x, tp_group), p.proj)), p.out, tp_group)
 
 
 def joint_attention(cfg: MMDiTConfig, p: _JointAttention, hidden: torch.Tensor,
@@ -393,11 +416,14 @@ def joint_attention(cfg: MMDiTConfig, p: _JointAttention, hidden: torch.Tensor,
     lc = ctx.shape[1]
     hd = cfg.attention_head_dim
 
-    q = rms_norm(linear(hidden, p.to_q).reshape(b, lv, -1, hd), p.norm_q.weight, 1e-5)
-    k = rms_norm(linear(hidden, p.to_k).reshape(b, lv, -1, hd), p.norm_k.weight, 1e-5)
+    hidden, ctx = _split_in(hidden, tp_group), _split_in(ctx, tp_group)
+    norm = lambda m: _split_in(m.weight, tp_group)     # applied to this rank's heads
+
+    q = rms_norm(linear(hidden, p.to_q).reshape(b, lv, -1, hd), norm(p.norm_q), 1e-5)
+    k = rms_norm(linear(hidden, p.to_k).reshape(b, lv, -1, hd), norm(p.norm_k), 1e-5)
     v = linear(hidden, p.to_v).reshape(b, lv, -1, hd)
-    cq = rms_norm(linear(ctx, p.add_q_proj).reshape(b, lc, -1, hd), p.norm_add_q.weight, 1e-5)
-    ck = rms_norm(linear(ctx, p.add_k_proj).reshape(b, lc, -1, hd), p.norm_add_k.weight, 1e-5)
+    cq = rms_norm(linear(ctx, p.add_q_proj).reshape(b, lc, -1, hd), norm(p.norm_add_q), 1e-5)
+    ck = rms_norm(linear(ctx, p.add_k_proj).reshape(b, lc, -1, hd), norm(p.norm_add_k), 1e-5)
     cv = linear(ctx, p.add_v_proj).reshape(b, lc, -1, hd)
 
     q = apply_rope(torch.cat([cq, q], dim=1), rope_cos, rope_sin)

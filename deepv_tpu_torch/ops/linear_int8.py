@@ -24,6 +24,16 @@ product.
 ``weight_int8``; which layers do is decided by ``models/mmdit.quantize_mmdit``
 (the per-block attention and feed-forward linears; AdaLN, embedders and
 ``proj_out`` stay exact).
+
+Under tensor parallelism deepv_tpu quantises the sharded tree and GSPMD
+computes each formula on the whole arrays. A column-split layer needs
+nothing more: each output channel's weight row, and each token's replicated
+input, are whole on every rank. A row-split layer (its input features
+split over ``group``) takes the maximum over the group of the weight
+scale's ``max|w[o]|`` and of each token's ``max|x[tok]|``, and sums the
+int32 products over the group before the dequant; the bias is added once,
+after the sum. Maxima and integer sums are exact, so the result equals the
+single-device call bit for bit.
 """
 
 from __future__ import annotations
@@ -32,21 +42,31 @@ from typing import Tuple
 
 import torch
 
+from ..parallel import comm
+
 #: ``torch._int_mm`` calls since the count was last set to 0
 calls = 0
 
 
-def quantize_linear(weight: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``[out, in]`` -> (int8 weight, f32 per-output-channel scale)."""
+def _amax(x: torch.Tensor, dim: int, group, keepdim: bool = False) -> torch.Tensor:
+    """max|x| along ``dim``; with ``group``, the maximum over its ranks."""
+    m = x.abs().amax(dim=dim, keepdim=keepdim)
+    return m if group is None else comm.all_reduce(m, group, op="max")
+
+
+def quantize_linear(weight: torch.Tensor, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``[out, in]`` -> (int8 weight, f32 per-output-channel scale); with
+    ``group``, ``weight`` is this rank's slice of the input features."""
     wf = weight.to(torch.float32)
-    sw = torch.clamp_min(wf.abs().amax(dim=1) / 127.0, 1e-12)
+    sw = torch.clamp_min(_amax(wf, 1, group) / 127.0, 1e-12)
     return torch.round(wf / sw[:, None]).to(torch.int8), sw
 
 
-def quantize_tokens(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(x8, sx [..., 1]): per-token scale over the last axis."""
+def quantize_tokens(x: torch.Tensor, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x8, sx [..., 1]): per-token scale over the last axis; with ``group``,
+    over the features of every rank."""
     xf = x.to(torch.float32)
-    sx = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True), 1e-12) / 127.0
+    sx = torch.clamp_min(_amax(xf, -1, group, keepdim=True), 1e-12) / 127.0
     return torch.round(xf / sx).to(torch.int8), sx
 
 
@@ -75,13 +95,17 @@ def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out if (mp, np_) == (m, n) else out[:m, :n]
 
 
-def linear_int8(x: torch.Tensor, p) -> torch.Tensor:
+def linear_int8(x: torch.Tensor, p, group=None) -> torch.Tensor:
     """y = dequant(q(x) @ q(W)^T) + b; ``p`` holds ``weight_int8`` [out, in],
-    ``weight_scale`` [out] and an optional ``bias``."""
-    x8, sx = quantize_tokens(x)
+    ``weight_scale`` [out] and an optional ``bias``. With ``group`` the layer
+    is row-split: x and the weight hold this rank's input features, and the
+    int32 products are summed over the group."""
+    x8, sx = quantize_tokens(x, group)
     w8 = p.weight_int8
     acc = int_mm(x8.reshape(-1, x8.shape[-1]), w8.t())
     acc = acc.reshape(x.shape[:-1] + (w8.shape[0],))
+    if group is not None:
+        acc = comm.all_reduce(acc, group)
     y = acc.to(torch.float32) * sx * p.weight_scale
     bias = getattr(p, "bias", None)
     if bias is not None:

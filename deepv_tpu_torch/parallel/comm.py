@@ -10,8 +10,24 @@ machine can run the mesh path only as gloo ranks sharing the card, which
 rules out point-to-point calls. The neighbour exchange that ``ppermute``
 does is therefore an ``all_gather`` of each rank's edge rows.
 
+``all_reduce`` and ``all_gather`` act outside autograd: inference calls
+them under ``inference_mode``. The tensor-parallel forward that training
+differentiates goes through two ``torch.autograd.Function``s instead, the
+pair of Megatron's split (deepv_tpu's GSPMD derives the same reductions
+from the shardings):
+
+  - ``reduce``: the sum over the group in the forward, the identity in the
+    backward (each rank's partial product gets the whole cotangent of the
+    replicated sum); row-split outputs go through it;
+  - ``copy``: the identity in the forward, the sum of the cotangent over
+    the group in the backward (each rank's slice of a split computation
+    contributes a part of a replicated input's gradient); the input of every
+    column-split linear, and every replicated parameter that a rank applies
+    to its own heads only, go through it.
+
 ``counts`` and ``nbytes`` record, per collective, the calls since the last
-``reset_counts()`` and the bytes this rank handed in.
+``reset_counts()`` and the bytes this rank handed in; a backward's
+reductions count as ``all_reduce`` calls like the forward's.
 """
 
 from __future__ import annotations
@@ -56,6 +72,45 @@ def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, x, group=group)
     return torch.cat(parts, dim=dim)
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        # a copy: an autograd function must not modify its input in place
+        return all_reduce(x.clone(memory_format=torch.contiguous_format), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad.clone(memory_format=torch.contiguous_format), ctx.group), None
+
+
+def reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group`` (``all_reduce``), with the identity as
+    its backward. Where autograd does not record (inference), it is
+    ``all_reduce`` itself, in place, with the same bits."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Reduce.apply(x, group)
+    return all_reduce(x, group)
+
+
+def copy(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` itself in the forward; in the backward, its cotangent summed
+    over ``group``. No communication where autograd does not record."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Copy.apply(x, group)
+    return x
 
 
 def halo(x: torch.Tensor, dim: int, group, before: int, after: int

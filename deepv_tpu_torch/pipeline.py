@@ -274,10 +274,6 @@ def padded_conditions(cfg: PipelineConfig, clean: List[torch.Tensor],
     return out
 
 
-def _not_ported(option: str, item: str):
-    raise NotImplementedError(f"{option}: not ported yet (ROADMAP {item})")
-
-
 @dataclasses.dataclass
 class _Chunk:
     """``generate_i2v``'s state between two units of one chunk: the chunk's
@@ -362,8 +358,13 @@ class InferencePipeline:
     the whole VAE, and runs every encode and decode context-parallel over
     the ranks of ``mesh_axis``; exact priming is off. Latent H must divide
     by the axis size and pixel H by 8 times it. ``use_tiling`` and
-    ``reuse_decoder_cache`` raise ValueError with a mesh, and the int8 paths
-    NotImplementedError."""
+    ``reuse_decoder_cache`` raise ValueError with a mesh. The fast modes
+    compose with it: ``denoise_int8`` quantises this rank's share of the
+    MMDiT (the row-split layers' scales and int32 sums taken over the
+    ranks, ``ops/linear_int8.py``), and with ``VAEConfig(conv_impl="int8")``
+    the int8 conv weights are made as on one device, while every conv under
+    context parallelism runs ``F.conv3d`` on the float weights, as
+    deepv_tpu's do (``ops/causal_conv.py``)."""
 
     def __init__(self, cfg: PipelineConfig, mmdit_cfg: MMDiTConfig,
                  vae_cfg: VAEConfig, params: Dict, text_embeds: Dict,
@@ -387,8 +388,6 @@ class InferencePipeline:
                                 f"{type(mesh).__name__}")
             if mesh_axis not in mesh.axis_names:
                 raise ValueError(f"mesh has axes {mesh.axis_names}, expected {mesh_axis!r}")
-            if denoise_int8 or vae_cfg.conv_impl == "int8":
-                _not_ported("the int8 paths on a mesh", "M17c")
             if torch.device(device).type != mesh.device.type:
                 raise ValueError(f"device {device!r} and the mesh's {mesh.device} differ")
             device = mesh.device

@@ -20,7 +20,10 @@ flow-cache choice and ``--carry_latents`` adds the boundary carry mode.
 (``parallel/launch.spawn``): over NCCL on ``cuda:0`` .. ``cuda:N-1`` (the
 machine needs N cards), or over gloo with ``--device cpu``. The MMDiT is
 tensor-parallel and the VAE context-parallel over them
-(``InferencePipeline(mesh=...)``); rank 0 writes the outputs.
+(``InferencePipeline(mesh=...)``); rank 0 writes the outputs. ``--fast``,
+``--flow_cache`` and ``--carry_latents`` compose with it: the W8A8 linears
+run on each rank's share (the row-split ones summing int32 products over
+the ranks), and the VAE's convs under context parallelism run ``F.conv3d``.
 """
 
 from __future__ import annotations
@@ -156,8 +159,9 @@ def main(input_image: str, model_path: str, prompt_type: str = "text",
     """Roll out one image and write the video (and, with ``add_ply``, PLY
     files). ``tp_shards > 1`` outside a process group spawns that many ranks
     (NCCL on ``cuda:0..N-1``, or gloo with ``device="cpu"``), each running
-    this function inside the group; rank 0 writes the outputs. Returns the
-    path written (None on the other ranks)."""
+    this function inside the group, with every other option (``fast``,
+    ``flow_cache``, ``carry_latents``) as on one device; rank 0 writes the
+    outputs. Returns the path written (None on the other ranks)."""
     if aot_cache:
         raise NotImplementedError("aot_cache: not ported yet (ROADMAP M19c AOT cache)")
     args = dict(locals())

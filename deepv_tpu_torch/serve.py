@@ -15,6 +15,20 @@ once, where the batch CLI renders a whole action string first:
     with a /metrics endpoint.
   - ``prewarm`` and ``cli`` (``python -m deepv_tpu_torch.serve``).
 
+Over a mesh (a pipeline built with ``mesh=``, one process per rank): an
+``InteractiveSession`` on each rank, stepped in lockstep, runs the
+tensor-parallel denoise and the context-parallel VAE. ``SessionServer``
+runs on rank 0 only; every other rank runs ``follow``. Rank 0 sends the
+followers every operation that touches the device, in the order it runs
+them under its device lock (``start`` with the session id it drew,
+``step``, ``close`` and TTL eviction, ``prewarm``, ``stop``), over a gloo
+group of all ranks (NCCL carries only CUDA tensors); after each one the
+ranks exchange whether it raised. An operation that raises the same way on
+every rank (an unknown action) answers 500 and leaves every rank serving;
+one that raised on a follower only answers 500 naming the rank.
+``SessionServer.stop()`` ends the followers. deepv_tpu serves one program
+over its mesh, which needs none of this (``deepv_tpu/serve.py``).
+
 Exactness: a session stepping through the unit sequence produces the same
 frames as ``generate`` on the equivalent prompt list and seed: it runs the
 pipeline's own chunk prologue, unit and epilogue, making the same draws
@@ -41,6 +55,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .pipeline import InferencePipeline, TorchNoise, _disparity_postmap
 from .utils.profiling import synchronize
@@ -245,6 +260,76 @@ def _b64_np(d) -> np.ndarray:
     return a.reshape(d["shape"]).astype(np.float32)
 
 
+class _Lockstep:
+    """The control channel of a mesh pipeline's ranks: rank 0 sends each
+    operation to the others, and after it every rank reports whether it
+    raised. A gloo group of all ranks carries both (the default group when
+    it is gloo); every rank creates it once, as ``SessionServer`` (rank 0)
+    and ``follow`` (the others) do."""
+
+    def __init__(self):
+        self.group = (dist.group.WORLD if dist.get_backend() == "gloo"
+                      else dist.new_group(backend="gloo"))
+
+    def send(self, msg) -> None:
+        dist.broadcast_object_list([msg], src=0, group=self.group)
+
+    def receive(self):
+        box = [None]
+        dist.broadcast_object_list(box, src=0, group=self.group)
+        return box[0]
+
+    def status(self, error: Optional[str]) -> List[Optional[str]]:
+        """Every rank's error (None where the operation ran), in rank order."""
+        out = [None] * dist.get_world_size(self.group)
+        dist.all_gather_object(out, error, group=self.group)
+        return out
+
+
+def _error_text(e: BaseException) -> str:
+    return f"{type(e).__name__}: {e}"
+
+
+def follow(pipe: InferencePipeline) -> List[tuple]:
+    """The loop of a mesh rank other than 0 while rank 0 serves: run each
+    operation rank 0 sends, on this rank's own sessions, until ``stop``.
+    Returns what it ran: ``(operation, session id(s), ok)`` in order."""
+    if pipe.mesh is None or pipe.mesh.rank == 0:
+        raise ValueError("follow runs on the ranks of a mesh pipeline other than 0; rank 0 "
+                         "runs SessionServer")
+    channel = _Lockstep()
+    sessions: Dict[str, InteractiveSession] = {}
+    ran: List[tuple] = []
+    while True:
+        msg = channel.receive()
+        op, error = msg[0], None
+        try:
+            if op == "start":
+                _, sid, img, seed, prompt_type, options = msg
+                sessions[sid] = InteractiveSession(pipe, **options)
+                try:
+                    sessions[sid].start(img, seed=seed, prompt_type=prompt_type)
+                except Exception:
+                    del sessions[sid]
+                    raise
+            elif op == "step":
+                sessions[msg[1]].step(msg[2])
+            elif op == "close":
+                for sid in msg[1]:
+                    sessions.pop(sid, None)
+            elif op == "prewarm":
+                prewarm(pipe, **msg[1])
+            elif op != "stop":
+                raise ValueError(f"unknown operation {op!r}")
+        except Exception as e:   # reported to rank 0; this rank keeps serving
+            traceback.print_exc()
+            error = _error_text(e)
+        ran.append((op, msg[1] if len(msg) > 1 else None, error is None))
+        channel.status(error)
+        if op == "stop":
+            return ran
+
+
 class SessionServer:
     """Minimal JSON-over-HTTP server around ``InteractiveSession``s.
 
@@ -277,6 +362,12 @@ class SessionServer:
     None disables) are evicted lazily on the next request, releasing their
     device state; ``/metrics`` reports the eviction count. A failing step
     answers 500 with the error's summary and prints its traceback here.
+
+    On a mesh pipeline the server runs on rank 0 and the other ranks in
+    ``follow`` (module docstring): each device operation is sent to them
+    under the device lock before rank 0 runs it. A close or an eviction is
+    sent when the device lock is free, at once or right after the operation
+    holding it, so ``/close`` and ``/metrics`` never wait for a step.
     """
 
     def __init__(self, pipe: InferencePipeline, host: str = "127.0.0.1", port: int = 0,
@@ -301,13 +392,24 @@ class SessionServer:
         self._registry_lock = threading.Lock()  # sessions dict; never held
         #                                         across device work
         self.evicted_total = 0
+        mesh = self.pipes[0].mesh
+        if mesh is not None and (len(self.pipes) > 1 or mesh.rank != 0):
+            raise ValueError("a mesh pipeline is served by one SessionServer on rank 0; the "
+                             "other ranks run serve.follow")
+        #: the control channel to the other ranks of a mesh pipeline
+        self._lockstep = None if mesh is None else _Lockstep()
+        self._pending_close: List[str] = []
         outer = self
 
         def forget(sid: str) -> bool:
-            """Drop a session's registry entries (registry lock held)."""
+            """Drop a session's registry entries (registry lock held); on a
+            mesh, queue its close for the other ranks."""
             outer._last_used.pop(sid, None)
             outer._stream_of.pop(sid, None)
-            return outer.sessions.pop(sid, None) is not None
+            known = outer.sessions.pop(sid, None) is not None
+            if known and outer._lockstep is not None:
+                outer._pending_close.append(sid)
+            return known
 
         def per_stream() -> List[int]:
             """Sessions pinned to each stream (registry lock held)."""
@@ -328,6 +430,7 @@ class SessionServer:
                 for sid in dead:
                     forget(sid)
                 outer.evicted_total += len(dead)
+            outer._send_closes()
 
         class Handler(BaseHTTPRequestHandler):
             def log_message(self, fmt, *args):
@@ -386,19 +489,26 @@ class SessionServer:
                             outer.sessions[sid] = sess
                             outer._last_used[sid] = time.time()
                             outer._stream_of[sid] = stream
+                        img, seed = _b64_np(req["image"]), int(req.get("seed", 666))
+                        prompt_type = req.get("prompt_type", "action")
+                        options = dict(reuse_decoder_cache=outer.reuse_decoder_cache,
+                                       history_limit_chunks=outer.history_limit_chunks)
                         try:
                             with outer._device_locks[stream]:
-                                sess.start(_b64_np(req["image"]),
-                                           seed=int(req.get("seed", 666)),
-                                           prompt_type=req.get("prompt_type", "action"))
+                                outer._on_ranks(
+                                    ("start", sid, img, seed, prompt_type, options),
+                                    lambda: sess.start(img, seed=seed, prompt_type=prompt_type))
                         except Exception:
                             with outer._registry_lock:
                                 forget(sid)
                             raise
+                        finally:
+                            outer._send_closes()
                         self._json(200, {"session_id": sid})
                     elif self.path == "/close":
                         with outer._registry_lock:
                             closed = forget(req.get("session_id", ""))
+                        outer._send_closes()
                         self._json(200 if closed else 404, {"closed": closed})
                     elif self.path == "/step":
                         sid = req.get("session_id", "")
@@ -408,17 +518,22 @@ class SessionServer:
                         if sess is None:
                             self._json(404, {"error": "unknown session"})
                             return
-                        with outer._device_locks[stream]:
-                            # re-check: a /close racing the queue wait must
-                            # not resurrect the session's device state
-                            with outer._registry_lock:
-                                if outer.sessions.get(sid) is not sess:
-                                    self._json(404, {"error": "session closed"})
-                                    return
-                                outer._last_used[sid] = time.time()
-                            out = sess.step(req["action"])
-                            rgb = _np_b64(out["rgb"])
-                            disp = _np_b64(out["disparity"])
+                        action = req["action"]
+                        try:
+                            with outer._device_locks[stream]:
+                                # re-check: a /close racing the queue wait
+                                # must not resurrect the session's device state
+                                with outer._registry_lock:
+                                    if outer.sessions.get(sid) is not sess:
+                                        self._json(404, {"error": "session closed"})
+                                        return
+                                    outer._last_used[sid] = time.time()
+                                out = outer._on_ranks(("step", sid, action),
+                                                      lambda: sess.step(action))
+                                rgb = _np_b64(out["rgb"])
+                                disp = _np_b64(out["disparity"])
+                        finally:
+                            outer._send_closes()
                         with outer._registry_lock:
                             # a /close may have raced the step: refresh only
                             # a session that still exists, or a _last_used
@@ -440,16 +555,64 @@ class SessionServer:
         self.port = self.httpd.server_address[1]
         self._thread: Optional[threading.Thread] = None
 
+    def _on_ranks(self, msg, fn):
+        """``fn()`` on this rank; on a mesh, ``msg`` sent to the other ranks
+        first and their outcome gathered after (the device lock held).
+        Raises what ``fn`` raised, or, where only another rank failed, a
+        RuntimeError naming it."""
+        if self._lockstep is None:
+            return fn()
+        self._lockstep.send(msg)
+        try:
+            out = fn()
+        except Exception as e:
+            self._lockstep.status(_error_text(e))
+            raise
+        failed = [(r, e) for r, e in enumerate(self._lockstep.status(None)) if e is not None]
+        if failed:
+            raise RuntimeError("; ".join(f"rank {r}: {e}" for r, e in failed))
+        return out
+
+    def _send_closes(self) -> None:
+        """Send the queued closes to the other ranks of a mesh if the device
+        lock is free; where an operation holds it, its holder calls this
+        again once it has let go."""
+        lock = self._device_locks[0]
+        while self._pending_close and lock.acquire(blocking=False):
+            try:
+                with self._registry_lock:
+                    sids, self._pending_close = self._pending_close, []
+                if sids:
+                    self._on_ranks(("close", sids), lambda: None)
+            finally:
+                lock.release()
+
+    def prewarm(self, height: int = 384, width: int = 512, seed: int = 0, log=print) -> float:
+        """``prewarm`` of the (first) pipeline, on every rank of a mesh."""
+        kw = dict(height=height, width=width, reuse_decoder_cache=self.reuse_decoder_cache,
+                  seed=seed)
+        with self._device_locks[0]:
+            return self._on_ranks(("prewarm", kw), lambda: prewarm(self.pipes[0], log=log, **kw))
+
     def start(self) -> int:
         self._thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
         self._thread.start()
         return self.port
 
     def stop(self) -> None:
+        """Stop serving; on a mesh, the other ranks' ``follow`` returns."""
         self.httpd.shutdown()
         self.httpd.server_close()
         if self._thread:
             self._thread.join(timeout=5)
+        if self._lockstep is not None:
+            with self._device_locks[0]:
+                with self._registry_lock:
+                    sids, self._pending_close = self._pending_close, []
+                if sids:
+                    self._on_ranks(("close", sids), lambda: None)
+                self._on_ranks(("stop",), lambda: None)
+            self._lockstep = None
 
 
 def prewarm(pipe: InferencePipeline, height: int = 384, width: int = 512,
@@ -495,7 +658,9 @@ def cli():
                    help="random-initialise the full model with a seeded torch generator "
                         "instead of loading the snapshot at --model_path")
     p.add_argument("--tp_shards", type=int, default=1,
-                   help="only 1 is ported: serving over a mesh is not (ROADMAP M17c)")
+                   help="serve one pipeline sharded over this many cards (TP denoise + "
+                        "spatial-CP VAE), one rank per card over NCCL; rank 0 binds the "
+                        "HTTP port; 1 = single device")
     p.add_argument("--streams", type=int, default=1,
                    help="run this many INDEPENDENT pipelines, one per card (multi-stream "
                         "serving: request throughput scales with cards; latency per "
@@ -530,16 +695,21 @@ def cli():
                    flow_cache=args.flow_cache, carry_latents=args.carry_latents)
     if args.streams > 1:
         if args.tp_shards > 1:
-            raise SystemExit("--streams and --tp_shards are mutually exclusive (per-card "
-                             "pipelines vs one pipeline sharded across cards)")
+            raise SystemExit("--streams and --tp_shards are mutually exclusive (per-chip "
+                             "pipelines vs one pipeline sharded across chips)")
         n_cards = torch.cuda.device_count()
         if args.streams > n_cards:
             raise SystemExit(f"--streams {args.streams} > {n_cards} visible devices")
         pipe = [load_pipeline(args.model_path, model_cfg, device=f"cuda:{i}", **options)
                 for i in range(args.streams)]
     elif args.tp_shards > 1:
-        raise NotImplementedError("tp_shards: serving over a mesh is not ported yet "
-                                  "(ROADMAP M17c)")
+        from .parallel.launch import spawn
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if cards < args.tp_shards:
+            raise RuntimeError(f"--tp_shards {args.tp_shards} serves one rank per card over "
+                               f"NCCL and needs {args.tp_shards} cards; this machine has {cards}")
+        spawn(_serve_rank, args.tp_shards, (args, model_cfg, options), backend="nccl")
+        return
     else:
         pipe = load_pipeline(args.model_path, model_cfg, **options)
     if not args.no_prewarm:
@@ -550,8 +720,30 @@ def cli():
             print(f"[serve] prewarming stream {i}/{len(pipes)} ...", flush=True)
             prewarm(pp, height=args.height, width=args.width,
                     reuse_decoder_cache=args.reuse_decoder_cache)
+    _serve(args, SessionServer(pipe, host=args.host, port=args.port,
+                               reuse_decoder_cache=args.reuse_decoder_cache))
+
+
+def _serve_rank(args, model_cfg, options) -> None:
+    """One rank of ``cli --tp_shards``, inside the process group: rank 0
+    serves (prewarming every rank first), the others follow."""
+    from .run import load_pipeline
+
+    pipe = load_pipeline(args.model_path, model_cfg, tp_shards=args.tp_shards, **options)
+    if pipe.mesh.rank != 0:
+        follow(pipe)
+        return
+    # the port is bound here and accepts once the warm-up has run
     server = SessionServer(pipe, host=args.host, port=args.port,
                            reuse_decoder_cache=args.reuse_decoder_cache)
+    if not args.no_prewarm:
+        print(f"[serve] prewarming the {args.tp_shards} ranks ...", flush=True)
+        server.prewarm(height=args.height, width=args.width)
+    _serve(args, server)
+
+
+def _serve(args, server: SessionServer) -> None:
+    """Accept requests until interrupted."""
     port = server.start()
     print(f"[serve] listening on http://{args.host}:{port} "
           f"(POST /session, POST /step, POST /close, GET /metrics)", flush=True)

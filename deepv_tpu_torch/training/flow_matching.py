@@ -25,6 +25,17 @@ parameter given a gradient (zeros where none arrived: ``jax.value_and_grad``
 gives an unused leaf a zero gradient and optax's AdamW still decays it and
 advances its moments, while ``torch.optim.AdamW`` skips a parameter whose
 ``.grad`` is None), then ``optimizer.step()``.
+
+Over a mesh (``mesh`` with a ``dp`` axis, one process per rank; deepv_tpu's
+step sharded DP x TP by GSPMD, ``deepv_tpu/parallel/dryrun.py``): the model
+is this rank's tensor-parallel share (``MMDiT(cfg, tp_group=...)`` on
+``parallel/tp.shard_mmdit_params``, whose forward sums the split products
+and gradients over ``tp``), and each rank takes its ``dp`` slice of the
+batch and of the random draws (``BatchSliceNoise``). The step averages the
+gradients over the ``dp`` group, the sum divided by its size, before
+AdamW, and returns the global mean loss: with equal slices, the mean over
+the global batch that deepv_tpu's step computes. AdamW then makes the same
+update on every rank of a ``dp`` line, which end the step with the same bits.
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ from __future__ import annotations
 from typing import Callable, Dict
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..config import PipelineConfig
@@ -39,7 +51,33 @@ from ..models.mmdit import MMDiT, mmdit_forward
 from ..models.scheduler import FlowMatchSchedule
 from ..ops.block_noise import block_noise_from_z, block_noise_shape
 from ..ops.resample import up2x_nearest
+from ..parallel import comm
 from ..pipeline import _pyramid_list, padded_conditions
+
+
+class BatchSliceNoise:
+    """The draws of the global batch, of which this data-parallel rank
+    takes its slice: each draw is made at the global batch (``count`` times
+    the rank's, along dim 0) from ``noise`` and rows ``index * b`` to
+    ``(index + 1) * b`` are returned, so the ranks of a ``dp`` axis together
+    use the draws of one single-device step."""
+
+    def __init__(self, noise, index: int, count: int):
+        self.noise, self.index, self.count = noise, index, count
+
+    def _slice(self, x: torch.Tensor, b: int) -> torch.Tensor:
+        return x[self.index * b:(self.index + 1) * b]
+
+    def normal(self, kind: str, shape, dtype) -> torch.Tensor:
+        shape = tuple(shape)
+        return self._slice(self.noise.normal(kind, (shape[0] * self.count,) + shape[1:], dtype),
+                           shape[0])
+
+    def uniform(self, kind: str, shape, low: float, high: float,
+                dtype=torch.float32) -> torch.Tensor:
+        shape = tuple(shape)
+        return self._slice(self.noise.uniform(kind, (shape[0] * self.count,) + shape[1:], low,
+                                              high, dtype), shape[0])
 
 
 def flow_matching_loss(model: MMDiT, batch: Dict, noise) -> torch.Tensor:
@@ -115,36 +153,59 @@ def pyramid_flow_matching_loss(model: MMDiT, pcfg: PipelineConfig,
 
 
 def optimizer_step(model: nn.Module, optimizer: torch.optim.Optimizer,
-                   loss_fn: Callable[[], torch.Tensor]) -> torch.Tensor:
+                   loss_fn: Callable[[], torch.Tensor], dp_group=None) -> torch.Tensor:
     """One step: the loss, its gradients, zeros for every parameter no
-    gradient reached, the optimizer's update. Returns the loss, detached."""
+    gradient reached, the optimizer's update. Returns the loss, detached.
+    With ``dp_group`` the gradients and the loss are averaged over its ranks
+    first (the sum divided by the group's size)."""
     optimizer.zero_grad(set_to_none=True)
     loss = loss_fn()
     loss.backward()
     for p in model.parameters():
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    loss = loss.detach()
+    if dp_group is not None:
+        n = dist.get_world_size(dp_group)
+        for p in model.parameters():
+            p.grad = comm.all_reduce(p.grad, dp_group).div_(n)
+        loss = comm.all_reduce(loss.clone(), dp_group) / n
     optimizer.step()
-    return loss.detach()
+    return loss
 
 
-def make_train_step(model: MMDiT, optimizer: torch.optim.Optimizer):
+def _dp_group(mesh, dp_axis: str):
+    """The ``dp`` axis's group of ``mesh``, or None (no mesh)."""
+    if mesh is None:
+        return None
+    if dp_axis not in mesh.axis_names:
+        raise ValueError(f"mesh has axes {mesh.axis_names}, expected {dp_axis!r}")
+    return mesh.group(dp_axis)
+
+
+def make_train_step(model: MMDiT, optimizer: torch.optim.Optimizer, mesh=None,
+                    dp_axis: str = "dp"):
     """Returns (batch, noise) -> loss, a single-clip step that updates
-    ``model`` and ``optimizer`` in place."""
+    ``model`` and ``optimizer`` in place. With ``mesh`` the caller passes this
+    rank's ``dp`` slice of the batch and of the draws (module docstring)."""
+    dp_group = _dp_group(mesh, dp_axis)
 
     def train_step(batch: Dict, noise) -> torch.Tensor:
-        return optimizer_step(model, optimizer, lambda: flow_matching_loss(model, batch, noise))
+        return optimizer_step(model, optimizer, lambda: flow_matching_loss(model, batch, noise),
+                              dp_group)
 
     return train_step
 
 
 def make_pyramid_train_step(model: MMDiT, pcfg: PipelineConfig, schedule: FlowMatchSchedule,
-                            optimizer: torch.optim.Optimizer):
+                            optimizer: torch.optim.Optimizer, mesh=None, dp_axis: str = "dp"):
     """Returns (batch, noise, stage, unit_index) -> loss, a pyramid step that
-    updates ``model`` and ``optimizer`` in place."""
+    updates ``model`` and ``optimizer`` in place. With ``mesh`` the caller
+    passes this rank's ``dp`` slice of the batch and of the draws."""
+    dp_group = _dp_group(mesh, dp_axis)
 
     def train_step(batch: Dict, noise, stage: int, unit_index: int) -> torch.Tensor:
         return optimizer_step(model, optimizer, lambda: pyramid_flow_matching_loss(
-            model, pcfg, schedule, batch, noise, stage, unit_index))
+            model, pcfg, schedule, batch, noise, stage, unit_index), dp_group)
 
     return train_step

@@ -89,18 +89,36 @@ def test_source_imports_no_jax_or_deepv_tpu(path):
 
 def test_source_scan_reaches_every_kernel_module():
     """The scan above covers the modules of every kernel and int8 path, the
-    serving, training and mesh entry points; the import check imports them
-    too."""
+    serving (its mesh follower too), training and mesh entry points, the
+    dry run; the import check imports them too."""
     scanned = {str(p.relative_to(PACKAGE)) for p in PACKAGE.rglob("*.py")}
     for module in ("ops/attention.py", "ops/conv_igemm.py", "ops/conv_int8.py",
                    "ops/linear_int8.py", "models/mmdit.py", "pipeline.py", "serve.py",
                    "io/checkpoint.py", "training/flow_matching.py", "training/trainer.py",
                    "parallel/comm.py", "parallel/cp.py", "parallel/launch.py",
-                   "parallel/mesh.py", "parallel/tp.py"):
+                   "parallel/mesh.py", "parallel/tp.py", "parallel/dryrun.py"):
         assert module in scanned, module
     for module in ("deepv_tpu_torch.serve", "deepv_tpu_torch.training.trainer",
-                   "deepv_tpu_torch.parallel.launch"):
+                   "deepv_tpu_torch.parallel.launch", "deepv_tpu_torch.parallel.dryrun"):
         assert module in port_modules(), module
+
+
+def test_mesh_entry_points_import_without_jax():
+    """What a spawned rank of the dry run or of mesh serving imports, alone
+    in a fresh interpreter: the dry run's rank function and the serving
+    follower pull in no JAX and no deepv_tpu."""
+    code = (
+        "import json, sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "from deepv_tpu_torch.parallel.dryrun import dryrun_rank, run_dryrun\n"
+        "from deepv_tpu_torch.serve import SessionServer, follow\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'deepv_tpu', 'optax', 'orbax'))\n"
+        "print(json.dumps(bad))\n")
+    proc = subprocess.run([sys.executable, "-I", "-c", code], capture_output=True, text=True,
+                          timeout=300, cwd=str(ROOT))
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

@@ -533,8 +533,9 @@ def test_serve_help_runs():
 
 @pytest.mark.parametrize("argv, error, match", [
     (["--random_weights", "--aot_cache", "d"], NotImplementedError, "M19c"),
-    # the mesh rollout is ported (M17b); serving over a mesh is not
-    pytest.param(["--random_weights", "--tp_shards", "2"], NotImplementedError, "M17c",
+    # serving over a mesh is ported (M17c): one NCCL rank per card, so a
+    # machine without 2 cards refuses, naming its count
+    pytest.param(["--random_weights", "--tp_shards", "2"], RuntimeError, "this machine has 0",
                  id="argv1-NotImplementedError-M17"),
     ([], RuntimeError, "no CUDA device"),
     (["--random_weights", "--streams", "2", "--tp_shards", "2"], SystemExit, "exclusive"),

@@ -16,12 +16,16 @@ import torch
 
 from deepv_tpu_torch.config import MMDiTConfig, PipelineConfig, VAEConfig
 from deepv_tpu_torch.io.weights import params_from_numpy
-from deepv_tpu_torch.models.mmdit import MMDiT, mmdit_forward
+from deepv_tpu_torch.models.mmdit import Int8Linear, MMDiT, mmdit_forward, quantize_mmdit
+from deepv_tpu_torch.models.scheduler import FlowMatchSchedule
 from deepv_tpu_torch.models.vae import VAE
+from deepv_tpu_torch.ops import causal_conv, conv_int8, linear_int8
 from deepv_tpu_torch.parallel import comm, cp
 from deepv_tpu_torch.parallel.mesh import make_mesh
 from deepv_tpu_torch.parallel.tp import shard_mmdit_params
 from deepv_tpu_torch.pipeline import InferencePipeline, TorchNoise
+from deepv_tpu_torch.training.flow_matching import BatchSliceNoise, make_pyramid_train_step
+from deepv_tpu_torch.training.trainer import Trainer
 
 
 def forbidden_modules():
@@ -144,5 +148,285 @@ def rollout_rank(mcfg_kwargs: dict, params, embeds, batch, draws):
                              device="cpu", mesh=mesh, flow_cache="adaptive:0.5")
     out["adaptive"] = pipe.generate(batch, seed=9, noise=TorchNoise(9, "cpu"))
     out["adaptive_decisions"] = list(pipe.recompute_log)
+    out["forbidden_modules"] = forbidden_modules()
+    return out
+
+
+class FedDraws:
+    """A noise source handing out given draws (numpy, by kind, in order);
+    a draw must have the shape and dtype the port asks for."""
+
+    def __init__(self, draws):
+        self.queues = {k: list(v) for k, v in draws.items()}
+
+    def _take(self, kind, shape, dtype):
+        x = torch.from_numpy(np.array(self.queues[kind].pop(0)))
+        assert tuple(x.shape) == tuple(shape) and x.dtype == dtype, (kind, x.shape, shape)
+        return x
+
+    def normal(self, kind, shape, dtype):
+        return self._take(kind, shape, dtype)
+
+    def uniform(self, kind, shape, low, high, dtype=torch.float32):
+        return self._take(kind, shape, dtype)
+
+
+def _forward(model, f):
+    """``mmdit_forward`` on tests/test_torch_port_parallel.py's packed inputs."""
+    t = torch.from_numpy
+    return mmdit_forward(
+        model, [t(c) for c in f["clips"]], t(f["text"]), t(f["mask"]), t(f["pooled"]),
+        t(f["timestep"]), history=t(f["history"]), history_mask=t(f["history_mask"]),
+        frame_times=[t(x) for x in f["frame_times"]],
+        frame_valid=[t(x) for x in f["frame_valid"]], split_last_attn=True)
+
+
+def _grads(model):
+    """Every leaf's gradient (zeros where none arrived), as numpy."""
+    return {n: (torch.zeros_like(p) if p.grad is None else p.grad).numpy().copy()
+            for n, p in model.named_parameters()}
+
+
+def _params(model):
+    return {n: p.detach().numpy().copy() for n, p in model.named_parameters()}
+
+
+def training_rank(pyr_kwargs: dict, pyr_tree, forward: dict, dp_kwargs: dict, dp_tree,
+                  dp_batch: dict, dp_draws: dict, lr: float, wd: float):
+    """On a (dp 2, tp 2) mesh of 4 ranks, in float64: (a) the gradient of
+    sum(v**2) through the TP MMDiT on its tp group, and the forward's
+    reductions with and without autograd; (b) the DP x TP pyramid step
+    (stage 1, unit 3) on this rank's dp slice of the batch and of the given
+    draws; (c) a TP-only ``Trainer`` step on the whole batch (each dp line
+    alone). Returns numpy."""
+    import deepv_tpu_torch.parallel.dryrun  # noqa: F401  (what a dryrun rank imports)
+
+    torch.set_num_threads(1)
+    mesh = cpu_mesh((2, 2), ("dp", "tp"))
+    tp = mesh.group("tp")
+    out = {"rank": mesh.rank, "dp": mesh.index("dp"), "tp": mesh.index("tp")}
+
+    pyr = MMDiTConfig(**pyr_kwargs)
+    model = params_from_numpy(MMDiT(pyr, tp_group=tp),
+                              shard_mmdit_params(pyr_tree, mesh)).requires_grad_(True)
+    comm.reset_counts()
+    v = _forward(model, forward)
+    fwd = dict(comm.counts), dict(comm.nbytes)
+    (v ** 2).sum().backward()
+    out["f9_grads"] = _grads(model)
+    out["f9_counts"] = (fwd, (dict(comm.counts), dict(comm.nbytes)))
+    with torch.inference_mode():
+        comm.reset_counts()
+        again = _forward(model, forward)
+        out["f9_inference"] = (dict(comm.counts), dict(comm.nbytes))
+    out["f9_forward_equal"] = bool(torch.equal(again, v.detach()))
+
+    model = params_from_numpy(MMDiT(MMDiTConfig(**dp_kwargs), tp_group=tp),
+                              shard_mmdit_params(dp_tree, mesh)).requires_grad_(True)
+    optimizer = torch.optim.AdamW(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                  weight_decay=wd)
+    pcfg = PipelineConfig()
+    step = make_pyramid_train_step(model, pcfg, FlowMatchSchedule(pcfg.scheduler), optimizer,
+                                   mesh=mesh)
+    i, n = mesh.index("dp"), mesh.shape["dp"]
+    b = dp_batch["latents"].shape[0] // n
+    batch = {k: torch.from_numpy(v[i * b:(i + 1) * b]) for k, v in dp_batch.items()}
+    draws = FedDraws(dp_draws)
+    out["dp_loss"] = float(step(batch, BatchSliceNoise(draws, i, n), 1, 3))
+    out["dp_draws_left"] = sum(map(len, draws.queues.values()))
+    out["dp_grads"], out["dp_params"] = _grads(model), _params(model)
+    state = [optimizer.state[p] for p in model.parameters()]
+    names = [name for name, _ in model.named_parameters()]
+    out["dp_mu"] = {k: s["exp_avg"].numpy().copy() for k, s in zip(names, state)}
+    out["dp_nu"] = {k: s["exp_avg_sq"].numpy().copy() for k, s in zip(names, state)}
+
+    model = params_from_numpy(MMDiT(pyr, tp_group=tp), shard_mmdit_params(pyr_tree, mesh))
+    trainer = Trainer(pyr, model, learning_rate=lr, weight_decay=wd, sample_seed=3,
+                      device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in forward["trainer_batch"].items()}
+    out["trainer_loss"] = float(trainer.train([batch], TorchNoise(11, "cpu"), log_every=0)[0])
+    out["trainer_params"] = _params(trainer.model)
+    out["forbidden_modules"] = forbidden_modules()
+    return out
+
+
+def _linear(w: torch.Tensor, b: torch.Tensor) -> torch.nn.Linear:
+    lin = torch.nn.Linear(w.shape[1], w.shape[0], dtype=w.dtype)
+    with torch.no_grad():
+        lin.weight.copy_(w)
+        lin.bias.copy_(b)
+    return lin
+
+
+def int8_rank(mcfg_kwargs: dict, tree, forward: dict, params, embeds, batch, draws):
+    """On 2 ranks: (a) the W8A8 linear column- and row-split against the
+    whole one, f32 and f64; (b) the TP int8 MMDiT forward against the
+    single-device int8 forward; (c) a one-chunk float64 ``--fast`` rollout
+    on the mesh (skip_odd, the W8A8 linears, ``conv_impl="int8"`` with
+    ``MIN_H`` at 64 so that a single-device run would take the int8 conv at
+    this size) with the recorded draws, counting ``int_mm`` calls, the
+    dispatches to the int8 conv and the dtypes of the reductions."""
+    torch.set_num_threads(1)
+    mesh = cpu_mesh((2,), ("tp",))
+    g, r = mesh.group("tp"), mesh.index("tp")
+    out = {"rank": mesh.rank, "linear": {}}
+    rng = np.random.default_rng(3)
+    for dtype in (torch.float32, torch.float64):
+        x = torch.from_numpy(rng.standard_normal((2, 33, 24))).to(dtype)
+        x[0, 5] = 0.0                                  # a token whose scale clamps
+        w = torch.from_numpy(rng.standard_normal((40, 24))).to(dtype)
+        b = torch.from_numpy(rng.standard_normal(40)).to(dtype)
+        whole = linear_int8.linear_int8(x, Int8Linear(_linear(w, b)))
+        col = linear_int8.linear_int8(x, Int8Linear(_linear(w[r * 20:(r + 1) * 20],
+                                                            b[r * 20:(r + 1) * 20])))
+        row = linear_int8.linear_int8(x[..., r * 12:(r + 1) * 12],
+                                      Int8Linear(_linear(w[:, r * 12:(r + 1) * 12], b), g), g)
+        out["linear"][str(dtype)] = dict(
+            column=bool(torch.equal(col, whole[..., r * 20:(r + 1) * 20])),
+            row=bool(torch.equal(row, whole)), dtype=str(row.dtype))
+
+    cfg = MMDiTConfig(**mcfg_kwargs)
+    for dtype in (torch.float32, torch.float64):
+        f = dict(forward, clips=[c.astype(cast_np(dtype)) for c in forward["clips"]],
+                 text=forward["text"].astype(cast_np(dtype)),
+                 pooled=forward["pooled"].astype(cast_np(dtype)),
+                 history=forward["history"].astype(cast_np(dtype)))
+        tp_tree = jax_free_map(tree, cast_np(dtype))
+        model = quantize_mmdit(params_from_numpy(MMDiT(cfg, tp_group=g),
+                                                 shard_mmdit_params(tp_tree, mesh)))
+        single = quantize_mmdit(params_from_numpy(MMDiT(cfg), tp_tree))
+        with torch.inference_mode():
+            linear_int8.calls = 0
+            v_mesh = _forward(model, f)
+            mesh_calls = linear_int8.calls
+            linear_int8.calls = 0
+            v_single = _forward(single, f)
+        out[f"forward {dtype}"] = dict(equal=bool(torch.equal(v_mesh, v_single)),
+                                       max_abs=float((v_mesh - v_single).abs().max()),
+                                       int_mm=(mesh_calls, linear_int8.calls))
+
+    routed, reduced = [0], []
+    orig_conv, orig_reduce, orig_min_h = causal_conv.conv3d_int8, comm.all_reduce, conv_int8.MIN_H
+
+    def conv_spy(*a, **k):
+        routed[0] += 1
+        return orig_conv(*a, **k)
+
+    def reduce_spy(x, group, op="sum"):
+        reduced.append((str(x.dtype), op))
+        return orig_reduce(x, group, op)
+
+    vcfg = VAEConfig(**{**VAEConfig.tiny().__dict__, "conv_impl": "int8"})
+    pipe = InferencePipeline(PipelineConfig(), cfg, vcfg, params, embeds, dtype=torch.float64,
+                             device="cpu", mesh=mesh, flow_cache="skip_odd", denoise_int8=True)
+    noise = ReplayNoise(draws)
+    causal_conv.conv3d_int8, comm.all_reduce, conv_int8.MIN_H = conv_spy, reduce_spy, 64
+    linear_int8.calls = 0
+    try:
+        out["fast"] = pipe.generate(batch, seed=9, noise=noise)
+    finally:
+        causal_conv.conv3d_int8, comm.all_reduce, conv_int8.MIN_H = (orig_conv, orig_reduce,
+                                                                      orig_min_h)
+    out["fast_int_mm"] = linear_int8.calls
+    out["fast_recompute"] = list(pipe.recompute_log)
+    out["fast_conv_int8"] = routed[0]
+    out["fast_reductions"] = sorted(set(reduced))
+    out["fast_draws_left"] = {k: len(q) for k, q in noise.queues.items()}
+    out["forbidden_modules"] = forbidden_modules()
+    return out
+
+
+def cast_np(dtype):
+    return np.float64 if dtype == torch.float64 else np.float32
+
+
+def jax_free_map(tree, np_dtype):
+    """``tree`` with every leaf cast to ``np_dtype``."""
+    if isinstance(tree, dict):
+        return {k: jax_free_map(v, np_dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [jax_free_map(v, np_dtype) for v in tree]
+    return np.asarray(tree).astype(np_dtype)
+
+
+def _http(port: int, method: str, path: str, obj=None):
+    """(status, json body) of one request to the server on 127.0.0.1."""
+    import http.client
+    import json
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    body = None if obj is None else json.dumps(obj)
+    conn.request(method, path, body=body, headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    out = resp.status, json.loads(resp.read() or b"{}")
+    conn.close()
+    return out
+
+
+def serve_rank(mcfg_kwargs: dict, params, embeds, img, draws, actions, batch32, seed32):
+    """On 2 ranks: (a) a float64 ``InteractiveSession`` on the mesh through
+    ``actions`` with the recorded draws; (b) in float32, the mesh
+    ``generate()`` of ``batch32``, then ``SessionServer`` on rank 0 with
+    ``follow`` on rank 1: a prewarm at 64x64, a session of those units at
+    ``seed32``, /metrics, /close, a session whose step fails and one that
+    then runs, a session evicted by the TTL, and ``stop()``. Returns numpy;
+    rank 1 returns what ``follow`` ran."""
+    from deepv_tpu_torch.serve import InteractiveSession, SessionServer, _b64_np, _np_b64, follow
+
+    torch.set_num_threads(1)
+    mesh = cpu_mesh((2,), ("tp",))
+    mcfg, vcfg = MMDiTConfig(**mcfg_kwargs), VAEConfig.tiny()
+    out = {"rank": mesh.rank}
+    pipe = InferencePipeline(PipelineConfig(), mcfg, vcfg, params, embeds, dtype=torch.float64,
+                             device="cpu", mesh=mesh)
+    sess = InteractiveSession(pipe)
+    sess.start(img, seed=9, noise=ReplayNoise(draws))
+    out["session"] = [{k: (v.numpy() if isinstance(v, torch.Tensor) else v)
+                       for k, v in sess.step(a).items()} for a in actions]
+    out["session_draws_left"] = {k: len(q) for k, q in sess.noise.queues.items()}
+    del sess, pipe
+
+    params32 = jax_free_map(params, np.float32)
+    pipe = InferencePipeline(PipelineConfig(), mcfg, vcfg, params32, embeds,
+                             dtype=torch.float32, device="cpu", mesh=mesh)
+    gen = pipe.generate(batch32, seed=seed32)
+    out["generate"] = gen["pred_img"].numpy()
+    if mesh.rank != 0:
+        out["followed"] = follow(pipe)
+        out["forbidden_modules"] = forbidden_modules()
+        return out
+
+    server = SessionServer(pipe, port=0)
+    server.prewarm(height=64, width=64, log=lambda *a: None)
+    port = server.start()
+    try:
+        calls = out["calls"] = []
+
+        def call(method, path, obj=None):
+            status, body = _http(port, method, path, obj)
+            calls.append((path, status))
+            return status, body
+
+        image = _np_b64(batch32["img"])
+        _, body = call("POST", "/session", {"image": image, "seed": seed32})
+        sid = body["session_id"]
+        served = []
+        for a in actions:
+            status, body = call("POST", "/step", {"session_id": sid, "action": a})
+            assert status == 200, body
+            served.append(_b64_np(body["rgb"]))
+        out["served"] = np.concatenate(served, axis=2)
+        out["metrics"] = call("GET", "/metrics")[1]
+        call("POST", "/close", {"session_id": sid})
+        _, body = call("POST", "/session", {"image": image, "seed": 1})
+        sid = body["session_id"]
+        out["failed_step"] = call("POST", "/step", {"session_id": sid, "action": "no such action"})
+        out["next_step"] = call("POST", "/step", {"session_id": sid, "action": actions[0]})[0]
+        call("POST", "/close", {"session_id": sid})
+        _, body = call("POST", "/session", {"image": image, "seed": 2})
+        server.session_ttl_s = 0.0
+        out["evicted_metrics"] = call("GET", "/metrics")[1]
+        out["evicted_sid"] = body["session_id"]
+    finally:
+        server.stop()
     out["forbidden_modules"] = forbidden_modules()
     return out
