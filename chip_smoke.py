@@ -112,7 +112,8 @@ Phases, in order; any failure exits non-zero before the last line:
  12. adaptive + boundary path: InferencePipeline(flow_cache="adaptive:0.5",
      reuse_decoder_cache=True, carry_latents=True), same inputs; K1 24 x the
      forwards the pipeline records as run, no priming, 89 finite frames;
- 13. serving: serve.prewarm, then serve.SessionServer on 127.0.0.1 over a
+ 13. serving: serve.prewarm (K1's launches in it counted, for phase 23),
+     then serve.SessionServer on 127.0.0.1 over a
      load_pipeline with phase 5's weights; POST /session with phase 5's
      image and seed, one POST /step per unit of the prompt (12), POST
      /close. Counts set to 0 just before the session and read just after
@@ -222,21 +223,22 @@ Phases, in order; any failure exits non-zero before the last line:
      against its plain version with phase 3's tolerances, timed (back to
      back and as device time from a CUDA graph) beside the 24-head kernel
      at the same layout, SDPA and the bound; (e) run.main(tp_shards=2) refused,
-     naming the number of cards (NCCL runs one rank per card); (a) phase
-     5's weights, image and seed and the first chunk of its prompt (7
-     actions, 8 units: every mesh rollout of phases 20 and 22 runs these
-     units, to keep the gloo-bound mesh phases inside the time limit)
+     naming the number of cards (NCCL runs one rank per card); (a) the
+     full-width model cut to MESH_DEPTH joint blocks (random weights, seed
+     0, bf16), phase 5's image and seed and the first chunk of its prompt (7
+     actions, 8 units: every mesh rollout of phases 20 and 22 runs this
+     model and these units, to keep the gloo-bound mesh phases inside the
+     time limit)
      through InferencePipeline(mesh=make_mesh((2,), ("tp",), devices=
      ["cuda:0"] * 2, backend="gloo")), two processes sharing the card
      (parallel/launch.spawn): all_reduce (sum in bf16 and f32, max),
      all_gather and broadcast checked on CUDA tensors over gloo first; then
      counts set to 0 just before generate() and read just after, on each
-     rank: 57 finite frames, K1 2,880 launches all at 12 heads, its f32
+     rank: 57 finite frames, K1 120 x MESH_DEPTH launches all at 12 heads, its f32
      kernel and the backward never, rank 1's frames equal to rank 0's bit
      for bit; printed (not gated): each rank's wall time, phase seconds and
-     peak memory, the row-split reductions (94 a forward: 11,280) and every
-     collective's calls and bytes, the 8-bit gap to phase 5's first 57
-     frames (bf16 sums in another order, random weights). Every time there
+     peak memory, the row-split reductions (MESH_REDUCTIONS_PER_FORWARD a
+     forward) and every collective's calls and bytes. Every time there
      is two ranks sharing one card over gloo, not a deployment number; (b)
      on the same two ranks in f32 (TF32 off) at full width, each
      mesh call against the single-device call on rank 0: one denoise forward
@@ -265,29 +267,52 @@ Phases, in order; any failure exits non-zero before the last line:
      single-device step of the same cut model on the global batch and the
      same draws, within MESH_GRAD_RTOL and MESH_PARAM_ATOL, and the dp
      replicas bit-equal. Prints each rank's seconds, peak memory and the
-     collectives' calls and bytes; (d) parallel/dryrun.run_dryrun refused
+     collectives' calls and bytes. (b) then checkpoints (fault F10): the
+     single-device reference step runs through a Trainer; a tp-2 Trainer of
+     the same cut model takes the same step on the global batch on every
+     rank (parameters within MESH_PARAM_ATOL of the reference's slices) and
+     saves into one directory, global rank 0 writing one whole tree; every
+     leaf has its whole shape, each rank's slices of the file equal its live
+     parameters and AdamW moments bit for bit, the file's parameters are
+     within MESH_PARAM_ATOL of the single-device Trainer's, and it restores
+     bit for bit into fresh tp-2 Trainers and a fresh single-device one.
+     Prints the checkpoint's GB, save and restore seconds; (d)
+     parallel/dryrun.run_dryrun refused
      over NCCL with more ranks than cards, naming the count, and its rank
      body (what run_dryrun(4, shared_card=True) spawns) run on (b)'s four
      ranks to a finite loss, the same on every rank. (a) and (c) run in
      phase 20's spawn of the two ranks;
  22. serving and --fast over the mesh (M17c): two gloo ranks, one spawn, one
-     weight draw (phase 5's); (a) serve.SessionServer on rank 0 (a free
+     weight draw (phase 20 (a)'s); (a) serve.SessionServer on rank 0 (a free
      port of 127.0.0.1) with serve.follow on rank 1: POST /session with
      phase 5's image and seed, one POST /step per unit of MESH_PROMPT (the
      8th closes the chunk and opens the next), GET /metrics, POST /close;
      counts set to 0 just before and read just after, on each rank: K1
-     2,880 launches at 12 heads, K2, K3 and the backward never; the served
+     120 x MESH_DEPTH launches at 12 heads, K2, K3 and the backward never; the served
      frames equal phase 20 (a)'s mesh generate() as float16 bit for bit;
      rank 1 ran every operation; /metrics counts 8 steps; (b) the --fast
      preset on the same ranks (denoise_int8, VAEConfig(conv_impl="int8"),
-     flow_cache="skip_odd"): counts read around generate(): K1 72 x 24 =
-     1,728 launches a rank at 12 heads, K3 and K2 never, int_mm 285 a
-     forward as on one device, 94 int32 reductions a forward; one int8
+     flow_cache="skip_odd"): counts read around generate(): K1 72 x
+     MESH_DEPTH launches a rank at 12 heads, K3 and K2 never, int_mm 12
+     a joint block and 9 in the last one a forward, as on one device,
+     MESH_REDUCTIONS_PER_FORWARD int32 reductions a forward; one int8
      denoise forward on the mesh equal to one device's on the same inputs
-     bit for bit; prints the served step times, the --fast wall time and
-     the 8-bit gap to phase 11's first chunk (not gated: phase 11's VAE runs
-     K3, this one cuDNN). It runs in phase 20's spawn of the two ranks,
-     which draws phase 5's weights once for 20 (a) and 22.
+     bit for bit; prints the served step times and the --fast wall time.
+     It runs in phase 20's spawn of the two ranks, which draws phase 20
+     (a)'s weights once for 20 (a) and 22.
+ 23. cold start with the AOT cache (M19c): two fresh child processes of
+     sys.executable in turn, on one new 0o700 cache directory; each
+     configures utils/aot, loads the three kernel libraries (one thread
+     each), builds the full-width bf16 pipeline from random weights and runs
+     serve.prewarm. The first has nvcc: aot.stats() compiled 3, loaded 0.
+     The second runs with nvcc off its PATH and CUDA_HOME pointing nowhere:
+     loaded 3, compiled 0, the same three entries, and K1 launched from the
+     cached library at the stage-0, 2-row rollout layout within phase 3's
+     tolerances of its plain version. In both K1's prewarm launches equal
+     phase 13's. Prints both children's seconds from their start to the
+     imports, the libraries, a ready pipeline, the first step's frames, the
+     end of prewarm and their exit, side by side, with nvcc's seconds,
+     aot.stats() and the card's name and power limit.
 Phases 5, 7, 11, 12, 13, 16, 17, 18, 20 and 22 also check that the backward
 never launched.
 The line before the last is a JSON object {"kernels": [...]}; the last line
@@ -1860,7 +1885,7 @@ def run_fast_path(device, results, ref_frames):
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
-    return summary, rollout_frames_by_class, frames[:, :, :MESH_FRAMES].cpu()
+    return summary, rollout_frames_by_class
 
 
 def run_adaptive_boundary_path(device, results, ref_frames):
@@ -1948,7 +1973,11 @@ def run_serving_path(device, results, ref_frames, ref_disparity, main_launches: 
                          device=device, seed=0)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    att.launches = att.f32_launches = att.bwd_launches = 0
     prewarm_s = serve.prewarm(pipe, height=HEIGHT, width=WIDTH, log=log)
+    prewarm_launches = att.launches
+    assert prewarm_launches > 0 and att.f32_launches == att.bwd_launches == 0, (
+        prewarm_launches, att.f32_launches, att.bwd_launches)
     batch = rollout_batch()
     actions = serve.InteractiveSession.actions_from_prompt_list(pipe.cfg, list(batch["prompt"]))
     assert len(actions) == 12, len(actions)
@@ -2057,7 +2086,8 @@ def run_serving_path(device, results, ref_frames, ref_disparity, main_launches: 
         t = time.perf_counter()
         decode(body)
         decode_s.append(time.perf_counter() - t)
-    summary = dict(setup_s=setup_s, prewarm_s=prewarm_s, session_s=session_s,
+    summary = dict(setup_s=setup_s, prewarm_s=prewarm_s, prewarm_launches=prewarm_launches,
+                   session_s=session_s,
                    window_encode_s=float(np.median(encode_s)),
                    window_decode_s=float(np.median(decode_s)), window_body_mb=len(body) / 1e6,
                    first_frame_s=first_frame_s, first_step_s=step_s[0],
@@ -2066,7 +2096,8 @@ def run_serving_path(device, results, ref_frames, ref_disparity, main_launches: 
                    metrics_during_boundary_s=probe["s"],
                    metrics_during_boundary=probe["metrics"], launches=launches,
                    max_memory_allocated_gib=peak, frames=int(totals[-1]))
-    log(f"serving: prewarm {prewarm_s:.2f} s; POST /session {session_s:.3f} s; time to first "
+    log(f"serving: prewarm {prewarm_s:.2f} s (K1 {prewarm_launches} launches); POST /session "
+        f"{session_s:.3f} s; time to first "
         f"frame (POST /session to the first /step response) {first_frame_s:.3f} s, first step "
         f"{step_s[0]:.3f} s; step median {summary['step_median_s']:.3f} s, boundary step "
         f"{step_s[boundary]:.3f} s; /metrics during it {probe['s'] * 1e3:.1f} ms; "
@@ -3012,9 +3043,14 @@ def run_ply_path(device, results, output):
 #: phase 20's mesh: two processes sharing cuda:0 over gloo (NCCL refuses two
 #: ranks on one card, and gloo sends no CUDA tensor point to point)
 MESH_RANKS = 2
-#: row-split linears of one full-width forward, each one all_reduce: 4 in
-#: each of the 23 joint blocks, 2 in the context-pre-only last one
-MESH_REDUCTIONS_PER_FORWARD = 4 * 23 + 2
+#: the depth of phase 20 (a)'s and phase 22's mesh model, MMDiTConfig() at
+#: full width cut to this many joint blocks: the gloo ranks' reductions go
+#: through the host at ~0.3-0.55 GB/s and take most of those phases' time,
+#: in proportion to the depth (24 blocks put the script near its limit)
+MESH_DEPTH = 4
+#: row-split linears of one forward, each one all_reduce: 4 in each joint
+#: block, 2 in the context-pre-only last one
+MESH_REDUCTIONS_PER_FORWARD = 4 * (MESH_DEPTH - 1) + 2
 #: K1 at the per-rank head counts of tp 2 and 4 (24 heads)
 MESH_HEADS = (12, 6)
 #: every mesh rollout of phases 20 and 22 runs the same units: one chunk
@@ -3071,8 +3107,8 @@ def mesh_rank_mesh():
 
 
 def mesh_rollout_part(mesh, pipe) -> dict:
-    """Phase 20 (a), one rank: ``pipe`` (phase 5's weights, seed 0, on the
-    mesh) runs phase 5's image and seed on the first chunk of its prompt
+    """Phase 20 (a), one rank: ``pipe`` (the MESH_DEPTH-block model, seed 0,
+    on the mesh) runs phase 5's image and seed on the first chunk of its prompt
     (``MESH_PROMPT``): K1's launch and head counts, the reductions, and the
     frames (rank 0) or their hash."""
     import hashlib
@@ -3131,7 +3167,7 @@ def mesh_two_rank_main() -> dict:
     """Phases 20 (a, b), 21 (a, c) and 22 in one spawn of the two ranks
     sharing cuda:0 (each spawn costs every rank a process, a CUDA context and
     a weight draw): gloo's collectives on CUDA tensors, then phase 5's
-    weights in bf16 in two mesh pipelines, the exact one and the --fast
+    weights cut to MESH_DEPTH blocks in bf16 in two mesh pipelines, the exact one and the --fast
     preset's (20 (a), 22), then 21 (a, c), then 20 (b) in f32."""
     import dataclasses
     import torch
@@ -3145,7 +3181,7 @@ def mesh_two_rank_main() -> dict:
     out = dict(rank=mesh.rank, collectives=gloo_cuda_collectives(mesh.device))
     t0 = time.perf_counter()
     cfg = create_model_config("none", use_motion_prompt=True)
-    mcfg, vcfg = MMDiTConfig(), VAEConfig()
+    mcfg, vcfg = dataclasses.replace(MMDiTConfig(), num_layers=MESH_DEPTH), VAEConfig()
     params = random_params(mcfg, vcfg, dtype=torch.bfloat16, seed=0, device=mesh.device)
     embeds = random_text_embeds(0, action_vocabulary(), joint_dim=mcfg.joint_attention_dim,
                                 pooled_dim=mcfg.pooled_projection_dim)
@@ -3357,17 +3393,17 @@ def check_mesh_heads(device, results):
     return out
 
 
-def run_mesh_path(device, results, ref_frames):
+def run_mesh_path(device, results):
     """Phase 20 (M17b): (c) K1 at the per-rank head counts, (e) run.py
     --tp_shards 2 refused on this one-card machine, (a) the first chunk of
-    phase 5's rollout through InferencePipeline(mesh=...) on two gloo ranks
-    sharing the card, (b) the f32 gates on the same two ranks, (d) world
-    size 1 over NCCL. (a) and (b) run in ``mesh_two_rank_main``'s spawn,
+    phase 5's prompt on the model cut to MESH_DEPTH blocks through
+    InferencePipeline(mesh=...) on two gloo ranks sharing the card, (b)
+    the f32 gates on the same two ranks, (d) world size 1 over NCCL. (a)
+    and (b) run in ``mesh_two_rank_main``'s spawn,
     which also runs phases 21 (a, c) and 22. Returns (a)'s K1 launches per
     rank, (c)'s rows, (a)'s frames and every rank's result of that spawn."""
     import torch
     from deepv_tpu_torch import run
-    from deepv_tpu_torch.config import MMDiTConfig
     from deepv_tpu_torch.parallel.launch import spawn
 
     label = "two ranks sharing one card over gloo, not a deployment number"
@@ -3389,7 +3425,7 @@ def run_mesh_path(device, results, ref_frames):
     spawn_s = time.perf_counter() - t0
     log(f"mesh path (a): gloo on CUDA tensors: {two[0]['collectives']}")
     ranks = [r["rollout"] for r in two]
-    expected = MESH_FORWARDS * MMDiTConfig().num_layers
+    expected = MESH_FORWARDS * MESH_DEPTH
     for r in ranks:
         assert r["shape"] == (1, 3, MESH_FRAMES, HEIGHT, WIDTH) and r["finite"], (r["rank"],
                                                                                  r["shape"])
@@ -3399,15 +3435,13 @@ def run_mesh_path(device, results, ref_frames):
         assert r["bwd_launches"] == 0 and r["f32_launches"] == 0, r
     assert ranks[1]["sha256"] == ranks[0]["sha256"], "rank 1's frames differ from rank 0's"
     mesh_frames = ranks[0]["pred_img"]
-    gap = eight_bit_gap(mesh_frames, ref_frames[:, :, :MESH_FRAMES])
     summary = [{k: v for k, v in r.items() if k != "pred_img"} for r in ranks]
     for r in summary:
         log(f"mesh path (a), rank {r['rank']} ({label}):", json.dumps(r))
     log(f"mesh path (a): {MESH_RANKS} ranks' frames bit-equal; K1 {expected} launches per rank at "
         f"{24 // MESH_RANKS} heads; row-split reductions {ranks[0]['row_reductions']} "
-        f"(expected {MESH_REDUCTIONS_PER_FORWARD * MESH_FORWARDS}); 8-bit gap to phase 5's first "
-        f"{MESH_FRAMES} frames mean {gap[0]:.4f}, p95 {gap[1]:.4f}; the spawn of phases 20 (a, "
-        f"b), 21 (a, c) and 22 took {spawn_s:.1f} s")
+        f"(expected {MESH_REDUCTIONS_PER_FORWARD * MESH_FORWARDS}) at depth {MESH_DEPTH}; the "
+        f"spawn of phases 20 (a, b), 21 (a, c) and 22 took {spawn_s:.1f} s")
     del ranks[0]["pred_img"]
 
     f32 = two[0]["f32"]
@@ -3420,7 +3454,7 @@ def run_mesh_path(device, results, ref_frames):
     for key in ("forward", "dec_window_init"):
         e = nccl[key]
         assert e["rel_l2"] <= MESH_F32_REL_L2 and e["max_abs"] <= MESH_F32_MAX_ABS, (key, e)
-    results["mesh_path"] = dict(rollout=summary, gap_8bit=gap, spawn_s=spawn_s, f32=f32,
+    results["mesh_path"] = dict(rollout=summary, depth=MESH_DEPTH, spawn_s=spawn_s, f32=f32,
                                 nccl_world_1=nccl, label=label)
     return expected, heads, mesh_frames, two
 
@@ -3460,6 +3494,9 @@ MESH_DP_TP_DEPTH = 4
 #: missing or of the wrong sign moves a parameter by lr or 2 lr
 MESH_GRAD_RTOL = 1e-3
 MESH_PARAM_ATOL = 5e-5
+#: phase 21 (b): the parameters of the cut model, for the disk check of its
+#: checkpoint (a full-width layer holds ~85 M)
+MESH_DP_TP_PARAMS = 400_000_000
 
 
 def attention_head_spy():
@@ -3566,14 +3603,119 @@ def mesh_train_part(mesh) -> dict:
     return out
 
 
-def mesh_dp_tp_rank(depth: int) -> dict:
+def state_bits_equal(a: dict, b: dict, device) -> bool:
+    """Two trainer state trees ({"params", "opt_state": {"count", "mu",
+    "nu"}}, tensors anywhere) hold the same keys, shapes and bits."""
+    import torch
+    from deepv_tpu_torch.io.weights import flatten_tree
+    fa, fb = flatten_tree(a), flatten_tree(b)
+    if set(fa) != set(fb):
+        return False
+    for k, x in fa.items():
+        y = fb[k]
+        if x.shape != y.shape or x.dtype != y.dtype:
+            return False
+        x, y = (t.detach().to(device).contiguous().reshape(-1).view(torch.uint8) for t in (x, y))
+        if not torch.equal(x, y):
+            return False
+    return True
+
+
+def mesh_checkpoint_part(mesh, mcfg, pcfg, batch, ref_params, ref_state, ckpt_root) -> dict:
+    """Phase 21 (b)'s checkpoint round trip (fault F10), one rank of the dp 2
+    x tp 2 mesh: a tp-2 Trainer of the cut model takes phase 21 (b)'s step
+    on the global batch and saves (every rank calls save, global rank 0
+    writes one whole tree); each rank checks the file's slices of its tp
+    index against its live state bit for bit and restores the file into a
+    fresh tp-2 Trainer (other random weights); rank 0 checks every leaf's
+    whole shape and the parameters against the single-device Trainer's
+    (``ref_state``, on its CPU) and restores the file into a fresh
+    single-device Trainer. ``ref_params``: the single-device step's
+    parameters, this rank's slices."""
+    import torch
+    import torch.distributed as dist
+    from deepv_tpu_torch.io.checkpoint import STATE_FILE
+    from deepv_tpu_torch.io.weights import params_from_numpy, random_mmdit_params
+    from deepv_tpu_torch.models.mmdit import MMDiT
+    from deepv_tpu_torch.parallel.tp import shard_mmdit_params
+    from deepv_tpu_torch.pipeline import TorchNoise
+    from deepv_tpu_torch.training.trainer import Trainer
+
+    dev, f32 = mesh.device, torch.float32
+
+    def trainer(seed, group):
+        params = random_mmdit_params(mcfg, f32, seed=seed, device=dev)
+        model = MMDiT(mcfg, tp_group=group)
+        if group is not None:
+            params = shard_mmdit_params(params, mesh)
+        return Trainer(mcfg, params_from_numpy(model, params, dev), learning_rate=1e-4,
+                       weight_decay=0.01, pcfg=pcfg, device=dev, ckpt_dir=ckpt_root)
+
+    out = {}
+    tp = trainer(0, mesh.group("tp"))
+    tp.step_fn(batch, TorchNoise(MESH_DP_TP_SEED, dev), 2, TRAIN_UNIT)
+    tp.step += 1
+    out["step_param_err"] = max(float((p.detach() - ref_params[n]).abs().max())
+                                for n, p in tp.model.named_parameters())
+    tp.optimizer.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    path = tp.save()
+    out["save_s"] = time.perf_counter() - t
+    saved = torch.load(os.path.join(path, STATE_FILE), map_location="cpu", weights_only=True,
+                       mmap=True)
+    opt = saved["opt_state"]
+    mine = {"params": shard_mmdit_params(saved["params"], mesh),
+            "opt_state": {"count": opt["count"], "mu": shard_mmdit_params(opt["mu"], mesh),
+                          "nu": shard_mmdit_params(opt["nu"], mesh)}}
+    live = tp.state_tree()
+    out["slices_equal"] = state_bits_equal(mine, live, dev)
+    del mine
+    fresh = trainer(1, mesh.group("tp"))
+    t = time.perf_counter()
+    fresh.restore(path)
+    torch.cuda.synchronize()
+    out["restore_tp2_s"] = time.perf_counter() - t
+    out["restored_tp2_equal"] = state_bits_equal(fresh.state_tree(), live, dev)
+    out["restored_step"] = fresh.step
+    del tp, fresh, live
+    gc.collect()
+    torch.cuda.empty_cache()
+    if mesh.rank == 0:
+        out["gb"] = os.path.getsize(os.path.join(path, STATE_FILE)) / 1e9
+        out["whole_shapes"] = all(
+            tuple(saved[k][n].shape) == tuple(v.shape) if k == "params" else
+            tuple(opt[k][n].shape) == tuple(v.shape)
+            for k in ("params", "mu", "nu") for n, v in ref_state["params"].items())
+        out["param_err_vs_single"] = max(float((saved["params"][n] - v).abs().max())
+                                         for n, v in ref_state["params"].items())
+        for k in ("mu", "nu"):
+            out[f"{k}_err_vs_single"] = max(float((opt[k][n] - v).abs().max())
+                                            for n, v in ref_state[k].items())
+        single = trainer(1, None)
+        t = time.perf_counter()
+        single.restore(path)
+        torch.cuda.synchronize()
+        out["restore_single_s"] = time.perf_counter() - t
+        out["restored_single_equal"] = state_bits_equal(single.state_tree(), saved, dev)
+        out["restored_single_step"] = single.step
+        del single
+        gc.collect()
+        torch.cuda.empty_cache()
+    del saved, opt
+    dist.barrier()
+    return out
+
+
+def mesh_dp_tp_rank(depth: int, ckpt_root: str) -> dict:
     """Phase 21 (b), one rank of the dp 2 x tp 2 mesh (four gloo ranks on
     cuda:0): the full-width model cut to ``depth`` layers, f32. The
-    single-device step of the whole cut model on the global batch (2 rows),
-    then the DP x TP step of this rank's share on its dp row with its slice
-    of the same draws; every gradient element and parameter after AdamW of
-    this rank's share against the single-device one's slice, and a digest
-    of the share after the step."""
+    single-device Trainer's step of the whole cut model on the global batch
+    (2 rows), then the DP x TP step of this rank's share on its dp row with
+    its slice of the same draws; every gradient element and parameter after
+    AdamW of this rank's share against the single-device one's slice, and a
+    digest of the share after the step; then ``mesh_checkpoint_part`` into
+    ``ckpt_root``."""
     import dataclasses
     import hashlib
     import torch
@@ -3588,6 +3730,7 @@ def mesh_dp_tp_rank(depth: int) -> dict:
     from deepv_tpu_torch.parallel.tp import shard_mmdit_params
     from deepv_tpu_torch.pipeline import TorchNoise
     from deepv_tpu_torch.training.flow_matching import BatchSliceNoise, make_pyramid_train_step
+    from deepv_tpu_torch.training.trainer import Trainer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3601,14 +3744,22 @@ def mesh_dp_tp_rank(depth: int) -> dict:
                                         weight_decay=0.01)
     batch = training_batch(dev, f32, b=2)
     torch.cuda.reset_peak_memory_stats()
-    single = params_from_numpy(MMDiT(mcfg), random_mmdit_params(mcfg, f32, seed=0, device=dev),
-                               dev).requires_grad_(True)
-    opt = adamw(single)
-    single_loss = float(make_pyramid_train_step(single, pcfg, sched, opt)(
-        batch, TorchNoise(MESH_DP_TP_SEED, dev), 2, TRAIN_UNIT))
-    ref_grads = shard_mmdit_params({n: p.grad for n, p in single.named_parameters()}, mesh)
-    ref_params = shard_mmdit_params({n: p.detach() for n, p in single.named_parameters()}, mesh)
-    del opt, single
+    single = Trainer(mcfg, params_from_numpy(MMDiT(mcfg), random_mmdit_params(
+        mcfg, f32, seed=0, device=dev), dev), learning_rate=1e-4, weight_decay=0.01, pcfg=pcfg,
+        device=dev)
+    single_loss = float(single.step_fn(batch, TorchNoise(MESH_DP_TP_SEED, dev), 2, TRAIN_UNIT))
+    named = dict(single.model.named_parameters())
+    ref_grads = shard_mmdit_params({n: p.grad for n, p in named.items()}, mesh)
+    ref_params = shard_mmdit_params({n: p.detach() for n, p in named.items()}, mesh)
+    # the checkpoint part's reference: the single-device state, whole, on
+    # rank 0's CPU
+    ref_state = None
+    if mesh.rank == 0:
+        opt = single.state_tree()["opt_state"]
+        ref_state = {"params": {n: p.detach().cpu() for n, p in named.items()},
+                     "mu": {n: t.cpu() for n, t in opt["mu"].items()},
+                     "nu": {n: t.cpu() for n, t in opt["nu"].items()}}
+    del single, named
     gc.collect()
     model = params_from_numpy(MMDiT(mcfg, tp_group=mesh.group("tp")), shard_mmdit_params(
         random_mmdit_params(mcfg, f32, seed=0, device=dev), mesh), dev).requires_grad_(True)
@@ -3638,7 +3789,14 @@ def mesh_dp_tp_rank(depth: int) -> dict:
                              attn_fwd_wgmma=att.launches),
                collectives=dict(calls=dict(comm.counts), bytes=dict(comm.nbytes)),
                max_grad_err_rel=grad_err, max_param_err=param_err, digest=digest.hexdigest())
-    del model, ref_grads, ref_params
+    del model, ref_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["ckpt"] = mesh_checkpoint_part(mesh, mcfg, pcfg, batch, ref_params, ref_state,
+                                       ckpt_root)
+    out["ckpt"]["seconds"] = time.perf_counter() - t0
+    del ref_params, ref_state
     gc.collect()
     torch.cuda.empty_cache()
     # (d) the dry run's rank body (what run_dryrun(4, shared_card=True)
@@ -3647,6 +3805,63 @@ def mesh_dp_tp_rank(depth: int) -> dict:
     out["dryrun_loss"] = dryrun_rank(4, False, "cuda", True)
     out["dryrun_s"] = time.perf_counter() - t0
     return out
+
+
+def run_dp_tp_path(label: str):
+    """Phase 21 (b) and its checkpoint round trip: four gloo ranks on this
+    card (``mesh_dp_tp_rank``), their checks and printout. Returns (the
+    summary, every rank's results)."""
+    from deepv_tpu_torch.parallel.launch import spawn
+
+    ckpt_root = tempfile.mkdtemp(prefix="_train_ckpt_", dir=HERE)
+    try:
+        # the tree and its two AdamW moments in f32, written once
+        check_disk(ckpt_root, 12 * MESH_DP_TP_PARAMS, "phase 21 (b)'s checkpoint")
+        t0 = time.perf_counter()
+        dp = spawn(mesh_dp_tp_rank, 4, (MESH_DP_TP_DEPTH, ckpt_root), backend="gloo")
+        dp_spawn_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    for r in dp:
+        assert r["launches"] == dict(attn_fwd_tf32x3=MESH_DP_TP_DEPTH, attn_bwd=MESH_DP_TP_DEPTH,
+                                     attn_fwd_wgmma=0), r
+        assert r["max_grad_err_rel"] <= MESH_GRAD_RTOL, r
+        assert r["max_param_err"] <= MESH_PARAM_ATOL, r
+        assert abs(r["loss"] - r["single_loss"]) <= MESH_TRAIN_LOSS_RTOL * abs(r["single_loss"]), r
+    for tp in (0, 1):
+        a, b = (r for r in dp if r["tp"] == tp)
+        assert a["digest"] == b["digest"] and a["loss"] == b["loss"], \
+            f"the dp replicas of tp rank {tp} differ after the step"
+    for r in dp:
+        log(f"mesh training (b), rank {r['rank']} (dp {r['dp']}, tp {r['tp']}; {label}):",
+            json.dumps({k: v for k, v in r.items() if k != "digest"}))
+    log(f"mesh training (b): dp 2 x tp 2 at depth {MESH_DP_TP_DEPTH} (full width): gradients "
+        f"within {max(r['max_grad_err_rel'] for r in dp):.2e} of each leaf's largest, params "
+        f"within {max(r['max_param_err'] for r in dp):.2e} of the single-device step; dp "
+        f"replicas bit-equal; spawn to return {dp_spawn_s:.1f} s")
+    summary = dict(depth=MESH_DP_TP_DEPTH, spawn_s=dp_spawn_s,
+                   ranks=[{k: v for k, v in r.items() if k != "digest"} for r in dp])
+
+    # (b)'s checkpoint round trip (F10): one whole tree from the tp-2 Trainer
+    ck = [r["ckpt"] for r in dp]
+    for r, c in zip(dp, ck):
+        assert c["slices_equal"], f"rank {r['rank']}: the checkpoint's slices differ from its state"
+        assert c["restored_tp2_equal"] and c["restored_step"] == 1, (r["rank"], c)
+        assert c["step_param_err"] <= MESH_PARAM_ATOL, (r["rank"], c)
+    head = ck[0]
+    assert head["whole_shapes"], "the checkpoint holds a leaf at other than its whole shape"
+    assert head["param_err_vs_single"] <= MESH_PARAM_ATOL, head
+    assert head["restored_single_equal"] and head["restored_single_step"] == 1, head
+    summary["checkpoint"] = dict(ranks=ck)
+    log(f"mesh training (b) checkpoint (F10): the tp-2 Trainer's {head['gb']:.2f} GB checkpoint "
+        f"(depth {MESH_DP_TP_DEPTH}, full width, f32, one whole tree written by rank 0) saved in "
+        f"{max(c['save_s'] for c in ck):.1f} s, restored into fresh tp-2 Trainers in "
+        f"{max(c['restore_tp2_s'] for c in ck):.1f} s and into a single-device Trainer in "
+        f"{head['restore_single_s']:.1f} s, bit for bit on every rank; each rank's slices equal "
+        f"its live state bit for bit; parameters within {head['param_err_vs_single']:.2e} of the "
+        f"single-device Trainer's (moments: mu {head['mu_err_vs_single']:.2e}, nu "
+        f"{head['nu_err_vs_single']:.2e}; {label})")
+    return summary, dp
 
 
 def run_mesh_training_path(device, results, reference, two):
@@ -3659,7 +3874,6 @@ def run_mesh_training_path(device, results, reference, two):
     import torch
     from deepv_tpu_torch.config import MMDiTConfig
     from deepv_tpu_torch.parallel.dryrun import run_dryrun
-    from deepv_tpu_torch.parallel.launch import spawn
 
     label = "gloo ranks sharing one card, not a deployment number"
     n_layers = MMDiTConfig().num_layers
@@ -3695,28 +3909,7 @@ def run_mesh_training_path(device, results, reference, two):
         f"device's {reference['loss']:.6f} (relative {loss_rel:.2e}); per-leaf gradient norms "
         f"within relative {worst[0]:.2e} ({worst[1]}); replicated leaves bit-equal on both ranks")
 
-    t0 = time.perf_counter()
-    dp = spawn(mesh_dp_tp_rank, 4, (MESH_DP_TP_DEPTH,), backend="gloo")
-    dp_spawn_s = time.perf_counter() - t0
-    for r in dp:
-        assert r["launches"] == dict(attn_fwd_tf32x3=MESH_DP_TP_DEPTH, attn_bwd=MESH_DP_TP_DEPTH,
-                                     attn_fwd_wgmma=0), r
-        assert r["max_grad_err_rel"] <= MESH_GRAD_RTOL, r
-        assert r["max_param_err"] <= MESH_PARAM_ATOL, r
-        assert abs(r["loss"] - r["single_loss"]) <= MESH_TRAIN_LOSS_RTOL * abs(r["single_loss"]), r
-    for tp in (0, 1):
-        a, b = (r for r in dp if r["tp"] == tp)
-        assert a["digest"] == b["digest"] and a["loss"] == b["loss"], \
-            f"the dp replicas of tp rank {tp} differ after the step"
-    for r in dp:
-        log(f"mesh training (b), rank {r['rank']} (dp {r['dp']}, tp {r['tp']}; {label}):",
-            json.dumps({k: v for k, v in r.items() if k != "digest"}))
-    log(f"mesh training (b): dp 2 x tp 2 at depth {MESH_DP_TP_DEPTH} (full width): gradients "
-        f"within {max(r['max_grad_err_rel'] for r in dp):.2e} of each leaf's largest, params "
-        f"within {max(r['max_param_err'] for r in dp):.2e} of the single-device step; dp "
-        f"replicas bit-equal; spawn to return {dp_spawn_s:.1f} s")
-    summary["dp_tp"] = dict(depth=MESH_DP_TP_DEPTH, spawn_s=dp_spawn_s,
-                            ranks=[{k: v for k, v in r.items() if k != "digest"} for r in dp])
+    summary["dp_tp"], dp = run_dp_tp_path(label)
 
     # (d) the dry run: its entry point refused over NCCL without a card a
     # rank; its rank body ran on the four ranks of (b)
@@ -3738,8 +3931,8 @@ def run_mesh_training_path(device, results, reference, two):
 
 
 def mesh_serve_part(mesh, pipe, fast, single_tree) -> dict:
-    """Phase 22, one rank of the two-rank mesh on phase 5's weights: (a) rank
-    0 serves ``MESH_PROMPT``'s units over HTTP through ``pipe`` with phase
+    """Phase 22, one rank of the two-rank mesh on phase 20 (a)'s weights: (a)
+    rank 0 serves ``MESH_PROMPT``'s units over HTTP through ``pipe`` with phase
     5's image and seed while rank 1 follows; (b) the --fast preset's rollout
     of the same units through ``fast``, then one int8 denoise forward on the
     mesh and, on rank 0, on one device (``single_tree``, the whole MMDiT),
@@ -3757,7 +3950,7 @@ def mesh_serve_part(mesh, pipe, fast, single_tree) -> dict:
     from deepv_tpu_torch.parallel import comm
 
     dev, lead = mesh.device, mesh.rank == 0
-    cfg, mcfg = pipe.cfg, MMDiTConfig()
+    cfg, mcfg = pipe.cfg, pipe.mcfg
 
     def reset():
         att.launches = att.f32_launches = att.bwd_launches = 0
@@ -3849,8 +4042,6 @@ def mesh_serve_part(mesh, pipe, fast, single_tree) -> dict:
                fast_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                fast_finite=bool(torch.isfinite(res["pred_img"]).all()),
                fast_shape=tuple(res["pred_img"].shape))
-    if lead:
-        out["fast_frames"] = res["pred_img"].cpu()
     del res
 
     # one int8 denoise forward: the mesh's against one device's, same inputs
@@ -3868,16 +4059,15 @@ def mesh_serve_part(mesh, pipe, fast, single_tree) -> dict:
     return out
 
 
-def run_mesh_serving_path(device, results, two, mesh_frames, fast_frames):
+def run_mesh_serving_path(device, results, two, mesh_frames):
     """Phase 22 (M17c): serving and --fast over the two-rank mesh on this one
     card, run in phase 20's spawn (``mesh_serve_part``; ``two`` holds every
     rank's results). ``mesh_frames``: phase 20 (a)'s mesh generate() of the
-    same units; ``fast_frames``: phase 11's first chunk."""
+    same units."""
     import numpy as np
-    from deepv_tpu_torch.config import MMDiTConfig
 
     label = "two ranks sharing one card over gloo, not a deployment number"
-    n_layers = MMDiTConfig().num_layers
+    n_layers = MESH_DEPTH
     ranks = [r["serve"] for r in two]
     lead, follower = ranks
     served = lead["served_frames"]
@@ -3911,11 +4101,9 @@ def run_mesh_serving_path(device, results, two, mesh_frames, fast_frames):
         assert r["fast_reductions"].get("torch.int32 sum") == \
             fast_forwards * MESH_REDUCTIONS_PER_FORWARD, r["fast_reductions"]
     assert lead["int8_forward"]["bit_equal"], lead["int8_forward"]
-    gap = eight_bit_gap(lead["fast_frames"], fast_frames)
-    summary = dict(label=label, step_s=lead["step_s"], wall_s=lead["wall_s"],
-                   fast_gap_vs_phase11_8bit=gap,
+    summary = dict(label=label, depth=MESH_DEPTH, step_s=lead["step_s"], wall_s=lead["wall_s"],
                    ranks=[{k: v for k, v in r.items()
-                           if k not in ("served_frames", "fast_frames", "followed")}
+                           if k not in ("served_frames", "followed")}
                           for r in ranks])
     for r in summary["ranks"]:
         log(f"mesh serving (a, b), rank {r['rank']} ({label}):", json.dumps(r))
@@ -3926,11 +4114,172 @@ def run_mesh_serving_path(device, results, two, mesh_frames, fast_frames):
         f"boundary step {lead['step_s'][-1]:.2f} s; rank 1 ran every operation. (b) --fast: "
         f"{fast_forwards * n_layers} K1 launches a rank at 12 heads, K2 and K3 never, int_mm "
         f"{fast_forwards * quantised} calls a rank, {fast_forwards * MESH_REDUCTIONS_PER_FORWARD} "
-        f"int32 reductions; the mesh int8 forward equals one device's bit for bit; 8-bit gap to "
-        f"phase 11's first chunk mean {gap[0]:.4f}, p95 {gap[1]:.4f} (not gated: phase 11's VAE "
-        f"runs K3, this one cuDNN)")
+        f"int32 reductions; the mesh int8 forward equals one device's bit for bit (depth "
+        f"{MESH_DEPTH})")
     results["mesh_serving_path"] = summary
     return {"served": lead["served"]["attn_fwd_wgmma"], "fast": lead["fast"]["attn_fwd_wgmma"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 23: the cold start, with the AOT cache of the kernel libraries (M19c)
+# ---------------------------------------------------------------------------
+
+#: the argument that makes this script one child of phase 23
+COLD_START_CHILD = "--cold-start-child"
+
+
+def cold_start_child(cache: str, t_start: str, mode: str) -> int:
+    """One child of phase 23, a fresh interpreter: configure the AOT cache
+    ``cache``, load the three kernel libraries (one thread each), build the
+    full-width bf16 pipeline from random weights and run serve.prewarm, with
+    K1's counts set to 0 just before it and read just after. Prints one JSON
+    line: the seconds from ``t_start`` (the parent's clock when it started
+    this process) to each point, nvcc's seconds per source and aot.stats().
+    ``mode`` "offline" also holds K1, launched from the library the cache
+    gave, to its plain version at the stage-0, 2-row rollout layout with
+    phase 3's tolerances."""
+    t_start = float(t_start)
+    import torch
+    sys.path.insert(0, HERE)
+    from deepv_tpu_torch import serve
+    from deepv_tpu_torch.config import MMDiTConfig, create_model_config
+    from deepv_tpu_torch.models.mmdit import PackedLayout, packed_mask
+    from deepv_tpu_torch.ops import attention as att
+    from deepv_tpu_torch.ops import conv_igemm as cig
+    from deepv_tpu_torch.ops import conv_int8 as ci8
+    from deepv_tpu_torch.run import load_pipeline
+    from deepv_tpu_torch.utils import aot, cuda_build
+
+    device = torch.device("cuda", 0)
+    torch.cuda.init()
+    out = dict(mode=mode, imports_s=time.time() - t_start,
+               nvcc_found=cuda_build.find_nvcc() is not None)
+    aot.configure(cache)
+    nvcc_s, build = {}, cuda_build.build
+
+    def recording(source, *args, **kwargs):
+        built = build(source, *args, **kwargs)
+        nvcc_s[source] = built.seconds
+        return built
+
+    cuda_build.build = recording       # what each ops module's load_library calls
+    try:
+        with ThreadPoolExecutor(3) as pool:
+            list(pool.map(lambda m: m.load_library(), (att, cig, ci8)))
+    finally:
+        cuda_build.build = build
+    out.update(libraries_s=time.time() - t_start, nvcc_s=nvcc_s)
+    cfg = create_model_config("none", use_motion_prompt=True)
+    pipe = load_pipeline("none", cfg, random_weights=True, dtype=torch.bfloat16, device=device,
+                         seed=0)
+    torch.cuda.synchronize()
+    out["ready_s"] = time.time() - t_start
+    first, step = {}, serve.InteractiveSession.step
+
+    def timed_step(self, action):
+        frames = step(self, action)
+        if not first:
+            torch.cuda.synchronize()
+            first["s"] = time.time() - t_start
+        return frames
+
+    serve.InteractiveSession.step = timed_step
+    att.launches = att.f32_launches = att.bwd_launches = 0
+    try:
+        out["prewarm_s"] = serve.prewarm(pipe, height=HEIGHT, width=WIDTH, log=log)
+    finally:
+        serve.InteractiveSession.step = step
+    out.update(prewarm_end_s=time.time() - t_start, first_frames_s=first["s"],
+               launches=dict(attention=att.launches, attention_f32=att.f32_launches,
+                             attention_bwd=att.bwd_launches), stats=aot.stats(),
+               library_paths=sorted(os.path.basename(str(lib._name))
+                                    for lib in (att._library, cig._library, ci8._library)))
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    if mode == "offline":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        mcfg = MMDiTConfig()
+        name, b, shapes, ctx, ftimes, fvalid = rollout_layouts(device)[0]
+        layout = PackedLayout(mcfg, shapes, ctx.shape[1])
+        valid, times = packed_mask(layout, ctx, ftimes, fvalid)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(5)
+        q, k, v = (torch.randn((b, layout.seq_len, mcfg.num_attention_heads,
+                                mcfg.attention_head_dim), generator=gen, device=device)
+                   for _ in range(3))
+        before = (att.launches, att.f32_launches)
+        _, errs = check_attention_bf16(name, q, k, v, valid, times, layout.clip_tokens[-1])
+        assert att.launches > before[0] and att.f32_launches > before[1], "K1 did not launch"
+        out["k1_check"] = dict(layout=name, S=layout.seq_len, **errs)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def run_cold_start(device, results, card: str, prewarm_launches: int):
+    """Phase 23: the cold start of serving at full width, two fresh child
+    processes (``cold_start_child``) in turn on one new 0o700 cache
+    directory: the first with nvcc on an empty cache (it compiles the three
+    kernel libraries there), the second with nvcc off its PATH and CUDA_HOME
+    pointing nowhere (it loads them). ``prewarm_launches``: K1's launches in
+    phase 13's prewarm, which each child's must equal."""
+    cache = tempfile.mkdtemp(prefix="_aot_cache_", dir=HERE)
+    children = []
+    try:
+        for mode in ("online", "offline"):
+            env = dict(os.environ)
+            if mode == "offline":
+                env["PATH"] = os.pathsep.join(
+                    d for d in env.get("PATH", "").split(os.pathsep)
+                    if d and not os.access(os.path.join(d, "nvcc"), os.X_OK))
+                env["CUDA_HOME"] = os.path.join(cache, "no_cuda_toolkit_here")
+            t0 = time.time()
+            proc = subprocess.run([sys.executable, os.path.abspath(__file__), COLD_START_CHILD,
+                                   cache, repr(t0), mode], capture_output=True, text=True,
+                                  timeout=600, cwd=HERE, env=env)
+            wall = time.time() - t0
+            with open(os.path.join(HERE, "chiprun_out", f"cold_start_{mode}.log"), "w") as f:
+                f.write(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+            assert proc.returncode == 0, (
+                f"phase 23's {mode} child failed (exit {proc.returncode}):\n"
+                + proc.stderr[-4000:])
+            row = json.loads(proc.stdout.strip().splitlines()[-1])
+            row["wall_s"] = wall
+            children.append(row)
+        entries = sorted(n for n in os.listdir(cache) if n.endswith(".so"))
+        cache_mb = sum(os.path.getsize(os.path.join(cache, n)) for n in entries) / 1e6
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    online, offline = children
+    assert online["stats"]["compiled"] == 3 and online["stats"]["loaded"] == 0, online["stats"]
+    assert all(s > 0 for s in online["nvcc_s"].values()) and len(online["nvcc_s"]) == 3, online
+    assert not offline["nvcc_found"], "the offline child found an nvcc"
+    assert offline["stats"]["compiled"] == 0 and offline["stats"]["loaded"] == 3, \
+        offline["stats"]
+    assert offline["library_paths"] == online["library_paths"] == entries, (
+        offline["library_paths"], online["library_paths"], entries)
+    for row in children:
+        assert row["launches"] == dict(attention=prewarm_launches, attention_f32=0,
+                                       attention_bwd=0), (row["mode"], row["launches"])
+    points = (("imports, CUDA context", "imports_s"), ("kernel libraries loaded", "libraries_s"),
+              ("pipeline ready", "ready_s"), ("first step's frames", "first_frames_s"),
+              ("end of prewarm", "prewarm_end_s"), ("process exit", "wall_s"))
+    log(f"cold start ({card}; seconds from each child's start; one 0o700 cache, "
+        f"{len(entries)} libraries, {cache_mb:.1f} MB):")
+    log(f"  {'':26s} {'nvcc, empty cache':>18s} {'no nvcc, filled cache':>22s}")
+    for label, key in points:
+        log(f"  {label:26s} {online[key]:18.2f} {offline[key]:22.2f}")
+    log(f"  {'nvcc (sum of 3 builds)':26s} {sum(online['nvcc_s'].values()):18.2f} "
+        f"{sum(offline['nvcc_s'].values()):22.2f}")
+    log(f"  {'aot stats':26s} {json.dumps(online['stats']):>18s} "
+        f"{json.dumps(offline['stats']):>22s}")
+    log(f"cold start: K1 {prewarm_launches} launches in each prewarm, as in phase 13's; K1 from "
+        f"the cached library at {offline['k1_check']['layout']} within phase 3's bf16 tolerance "
+        f"(max |bf16 - plain| {offline['k1_check']['err_bf16_vs_plain']:.3e})")
+    summary = dict(card=card, cache_mb=cache_mb, entries=entries, children=children)
+    results["cold_start"] = summary
+    return summary
 
 
 def main() -> int:
@@ -4000,9 +4349,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     k3_rows = timed("9", check_conv_int8, device, results)
     timed("10", check_linear_int8, device, results)
-    fast, k3_frames_by_class, fast_frames = timed("11", run_fast_path, device, results, ref_frames)
+    fast, k3_frames_by_class = timed("11", run_fast_path, device, results, ref_frames)
     timed("12", run_adaptive_boundary_path, device, results, ref_frames)
-    timed("13", run_serving_path, device, results, ref_frames, ref_disparity, launches)
+    serving = timed("13", run_serving_path, device, results, ref_frames, ref_disparity,
+                    launches)
     ref_frames, ref_disparity = ref_frames.cpu(), ref_disparity.cpu()
     gc.collect()
     torch.cuda.empty_cache()
@@ -4021,19 +4371,18 @@ def main() -> int:
     timed("19", run_ply_path, device, results, {
         "pred_img": ref_frames, "pred_disparity": ref_disparity, "trans3d": ref_poses[0],
         "trans2d": ref_poses[1]})
-    del ref_disparity, ref_poses
+    del ref_frames, ref_disparity, ref_poses
     gc.collect()
     torch.cuda.empty_cache()
     # phase 20's two-rank spawn also runs 21 (a, c) and 22, whose checks follow
     mesh_launches, mesh_heads, mesh_frames, two = timed(
-        "20 (with 21 a, c and 22)", run_mesh_path, device, results, ref_frames)
-    del ref_frames
+        "20 (with 21 a, c and 22)", run_mesh_path, device, results)
+    mesh_train = timed("21", run_mesh_training_path, device, results, mesh_train_ref, two)
+    mesh_serve = timed("22", run_mesh_serving_path, device, results, two, mesh_frames)
+    del mesh_frames, two
     gc.collect()
     torch.cuda.empty_cache()
-    mesh_train = timed("21", run_mesh_training_path, device, results, mesh_train_ref, two)
-    mesh_serve = timed("22", run_mesh_serving_path, device, results, two, mesh_frames,
-                       fast_frames)
-    del mesh_frames, fast_frames, two
+    timed("23", run_cold_start, device, results, card, serving["prewarm_launches"])
 
     assert launches == sum(r["launches_per_rollout"] for r in rows), (
         "K1's launches per layout do not add up to the rollout's")
@@ -4052,10 +4401,12 @@ def main() -> int:
         "library_ms": head["library_ms"],
         "shape": f"stage 2, b={head['b']}, S={head['S']}, h={head['heads']}, d={head['head_dim']}, bf16",
         "launches_tiled": tiled_launches["attention"],
-        # phase 20 (a): per rank of the two-rank mesh, every call at 12 heads;
+        # phase 20 (a): per rank of the two-rank mesh (the model cut to
+        # MESH_DEPTH blocks, also in 22), every call at 12 heads;
         # (c): the kernel at the stage-2 b=2 layout with the per-rank heads;
         # phase 22 (a), served, and (b), --fast; phase 21 (c), bf16 training
         "launches_mesh": mesh_launches,
+        "mesh_depth": MESH_DEPTH,
         "launches_mesh_served": mesh_serve["served"],
         "launches_mesh_fast": mesh_serve["fast"],
         "launches_mesh_training_bf16": mesh_train["bf16"]["attn_fwd_wgmma"],
@@ -4319,4 +4670,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [COLD_START_CHILD]:
+        sys.exit(cold_start_child(*sys.argv[2:]))
     sys.exit(main())

@@ -6,14 +6,17 @@ directory holding one ``torch.save`` file of the state tree (nested dicts
 and lists of tensors and plain numbers); the metadata goes to the same
 ``path + ".meta.json"`` sidecar as deepv_tpu's. ``restore_pytree`` loads
 with ``weights_only=True`` (no arbitrary unpickling), memory-mapped, and
-copies each leaf into its template leaf, on that leaf's device and dtype.
+copies each leaf into its template leaf, on that leaf's device and dtype;
+a template that holds one rank's slice of each split leaf (a
+tensor-parallel model, ``parallel/tp.restore_split``) takes its slice of
+the whole leaf, so every checkpoint is in the single-device layout.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -34,9 +37,10 @@ def save_pytree(path: str, tree: Any, metadata: Optional[dict] = None) -> None:
             json.dump(metadata, f)
 
 
-def _restore(saved, tmpl, where: str, copy: bool):
+def _restore(saved, tmpl, where: str, copy: bool, split: Optional[Callable]):
     """Walk ``saved`` along the template ``tmpl``: check its structure and
-    shapes, and with ``copy`` copy each tensor leaf into the template's."""
+    shapes, and with ``copy`` copy each tensor leaf (or the template's slice
+    of it, per ``split``) into the template's."""
     if isinstance(tmpl, dict):
         if not isinstance(saved, dict):
             raise ValueError(f"checkpoint entry {where or '<root>'} is not a mapping")
@@ -44,37 +48,47 @@ def _restore(saved, tmpl, where: str, copy: bool):
         for k, t in tmpl.items():
             if k not in saved:
                 raise KeyError(f"checkpoint has no entry {where}{k}")
-            out[k] = _restore(saved[k], t, f"{where}{k}.", copy)
+            out[k] = _restore(saved[k], t, f"{where}{k}.", copy, split)
         return out
     if isinstance(tmpl, (list, tuple)):
         if not isinstance(saved, (list, tuple)) or len(saved) != len(tmpl):
             raise ValueError(f"checkpoint entry {where[:-1]} does not match the template's "
                              f"{len(tmpl)} entries")
-        return type(tmpl)(_restore(s, t, f"{where}{i}.", copy)
+        return type(tmpl)(_restore(s, t, f"{where}{i}.", copy, split)
                           for i, (s, t) in enumerate(zip(saved, tmpl)))
     if isinstance(tmpl, torch.Tensor):
-        if not isinstance(saved, torch.Tensor) or tuple(saved.shape) != tuple(tmpl.shape):
+        part = split(where[:-1], tmpl) if split is not None else None
+        want = list(tmpl.shape)
+        if part is not None:
+            dim, index, n = part
+            want[dim] *= n
+        if not isinstance(saved, torch.Tensor) or list(saved.shape) != want:
             got = tuple(saved.shape) if isinstance(saved, torch.Tensor) else type(saved).__name__
             raise ValueError(f"checkpoint entry {where[:-1]}: {got}, template "
-                             f"{tuple(tmpl.shape)}")
+                             f"{tuple(want)}")
         if copy:
+            if part is not None:
+                saved = saved.narrow(dim, index * tmpl.shape[dim], tmpl.shape[dim])
             with torch.no_grad():
                 tmpl.copy_(saved)
         return tmpl
     return saved
 
 
-def restore_pytree(path: str, template: Any) -> Any:
+def restore_pytree(path: str, template: Any, split: Optional[Callable] = None) -> Any:
     """Restore a state tree into ``template``, a live tree of the same
     structure: each saved leaf is copied into the template's tensor, so it
     takes that tensor's device and dtype and no second copy of the state is
-    made on the device. The whole checkpoint is checked first (a missing key
+    made on the device. ``split(name, leaf)``, where given, says which slice
+    of the saved leaf at dotted path ``name`` the template leaf holds: (the
+    split dimension, the slice's index, the number of slices), or None for
+    the whole leaf. The whole checkpoint is checked first (a missing key
     raises KeyError, a shape mismatch ValueError), so a bad one changes
     nothing. Returns the template's structure, plain numbers as saved."""
     state = torch.load(os.path.join(os.path.abspath(path), STATE_FILE), map_location="cpu",
                        weights_only=True, mmap=True)
-    _restore(state, template, "", copy=False)
-    return _restore(state, template, "", copy=True)
+    _restore(state, template, "", False, split)
+    return _restore(state, template, "", True, split)
 
 
 def load_metadata(path: str) -> dict:

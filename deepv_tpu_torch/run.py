@@ -8,8 +8,7 @@ Runs on the CUDA card. ``--model_path`` names a DeepVerse snapshot
 ``text_encoder{,_2,_3}/`` with ``tokenizer{,_2,_3}/``); a text prompt needs
 the ``transformers`` package to tokenise. ``--random_weights``, or a path
 that is not a directory, builds seeded random weights instead
-(``DEEPV_TINY=1`` selects the small smoke-run architecture). Flags of paths
-not ported yet raise NotImplementedError naming their ROADMAP item.
+(``DEEPV_TINY=1`` selects the small smoke-run architecture).
 ``--fast`` is the quality-gated fast preset (flow caching "skip_odd", the
 W8A8 denoise linears and the int8 VAE conv); ``--flow_cache`` overrides its
 flow-cache choice and ``--carry_latents`` adds the boundary carry mode.
@@ -24,6 +23,12 @@ tensor-parallel and the VAE context-parallel over them
 ``--flow_cache`` and ``--carry_latents`` compose with it: the W8A8 linears
 run on each rank's share (the row-split ones summing int32 products over
 the ranks), and the VAE's convs under context parallelism run ``F.conv3d``.
+
+``--aot_cache DIR`` keeps the compiled kernel libraries in DIR across
+processes (``utils/aot.py``): the first run builds them there with
+``nvcc``, later runs load them and need no CUDA toolkit. DIR must be a
+directory only trusted users can write (loading a library runs its code);
+one owned by another user or writable by group or others is refused.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from .io.text_embeds import load_text_embeds, random_text_embeds
 from .parallel.launch import spawn
 from .parallel.mesh import make_mesh
 from .pipeline import InferencePipeline
+from .utils import aot
 
 VIDEO_LENGTH = 57
 VIDEO_HEIGHT = 384
@@ -161,10 +167,12 @@ def main(input_image: str, model_path: str, prompt_type: str = "text",
     (NCCL on ``cuda:0..N-1``, or gloo with ``device="cpu"``), each running
     this function inside the group, with every other option (``fast``,
     ``flow_cache``, ``carry_latents``) as on one device; rank 0 writes the
-    outputs. Returns the path written (None on the other ranks)."""
-    if aot_cache:
-        raise NotImplementedError("aot_cache: not ported yet (ROADMAP M19c AOT cache)")
+    outputs. ``aot_cache`` configures the kernel library cache
+    (``utils/aot.configure``) before anything is loaded, on every rank.
+    Returns the path written (None on the other ranks)."""
     args = dict(locals())
+    if aot_cache:
+        aot.configure(aot_cache)
     if tp_shards > 1 and not (dist.is_available() and dist.is_initialized()):
         cpu = device is not None and torch.device(device).type == "cpu"
         if not cpu:
@@ -246,7 +254,9 @@ def cli():
                    help="flow-caching mode: none | skip_odd | adaptive[:tau] (overrides "
                         "the --fast preset's choice)")
     p.add_argument("--aot_cache", default=None, metavar="DIR",
-                   help="not ported yet (raises; ROADMAP M19c AOT cache)")
+                   help="keep the compiled kernel libraries under DIR across processes "
+                        "(utils/aot.py): later runs load them instead of running nvcc; DIR "
+                        "must be writable by trusted users only")
     p.add_argument("--device", default=None, help="torch device (default: cuda)")
     args = p.parse_args()
     main(**vars(args))

@@ -13,7 +13,9 @@ once, where the batch CLI renders a whole action string first:
     trip, pose chaining, history retrieval) are handled inside ``step``.
   - ``SessionServer``: a stdlib HTTP server exposing sessions over JSON,
     with a /metrics endpoint.
-  - ``prewarm`` and ``cli`` (``python -m deepv_tpu_torch.serve``).
+  - ``prewarm`` and ``cli`` (``python -m deepv_tpu_torch.serve``);
+    ``--aot_cache DIR`` keeps the compiled kernel libraries in DIR
+    (``utils/aot.py``), and ``prewarm`` logs the cache's statistics.
 
 Over a mesh (a pipeline built with ``mesh=``, one process per rank): an
 ``InteractiveSession`` on each rank, stepped in lockstep, runs the
@@ -58,6 +60,7 @@ import torch
 import torch.distributed as dist
 
 from .pipeline import InferencePipeline, TorchNoise, _disparity_postmap
+from .utils import aot
 from .utils.profiling import synchronize
 
 
@@ -635,6 +638,10 @@ def prewarm(pipe: InferencePipeline, height: int = 384, width: int = 512,
     synchronize(sess._device)
     dt = time.time() - t0
     log(f"[serve] prewarm: {n_steps} units (one chunk + boundary) ran in {dt:.1f}s")
+    if aot.cache_dir() is not None:
+        s = aot.stats()
+        log(f"[serve] aot cache: {s['loaded']} kernel libraries loaded ({s['loaded_mb']} MB), "
+            f"{s['compiled']} compiled with nvcc ({aot.cache_dir()})")
     return dt
 
 
@@ -682,12 +689,15 @@ def cli():
                    help="skip the pre-bind warm-up session; the first client request then "
                         "pays the first-use costs (kernel builds, cuDNN, allocator)")
     p.add_argument("--aot_cache", default=None, metavar="DIR",
-                   help="not ported yet (raises; ROADMAP M19c AOT cache)")
+                   help="keep the compiled kernel libraries under DIR (utils/aot.py): the "
+                        "first launch builds them there with nvcc as prewarm loads them; "
+                        "later launches load them and need no CUDA toolkit. DIR must be "
+                        "writable by trusted users only (loading a library runs its code)")
     p.add_argument("--height", type=int, default=384)
     p.add_argument("--width", type=int, default=512)
     args = p.parse_args()
     if args.aot_cache:
-        raise NotImplementedError("aot_cache: not ported yet (ROADMAP M19c AOT cache)")
+        aot.configure(args.aot_cache)
 
     model_cfg = create_model_config(args.model_path, no_need_depth=args.no_need_depth,
                                     use_motion_prompt=True)
@@ -726,9 +736,12 @@ def cli():
 
 def _serve_rank(args, model_cfg, options) -> None:
     """One rank of ``cli --tp_shards``, inside the process group: rank 0
-    serves (prewarming every rank first), the others follow."""
+    serves (prewarming every rank first), the others follow. Each rank
+    configures ``--aot_cache`` itself: a spawned rank starts anew."""
     from .run import load_pipeline
 
+    if args.aot_cache:
+        aot.configure(args.aot_cache)
     pipe = load_pipeline(args.model_path, model_cfg, tp_shards=args.tp_shards, **options)
     if pipe.mesh.rank != 0:
         follow(pipe)

@@ -13,6 +13,15 @@ the same arithmetic as optax's update). Its state is created at
 construction, zeros and step 0 as ``optimizer.init`` makes it, so a fresh
 trainer is a restore template. Checkpoints are the port's own format
 (``io/checkpoint.py``), restored in place.
+
+A tensor-parallel model (``MMDiT(cfg, tp_group=...)``) checkpoints one
+whole tree in the single-device format, as deepv_tpu's orbax checkpoint
+holds each sharded array whole: ``save`` gathers the split parameters and
+their AdamW moments over the tp group, and global rank 0 alone writes
+them, so every rank of the process group calls ``save`` (``train`` does,
+on every rank) and waits until the file is in place. ``restore`` reads a
+whole tree into each rank's slices. Either trainer restores either
+checkpoint, at any tp size that splits the heads.
 """
 
 from __future__ import annotations
@@ -23,12 +32,15 @@ from typing import Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import MMDiTConfig, PipelineConfig
 from ..io.checkpoint import load_metadata, restore_pytree, save_pytree
 from ..io.weights import adamw_state_tree, set_adamw_state
 from ..models.mmdit import MMDiT
 from ..models.scheduler import FlowMatchSchedule
+from ..parallel import comm
+from ..parallel.tp import gather_mmdit_params, restore_split
 from .flow_matching import make_pyramid_train_step, make_train_step
 
 
@@ -106,13 +118,38 @@ class Trainer:
                 "opt_state": adamw_state_tree(self.optimizer, self.model)}
 
     def save(self, path: Optional[str] = None) -> str:
+        """Write the training state to ``path`` (default: the step's
+        directory under ``ckpt_dir``). On a tensor-parallel model every rank
+        of the process group must call it: the whole tree is gathered onto
+        global rank 0's CPU, which writes it, and the call returns on every
+        rank once the file is in place (or raises on every rank if rank 0
+        could not write it)."""
         path = path or os.path.join(self.ckpt_dir, f"step_{self.step:08d}")
         tree = self.state_tree()
         tree["params"] = {k: v.detach() for k, v in tree["params"].items()}
-        save_pytree(path, tree,
-                    metadata={"step": self.step, "time": time.time(),
-                              "objective": self.objective,
-                              "sample_seed": self.sample_seed})
+        metadata = {"step": self.step, "time": time.time(), "objective": self.objective,
+                    "sample_seed": self.sample_seed}
+        group = self.model.tp_group
+        if group is None:
+            save_pytree(path, tree, metadata=metadata)
+            return path
+        writer = dist.get_rank() == 0
+        # only the writer's tp group gathers: another dp line's tree is the same
+        if 0 in dist.get_process_group_ranks(group):
+            tree = gather_mmdit_params(tree, group, keep=writer)
+        error = None
+        if writer:
+            try:
+                save_pytree(path, tree, metadata=metadata)
+            except Exception as e:   # raised below, after the other ranks know
+                error = e
+        del tree
+        failed = comm.all_reduce(torch.tensor([float(error is not None)], device=self.device),
+                                 dist.group.WORLD, op="max")
+        if error is not None:
+            raise error
+        if failed.item():
+            raise RuntimeError(f"global rank 0 could not write the checkpoint {path}")
         return path
 
     def restore(self, path: str) -> None:
@@ -125,8 +162,10 @@ class Trainer:
                 f"checkpoint {path} was trained with objective={saved_obj!r}; "
                 f"this trainer is configured objective={self.objective!r} — "
                 "restoring would silently continue with the wrong loss")
+        group = self.model.tp_group
         tree = self.state_tree()
-        state = restore_pytree(path, tree)
+        state = restore_pytree(path, tree,
+                               split=None if group is None else restore_split(group))
         count = state["opt_state"]["count"]
         for st in self.optimizer.state.values():
             st["step"].copy_(count)

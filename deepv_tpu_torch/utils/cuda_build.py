@@ -5,7 +5,9 @@ plain C interface and loaded with ``ctypes``; nothing includes PyTorch's
 headers, so a build takes seconds. Libraries go to ``deepv_tpu_torch/_build``
 (git-ignored), named by a hash of the source, every header of ``csrc/``
 and the flags, so an edited source or header rebuilds and an unchanged one
-is reused. Builds happen at first use, never at import.
+is reused; after ``utils/aot.configure(dir)`` they go to and come from that
+directory instead (``utils/aot.py``). Builds happen at first use, never at
+import.
 """
 
 from __future__ import annotations
@@ -19,7 +21,9 @@ import tempfile
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
+
+from . import aot
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -59,29 +63,60 @@ def source_digest(src: Path, flags: Sequence[str] = NVCC_FLAGS) -> str:
     return h.hexdigest()[:16]
 
 
+def nvcc_version(nvcc: str) -> str:
+    """``nvcc --version``'s output: what the AOT cache records of a build."""
+    proc = subprocess.run([nvcc, "--version"], capture_output=True, text=True, timeout=60)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{nvcc} --version failed (exit {proc.returncode}): {proc.stderr}")
+    return proc.stdout.strip()
+
+
+def no_nvcc_message(src: Path) -> str:
+    return (f"cannot build {src.name}: no nvcc on PATH or under $CUDA_HOME/bin; "
+            "the CUDA kernels of deepv_tpu_torch need the CUDA toolkit")
+
+
+def compile_library(nvcc: str, src: Path, flags: Sequence[str], out: str) -> str:
+    """Run ``nvcc`` on ``src`` into ``out``; returns its output (the ptxas
+    report). Raises RuntimeError when the build fails."""
+    proc = subprocess.run([nvcc, *flags, "-o", out, str(src)], capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src.name} (exit {proc.returncode}):\n{log}")
+    return log
+
+
+def compile_into(nvcc: str, src: Path, flags: Sequence[str], out: Path) -> Tuple[float, str]:
+    """``compile_library`` into a temporary file beside ``out``, renamed over
+    it when the build succeeds (so a reader never sees half a library, and
+    processes building the same library at once are safe). Returns the
+    seconds and the compiler's output."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    t0 = time.perf_counter()
+    try:
+        log = compile_library(nvcc, src, flags, tmp)
+    except BaseException:
+        os.unlink(tmp)
+        raise
+    seconds = time.perf_counter() - t0
+    os.replace(tmp, out)
+    return seconds, log
+
+
 def build(source: str, flags: Sequence[str] = NVCC_FLAGS) -> Built:
     """Compile ``csrc/<source>`` (or reuse the cached build) and load it.
     Raises RuntimeError when no ``nvcc`` is found or the build fails."""
     src = CSRC_DIR / source
     digest = source_digest(src, flags)
+    if aot.cache_dir() is not None:
+        return aot.load_or_build(src, digest, flags)
     out = BUILD_DIR / f"{src.stem}-{digest}.so"
     if out.is_file():
         return Built(ctypes.CDLL(str(out)), out, 0.0, "")
     nvcc = find_nvcc()
     if nvcc is None:
-        raise RuntimeError(
-            f"cannot build {src.name}: no nvcc on PATH or under $CUDA_HOME/bin; "
-            "the CUDA kernels of deepv_tpu_torch need the CUDA toolkit")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    t0 = time.perf_counter()
-    proc = subprocess.run([nvcc, *flags, "-o", tmp, str(src)],
-                          capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed on {src.name} (exit {proc.returncode}):\n{log}")
-    os.replace(tmp, out)
+        raise RuntimeError(no_nvcc_message(src))
+    seconds, log = compile_into(nvcc, src, flags, out)
     return Built(ctypes.CDLL(str(out)), out, seconds, log)

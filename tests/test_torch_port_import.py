@@ -90,16 +90,19 @@ def test_source_imports_no_jax_or_deepv_tpu(path):
 def test_source_scan_reaches_every_kernel_module():
     """The scan above covers the modules of every kernel and int8 path, the
     serving (its mesh follower too), training and mesh entry points, the
-    dry run; the import check imports them too."""
+    dry run, the kernel build and its AOT cache; the import check imports
+    them too."""
     scanned = {str(p.relative_to(PACKAGE)) for p in PACKAGE.rglob("*.py")}
     for module in ("ops/attention.py", "ops/conv_igemm.py", "ops/conv_int8.py",
                    "ops/linear_int8.py", "models/mmdit.py", "pipeline.py", "serve.py",
                    "io/checkpoint.py", "training/flow_matching.py", "training/trainer.py",
                    "parallel/comm.py", "parallel/cp.py", "parallel/launch.py",
-                   "parallel/mesh.py", "parallel/tp.py", "parallel/dryrun.py"):
+                   "parallel/mesh.py", "parallel/tp.py", "parallel/dryrun.py",
+                   "utils/cuda_build.py", "utils/aot.py"):
         assert module in scanned, module
     for module in ("deepv_tpu_torch.serve", "deepv_tpu_torch.training.trainer",
-                   "deepv_tpu_torch.parallel.launch", "deepv_tpu_torch.parallel.dryrun"):
+                   "deepv_tpu_torch.parallel.launch", "deepv_tpu_torch.parallel.dryrun",
+                   "deepv_tpu_torch.utils.aot"):
         assert module in port_modules(), module
 
 

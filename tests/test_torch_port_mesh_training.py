@@ -27,12 +27,22 @@ training_rank``, torch and the port only) on a (dp 2, tp 2) mesh runs:
       step with the same bits;
   (c) one TP-only ``Trainer`` step (no mesh argument: after F9 the model's
       own forward makes the gradients whole) against the single-device
-      ``Trainer``, parameters atol 1e-10.
+      ``Trainer``, parameters atol 1e-10;
+  (d) F10: that step through ``Trainer.train(ckpt_every=1)`` on all four
+      ranks into one ``ckpt_dir``. The checkpoint holds one whole tree, bit
+      for bit the gather of the ranks' live parameters and AdamW moments,
+      within (c)'s 1e-10 of the single-device ``Trainer``'s checkpoint after
+      the same step; it restores bit for bit into a single-device trainer,
+      into fresh tp-2 trainers and into a tp-4 one over all four ranks.
+      Before the repair every rank wrote its own shard to the same
+      ``state.pt.tmp``, and a rank died in ``os.replace``.
 
 ``run_dryrun(4, device="cpu")`` spawns its own 4 ranks and returns a
 finite loss; on a machine without 4 cards the default (NCCL) refuses,
 naming the count.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -120,7 +130,8 @@ def deepv_tpu_step(tree, batch):
 
 
 @pytest.fixture(scope="module")
-def runs():
+def runs(tmp_path_factory):
+    ckpt_dir = str(tmp_path_factory.mktemp("tp_ckpt"))
     pyr_tree, dp_tree = tree_np(PYR, 1), tree_np(DP_CFG, 2)
     forward = forward_inputs(np.random.default_rng(5))
     # the Trainer's batch: 2 rows of 8 latent frames
@@ -129,9 +140,22 @@ def runs():
     ref = deepv_tpu_step(dp_tree, dp_batch)
     draws = {k: [v] for k, v in ref["draws"].items()}
     ranks = spawn(worker.training_rank, RANKS,
-                  (PYR, pyr_tree, forward, DP_CFG, dp_tree, dp_batch, draws, LR, WD),
+                  (PYR, pyr_tree, forward, DP_CFG, dp_tree, dp_batch, draws, LR, WD, ckpt_dir),
                   backend="gloo")
-    return dict(pyr_tree=pyr_tree, forward=forward, ref=ref, ranks=ranks)
+    return dict(pyr_tree=pyr_tree, forward=forward, ref=ref, ranks=ranks, ckpt_dir=ckpt_dir)
+
+
+@pytest.fixture(scope="module")
+def single_trainer(runs, tmp_path_factory):
+    """The single-device ``Trainer`` of (c): one step with ``ckpt_every=1``.
+    Returns (trainer, loss, its checkpoint's path)."""
+    cfg = TMMDiTConfig(**PYR)
+    ckpt_dir = str(tmp_path_factory.mktemp("single_ckpt"))
+    trainer = Trainer(cfg, params_from_numpy(MMDiT(cfg), runs["pyr_tree"]), learning_rate=LR,
+                      weight_decay=WD, sample_seed=3, device="cpu", ckpt_dir=ckpt_dir)
+    batch = {k: torch.from_numpy(v) for k, v in runs["forward"]["trainer_batch"].items()}
+    loss = float(trainer.train([batch], TorchNoise(11, "cpu"), ckpt_every=1, log_every=0)[0])
+    return trainer, loss, os.path.join(ckpt_dir, "step_00000001")
 
 
 def whole(ranks, key, name, leaf):
@@ -223,18 +247,121 @@ def test_dp_replicas_are_bit_equal(runs):
                 assert np.array_equal(x, b[key][name]), (tp, key, name)
 
 
-def test_tp_trainer_step_matches_single_device(runs):
-    cfg = TMMDiTConfig(**PYR)
-    trainer = Trainer(cfg, params_from_numpy(MMDiT(cfg), runs["pyr_tree"]), learning_rate=LR,
-                      weight_decay=WD, sample_seed=3, device="cpu")
-    batch = {k: torch.from_numpy(v) for k, v in runs["forward"]["trainer_batch"].items()}
-    loss = float(trainer.train([batch], TorchNoise(11, "cpu"), log_every=0)[0])
+def test_tp_trainer_step_matches_single_device(runs, single_trainer):
+    trainer, loss, _ = single_trainer
     ref = worker._params(trainer.model)
     for r in runs["ranks"]:
         np.testing.assert_allclose(r["trainer_loss"], loss, rtol=0, atol=GRAD_ATOL)
     for name, w in ref.items():
         got = whole(runs["ranks"], "trainer_params", name, w)
         np.testing.assert_allclose(got, w, rtol=0, atol=PARAM_ATOL, err_msg=name)
+
+
+def checkpoint_parts(runs):
+    """Every rank's F10 results; fails with the first rank's error."""
+    parts = [r["ckpt"] for r in runs["ranks"]]
+    errors = [(r["rank"], p["error"]) for r, p in zip(runs["ranks"], parts) if "error" in p]
+    assert not errors, f"the TP checkpoint failed on {len(errors)} ranks: {errors}"
+    return parts
+
+
+def load_tree(path):
+    """A checkpoint's state tree as numpy, with the trainer state's keys."""
+    from deepv_tpu_torch.io.checkpoint import STATE_FILE
+    tree = torch.load(os.path.join(path, STATE_FILE), map_location="cpu", weights_only=True)
+    opt = tree["opt_state"]
+    return {"params": {k: v.numpy() for k, v in tree["params"].items()},
+            "mu": {k: v.numpy() for k, v in opt["mu"].items()},
+            "nu": {k: v.numpy() for k, v in opt["nu"].items()},
+            "count": float(opt["count"])}
+
+
+def same_bits(a, b):
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a.view(np.uint8),
+                                                                        b.view(np.uint8))
+
+
+def assert_slices_of(tree, state, view, what):
+    """``state`` (a trainer's numpy state) holds, bit for bit, ``view``'s
+    slice of the whole checkpoint ``tree``."""
+    for key in ("params", "mu", "nu"):
+        want = flatten_tree(shard_mmdit_params(tree[key], view))
+        assert set(state[key]) == set(want), (what, key)
+        for name, w in want.items():
+            assert same_bits(state[key][name], w), f"{what}: {key} {name}"
+    assert state["count"] == [tree["count"]] * len(state["params"]), (what, state["count"])
+    assert state["step"] == 1, (what, state["step"])
+
+
+def test_f10_tp_trainer_checkpoints_one_whole_tree(runs, single_trainer):
+    """Fault F10's regression test: ``train(ckpt_every=1)`` completes on the
+    four ranks (two dp lines of tp 2) into one ``ckpt_dir``, and the
+    checkpoint is one whole tree, bit for bit the gather of the ranks' live
+    state, with the single-device format's metadata."""
+    from deepv_tpu_torch.io.checkpoint import load_metadata
+    parts = checkpoint_parts(runs)
+    path = parts[0]["path"]
+    assert all(p["path"] == path for p in parts)
+    assert sorted(os.listdir(runs["ckpt_dir"])) == ["step_00000001", "step_00000001.meta.json"]
+    assert os.listdir(path) == ["state.pt"]
+    meta, single_meta = load_metadata(path), load_metadata(single_trainer[2])
+    for key in ("step", "objective", "sample_seed"):
+        assert meta[key] == single_meta[key], key
+    tree, ranks = load_tree(path), runs["ranks"]
+    shapes = {k: v.shape for k, v in worker._params(single_trainer[0].model).items()}
+    for key in ("params", "mu", "nu"):
+        assert {k: v.shape for k, v in tree[key].items()} == shapes, key
+        for name, leaf in tree[key].items():
+            spec = mmdit_param_spec(name, leaf)
+            for dp in (0, 1):
+                line = [p["live"][key][name] for r, p in zip(ranks, parts) if r["dp"] == dp]
+                got = np.concatenate(line, axis=spec.index("tp")) if spec else line[0]
+                assert same_bits(got, leaf), f"dp line {dp}: {key} {name}"
+    assert all(p["live"]["count"] == [tree["count"]] * len(shapes) for p in parts)
+
+
+def test_f10_tp_checkpoint_matches_the_single_device_one(runs, single_trainer):
+    """The TP checkpoint against the single-device ``Trainer``'s after the
+    same step: every leaf within (c)'s PARAM_ATOL, the count equal."""
+    checkpoint_parts(runs)
+    tree, ref = load_tree(runs["ranks"][0]["ckpt"]["path"]), load_tree(single_trainer[2])
+    assert tree["count"] == ref["count"] == 1.0
+    for key in ("params", "mu", "nu"):
+        assert set(tree[key]) == set(ref[key]), key
+        for name, w in ref[key].items():
+            np.testing.assert_allclose(tree[key][name], w, rtol=0, atol=PARAM_ATOL,
+                                       err_msg=f"{key} {name}")
+
+
+def test_f10_tp_checkpoint_restores_on_one_device_and_on_tp2(runs, tmp_path):
+    """The TP checkpoint restores bit for bit into a fresh single-device
+    ``Trainer`` and into fresh tp-2 trainers on every rank."""
+    parts = checkpoint_parts(runs)
+    path = parts[0]["path"]
+    tree = load_tree(path)
+    cfg = TMMDiTConfig(**PYR)
+    trainer = Trainer(cfg, params_from_numpy(MMDiT(cfg), runs["pyr_tree"]), learning_rate=LR,
+                      weight_decay=WD, sample_seed=3, device="cpu")
+    trainer.restore(path)
+    state = worker._trainer_state(trainer)
+    for key in ("params", "mu", "nu"):
+        for name, w in tree[key].items():
+            assert same_bits(state[key][name], w), f"one device: {key} {name}"
+    assert state["count"] == [tree["count"]] * len(tree["params"]) and state["step"] == 1
+    for r, p in zip(runs["ranks"], parts):
+        assert_slices_of(tree, p["tp2"], rank_view(r["rank"]), f"tp 2, rank {r['rank']}")
+
+
+def test_f10_tp_checkpoint_restores_on_tp4(runs):
+    """The tp-2 checkpoint restores into a tp-4 model over all four ranks
+    (one of PYR's 4 heads a rank): each rank's slices are
+    ``shard_mmdit_params`` of the whole tree, bit for bit."""
+    parts = checkpoint_parts(runs)
+    tree = load_tree(parts[0]["path"])
+    for r, p in zip(runs["ranks"], parts):
+        view = Mesh(("tp",), (RANKS,), r["rank"], torch.device("cpu"), {})
+        assert_slices_of(tree, p["tp4"], view, f"tp 4, rank {r['rank']}")
 
 
 def test_run_dryrun_on_cpu_ranks():

@@ -1,10 +1,12 @@
 """The port's CLI entry point on the CPU: one tiny rollout written to an mp4,
 the GPU default of ``load_pipeline``, the ``fast`` preset and its options
 through ``load_pipeline`` and ``main`` (with the PLY export), a tiny rollout
-with the igemm conv backend, the options not ported yet, which raise
-``NotImplementedError`` instead of running another path, and the mesh
-options' refusals outside what they take (tests/test_torch_port_mesh_rollout.py
-runs them)."""
+with the igemm conv backend, an ``--aot_cache`` directory it must not trust,
+refused before anything runs (tests/test_torch_port_aot.py runs the cache),
+and the mesh options' refusals outside what they take
+(tests/test_torch_port_mesh_rollout.py runs them)."""
+
+import os
 
 import numpy as np
 import pytest
@@ -19,6 +21,7 @@ from deepv_tpu_torch.io.weights import random_params
 from deepv_tpu_torch.models.mmdit import Int8Linear
 from deepv_tpu_torch.ops import causal_conv
 from deepv_tpu_torch.pipeline import InferencePipeline
+from deepv_tpu_torch.utils import aot
 
 torch.set_num_threads(1)
 
@@ -161,11 +164,18 @@ def test_pipeline_runs_the_igemm_conv_backend(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs, item", [
-    # PLY export is ported; it does not get past the AOT cache's refusal
-    pytest.param(dict(add_ply=True, aot_cache="cache"), "M19c AOT cache", id="kwargs0-M19"),
-    pytest.param(dict(aot_cache="cache"), "M19c AOT cache", id="kwargs1-M19"),
+    # PLY export and the AOT cache (M19c) are ported; a cache directory that
+    # group or others may write is refused before anything is built or read
+    pytest.param(dict(add_ply=True, aot_cache=0o770), "writable by group or others",
+                 id="kwargs0-M19"),
+    pytest.param(dict(aot_cache=0o703), "writable by group or others", id="kwargs1-M19"),
 ])
 def test_main_refuses_what_is_not_ported(tmp_path, kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
+    cache = tmp_path / "cache"
+    cache.mkdir()
+    os.chmod(cache, kwargs["aot_cache"])
+    with pytest.raises(PermissionError, match=item) as err:
         run.main(str(tmp_path / "absent.png"), "none", random_weights=True, device="cpu",
-                 **kwargs)
+                 **dict(kwargs, aot_cache=str(cache)))
+    assert str(cache) in str(err.value)
+    assert aot.cache_dir() is None

@@ -532,7 +532,9 @@ def test_serve_help_runs():
 
 
 @pytest.mark.parametrize("argv, error, match", [
-    (["--random_weights", "--aot_cache", "d"], NotImplementedError, "M19c"),
+    # the AOT cache is ported (M19c): a directory others may write is refused
+    pytest.param(["--random_weights", "--aot_cache", "{untrusted}"], PermissionError,
+                 "writable by group or others", id="argv0-NotImplementedError-M19c"),
     # serving over a mesh is ported (M17c): one NCCL rank per card, so a
     # machine without 2 cards refuses, naming its count
     pytest.param(["--random_weights", "--tp_shards", "2"], RuntimeError, "this machine has 0",
@@ -542,10 +544,14 @@ def test_serve_help_runs():
     (["--random_weights", "--streams", "2"], SystemExit, "visible devices"),
     (["--random_weights"], RuntimeError, "no CUDA device"),
 ])
-def test_cli_refuses_what_it_cannot_run(monkeypatch, argv, error, match):
-    """The CLI runs on the card, with a snapshot or --random_weights;
-    unported options raise naming their ROADMAP item, and --streams is
-    checked against the visible cards."""
+def test_cli_refuses_what_it_cannot_run(monkeypatch, tmp_path, argv, error, match):
+    """The CLI runs on the card, with a snapshot or --random_weights; an
+    --aot_cache directory group or others may write is refused, and
+    --streams is checked against the visible cards."""
+    untrusted = tmp_path / "cache"
+    untrusted.mkdir(mode=0o777)
+    untrusted.chmod(0o777)
+    argv = [str(untrusted) if a == "{untrusted}" else a for a in argv]
     monkeypatch.setenv("DEEPV_TINY", "1")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)

@@ -9,6 +9,7 @@ their references in the parent process.
 
 from __future__ import annotations
 
+import os
 import sys
 
 import numpy as np
@@ -21,7 +22,7 @@ from deepv_tpu_torch.models.scheduler import FlowMatchSchedule
 from deepv_tpu_torch.models.vae import VAE
 from deepv_tpu_torch.ops import causal_conv, conv_int8, linear_int8
 from deepv_tpu_torch.parallel import comm, cp
-from deepv_tpu_torch.parallel.mesh import make_mesh
+from deepv_tpu_torch.parallel.mesh import Mesh, make_mesh
 from deepv_tpu_torch.parallel.tp import shard_mmdit_params
 from deepv_tpu_torch.pipeline import InferencePipeline, TorchNoise
 from deepv_tpu_torch.training.flow_matching import BatchSliceNoise, make_pyramid_train_step
@@ -191,14 +192,53 @@ def _params(model):
     return {n: p.detach().numpy().copy() for n, p in model.named_parameters()}
 
 
+def _trainer_state(trainer):
+    """A trainer's parameters, AdamW moments, count and step, as numpy."""
+    opt = [trainer.optimizer.state[p] for p in trainer.model.parameters()]
+    names = [name for name, _ in trainer.model.named_parameters()]
+    return {"params": _params(trainer.model),
+            "mu": {k: s["exp_avg"].numpy().copy() for k, s in zip(names, opt)},
+            "nu": {k: s["exp_avg_sq"].numpy().copy() for k, s in zip(names, opt)},
+            "count": [float(s["step"]) for s in opt], "step": trainer.step}
+
+
+def _checkpoint_part(pyr, pyr_tree, mesh, batch, lr, wd, ckpt_dir):
+    """Fault F10: a TP-only ``Trainer`` step with ``ckpt_every=1`` into the
+    ``ckpt_dir`` every rank shares; its checkpoint restored into a fresh tp-2
+    trainer and into a tp-4 one over all four ranks (PYR's 4 heads, one a
+    rank). Both fresh trainers start from the initial weights."""
+    tp = mesh.group("tp")
+
+    def trainer(model, ckpt=None):
+        return Trainer(pyr, model, learning_rate=lr, weight_decay=wd, sample_seed=3,
+                       device="cpu", ckpt_dir=ckpt)
+
+    stepped = trainer(params_from_numpy(MMDiT(pyr, tp_group=tp),
+                                        shard_mmdit_params(pyr_tree, mesh)), ckpt_dir)
+    loss = float(stepped.train([batch], TorchNoise(11, "cpu"), ckpt_every=1, log_every=0)[0])
+    path = os.path.join(ckpt_dir, f"step_{stepped.step:08d}")
+    out = {"loss": loss, "path": path, "live": _trainer_state(stepped)}
+    fresh = trainer(params_from_numpy(MMDiT(pyr, tp_group=tp),
+                                      shard_mmdit_params(pyr_tree, mesh)))
+    fresh.restore(path)
+    out["tp2"] = _trainer_state(fresh)
+    world = torch.distributed.group.WORLD
+    line = Mesh(("tp",), (4,), mesh.rank, torch.device("cpu"), {"tp": world})
+    tp4 = trainer(params_from_numpy(MMDiT(pyr, tp_group=world), shard_mmdit_params(pyr_tree, line)))
+    tp4.restore(path)
+    out["tp4"] = _trainer_state(tp4)
+    return out
+
+
 def training_rank(pyr_kwargs: dict, pyr_tree, forward: dict, dp_kwargs: dict, dp_tree,
-                  dp_batch: dict, dp_draws: dict, lr: float, wd: float):
+                  dp_batch: dict, dp_draws: dict, lr: float, wd: float, ckpt_dir: str):
     """On a (dp 2, tp 2) mesh of 4 ranks, in float64: (a) the gradient of
     sum(v**2) through the TP MMDiT on its tp group, and the forward's
     reductions with and without autograd; (b) the DP x TP pyramid step
     (stage 1, unit 3) on this rank's dp slice of the batch and of the given
     draws; (c) a TP-only ``Trainer`` step on the whole batch (each dp line
-    alone). Returns numpy."""
+    alone); (d) ``_checkpoint_part`` into ``ckpt_dir``, its error (type,
+    message) kept instead of raised. Returns numpy."""
     import deepv_tpu_torch.parallel.dryrun  # noqa: F401  (what a dryrun rank imports)
 
     torch.set_num_threads(1)
@@ -246,6 +286,10 @@ def training_rank(pyr_kwargs: dict, pyr_tree, forward: dict, dp_kwargs: dict, dp
     batch = {k: torch.from_numpy(v) for k, v in forward["trainer_batch"].items()}
     out["trainer_loss"] = float(trainer.train([batch], TorchNoise(11, "cpu"), log_every=0)[0])
     out["trainer_params"] = _params(trainer.model)
+    try:
+        out["ckpt"] = _checkpoint_part(pyr, pyr_tree, mesh, batch, lr, wd, ckpt_dir)
+    except Exception as e:   # the tests report it
+        out["ckpt"] = {"error": (type(e).__name__, str(e))}
     out["forbidden_modules"] = forbidden_modules()
     return out
 
