@@ -41,7 +41,12 @@ Phases, in order; any failure exits non-zero before the last line:
      plain version and F.conv3d (cuDNN with TF32 off, a yardstick the
      igemm path never calls), beside the least time (f32: at the 3xTF32
      rate, with the FMA rate's beside it). After phase 7 it prints K2,
-     cuDNN and the bound summed over the igemm rollout's convs by class;
+     cuDNN and the bound summed over the igemm rollout's convs by class.
+     Then K2 at batch 2 (rgb and disparity, as the batched decode of phase
+     24 runs it) at every eligible decoder class in bf16, in init and cont
+     mode and, for the last up block's convs, prime: phase 4's tolerance,
+     the kernel that ran, whether the second stream alone gives the same
+     bits (printed), and its time;
   5. main path: run.load_pipeline with random weights at full width
      (MMDiTConfig(): 24 layers, d=1536; VAEConfig()) in bf16, and generate()
      on an 11-action prompt at 384x512 (2 chunks, 89 frames, 12 units:
@@ -87,7 +92,12 @@ Phases, in order; any failure exits non-zero before the last line:
      int8 peak or the memory rate, and the TOPS. At conv_in's 2-frame init
      case it also times conv_in's work on the wgmma kernel (128 -> 128 with the
      input and weight channels past the third zero; its sums must equal
-     the packed kernel's);
+     the packed kernel's). Then K3 at batch 2 at every int8-eligible
+     decoder class in init and cont mode and, for the last up block's
+     convs, prime, the second stream at 3x the first's amplitude: one sx
+     for the batch (the amax of both, above the first stream's own), x8 and
+     sx byte-equal to the plain quantise step's, the int32 sums exact, bf16
+     within one ulp, the route and launches as above;
  10. int8 linear: int_mm at shapes torch._int_mm refuses (16 rows; k, n not
      multiples of 8), zero-padded, and torch._int_mm at the stage-2 shapes,
      each exact against an f64 product; the W8A8 call, its quantise,
@@ -244,7 +254,9 @@ Phases, in order; any failure exits non-zero before the last line:
      mesh call against the single-device call on rank 0: one denoise forward
      at chunk 1's stage-2 layout (b = 2), cp_dec_window init then cont (2
      latent frames each), cp_vae_encode_chunked of a 17-frame 384x512 carry
-     (window 8), within relative L2 MESH_F32_REL_L2 and max |err|
+     (window 8), and cp_vae_decode_chunked of two streams at batch 2 (2
+     latent frames: decode_batched's mesh route) against vae_decode of the
+     same batch, within relative L2 MESH_F32_REL_L2 and max |err|
      MESH_F32_MAX_ABS; (d) world size 1 over NCCL: one f32 forward and one
      decode window through the mesh code within (b)'s tolerance, printing
      whether each is bit-equal to the single-device call. (a) and (b) run in
@@ -313,7 +325,32 @@ Phases, in order; any failure exits non-zero before the last line:
      imports, the libraries, a ready pipeline, the first step's frames, the
      end of prewarm and their exit, side by side, with nvcc's seconds,
      aot.stats() and the card's name and power limit.
-Phases 5, 7, 11, 12, 13, 16, 17, 18, 20 and 22 also check that the backward
+ 24. batched decode: InferencePipeline(stream_decode=False,
+     decode_batched=True), rgb and disparity decoded as one batch-2 VAE
+     call, at full width in bf16 on phase 5's weights, image, prompt and
+     seed; counts set to 0 just before and read just after each rollout,
+     and a spy (DecoderSpy) sees every decoder conv at batch 2 and every
+     encoder conv at batch 1. (a) phase 18's untiled igemm rollout (chunk 1
+     the plain decode, chunk 2 primed once): K1 4,320, K2's decoder
+     launches half of phase 18 untiled's and its encoder launches equal;
+     its frames against phase 18 untiled's: chunk 1 bit-equal or within
+     phase 8's bf16 rule (twice the relative L2 of a bf16 to an f32 decode),
+     chunk 2 (conditioned on chunk 1's pixels) held to that rule where chunk
+     1 is bit-equal, every gap printed; (d) a tiled decode (256-pixel tiles)
+     of (a)'s chunk-1 latents at batch 2 against two batch-1 ones: the
+     same rule, half the K2 launches; (b) phase 12's adaptive:0.5 + reuse
+     + carry: K1 24 a forward run, no priming, the kept decoder caches (one
+     cache at batch 2, None) after each chunk, chunk 1 against phase 12's
+     within the rule (the same latents, decoded streamed at batch 1 there);
+     (e) one batched init window inside utils/profiling.device_trace, whose
+     Chrome trace (chiprun_out/batched_decode_trace/) must name
+     conv3d_igemm_wgmma; (c) phase 11's --fast: K3's conv and quantise
+     kernels once per int8 dispatch, the decoder's at batch 2, 89 finite
+     frames, the 8-bit gap to phase 11 printed (not gated: one activation
+     scale for both streams). Prints each run's wall time, denoise_unit,
+     vae_decode and prime seconds, peak memory and the card's clock, power
+     and temperature before it, beside phases 18, 12 and 11's.
+Phases 5, 7, 11, 12, 13, 16, 17, 18, 20, 22 and 24 also check that the backward
 never launched.
 The line before the last is a JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}. Extra detail goes to chiprun_out/.
@@ -384,6 +421,8 @@ CONV_EDGE_CASES = (
 K2_COUNTERS = ("launches", "cl_launches", "f32_launches", "split_launches")
 #: denoise forwards of the exact rollout: 12 units x 3 stages x 5 steps
 FORWARDS = 180
+#: the rollout's first chunk: the first frame and 7 units of 8 frames
+CHUNK1_FRAMES = 57
 #: int8 convs of the fast rollout: the dispatches to conv3d_int8 at the
 #: 384x512 level that phase 11's spy counts
 FAST_CONV_INT8_CALLS = 247
@@ -1363,6 +1402,54 @@ def check_conv_igemm(device, results):
     return rows_out
 
 
+def batch2_decoder_cases(cases):
+    """(layer, mode, ci, co, h, w, output frames) of each distinct decoder
+    class of ``cases`` in every causal mode the batched end-of-chunk decode
+    runs it in at batch 2: init (chunk 1's first window, the first frame of
+    each priming warm), cont (every other window) and, for the last up
+    block's convs, prime (the priming tail; conv_out is not primed)."""
+    out, seen = [], set()
+    for layer, _, ci, co, h, w, n in cases:
+        if not layer.startswith("decoder") or (ci, co, h, w) in seen:
+            continue
+        seen.add((ci, co, h, w))
+        modes = ("init", "cont") + (("prime",) if layer.startswith("decoder up block 3") else ())
+        out += [(layer, mode, ci, co, h, w, n) for mode in modes]
+    return out
+
+
+def check_conv_igemm_batch2(device, results):
+    """Phase 4 at batch 2: K2 against its plain version at every eligible
+    decoder class of the full-width VAE in each mode the batched decode runs
+    it in (``batch2_decoder_cases``), bf16, with phase 4's tolerances and
+    the kernel that ran checked; also whether the kernel gives the second
+    stream alone the same bits (printed), and its time."""
+    import torch
+    from deepv_tpu_torch.ops import conv_igemm as cig
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(24)
+    rows = []
+    for layer, mode, ci, co, h, w, n in batch2_decoder_cases(CONV_CASES):
+        x32, p32, tp = conv_case_inputs(mode, ci, co, h, w, n, gen, device, 2)
+        x = x32.to(torch.bfloat16)
+        p = type(p32)(weight=p32.weight.to(torch.bfloat16), bias=p32.bias.to(torch.bfloat16))
+        del x32, p32
+        y, r, err, excess = k2_against_plain(x, p, tp, f"{layer} {mode} batch 2")
+        assert tuple(y.shape) == (2, co, n, h, w), tuple(y.shape)
+        alone = torch.equal(cig.conv3d_igemm(x[1:2], p, tp), y[1:2])
+        row = dict(layer=layer, mode=mode, ci=ci, co=co, h=h, w=w, frames=n, batch=2,
+                   kernel=cig.kernel_for(x), max_abs_err=float(err.max()), ulp_excess=excess,
+                   second_stream_alone_bit_equal=alone,
+                   ms=graph_ms(lambda: cig.conv3d_igemm(x, p, tp), 2, 1))
+        rows.append(row)
+        log("conv_igemm batch 2", json.dumps(row))
+        del x, p, y, r, err
+        torch.cuda.empty_cache()
+    results["conv_igemm_batch2"] = rows
+    return rows
+
+
 def eligible_convs(vcfg):
     """K2-eligible convs per call, from the code: every 3x3x3 conv of the
     resnets, mid blocks and up-samplers has ci, co multiples of 128 at full
@@ -1699,6 +1786,66 @@ def check_conv_int8(device, results):
     return rows_out
 
 
+def check_conv_int8_batch2(device, results):
+    """Phase 9 at batch 2: K3 against its plain version at every
+    int8-eligible decoder class in each mode the batched decode runs it in
+    (``batch2_decoder_cases``), the second stream 3x the first's amplitude:
+    one sx for the whole batch (the amax of both streams, above the first
+    stream's own), x8 and sx byte-equal to the plain quantise step's, the
+    int32 sums exact, the bf16 output within one bf16 ulp, and the route
+    and launches checked as in phase 9."""
+    import torch
+    from deepv_tpu_torch.ops import conv_int8 as ci8
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(25)
+    rows = []
+    for layer, mode, ci, co, h, w, n in batch2_decoder_cases(K3_CASES):
+        x32, p32, tp = conv_case_inputs(mode, ci, co, h, w, n, gen, device, 2)
+        x32[1] *= 3.0
+        x = x32.to(torch.bfloat16)
+        del x32
+        conv = torch.nn.Conv3d(ci, co, 3, device=device, dtype=torch.bfloat16)
+        conv.requires_grad_(False)
+        conv.weight.copy_(p32.weight)
+        conv.bias.copy_(p32.bias)
+        ci8.quantize_conv_weights(conv)
+        pl = ci8.plan(ci, co, h, w, 2, n)
+        counts = (ci8.launches, ci8.packed_launches, ci8.quantize_launches)
+        x8k, sxk = ci8.quantize_k3(x)
+        acc = ci8.conv3d_int8_accumulators(x, conv, tp)
+        y = ci8.conv3d_int8(x, conv, tp)
+        launched = (ci8.launches - counts[0], ci8.packed_launches - counts[1],
+                    ci8.quantize_launches - counts[2])
+        assert launched == ((2, 0, 3) if pl.kernel == "wgmma" else (0, 2, 3)), (
+            f"{layer} {mode} batch 2: plan {pl.kernel}, launches {launched}")
+        x8p, sxp = ci8.quantize_input_k3(x)
+        x8_bad = int((x8k != x8p).sum())
+        assert x8_bad == 0 and torch.equal(sxk, sxp), f"{layer} {mode} batch 2: x8 or sx"
+        per_stream = [ci8.input_scale(x[i:i + 1]) for i in range(2)]
+        assert torch.equal(sxk.reshape(()), torch.maximum(*per_stream).reshape(())) and bool(
+            per_stream[0] < sxk), f"{layer} {mode} batch 2: sx is not the whole batch's"
+        del x8p
+        x8, _ = ci8.quantize_input(x)
+        n_bad = int((acc != ci8.accumulate_plain(x8, conv.weight_int8, tp)).sum())
+        assert n_bad == 0, f"{layer} {mode} batch 2: {n_bad} int32 accumulators differ"
+        r = ci8.conv3d_int8_plain(x, conv, tp)
+        assert tuple(y.shape) == (2, co, n, h, w), tuple(y.shape)
+        err = (y.float() - r.float()).abs()
+        excess = float((err - bf16_ulp(torch.maximum(y.float().abs(), r.float().abs()))).max())
+        assert excess <= 0, f"{layer} {mode} batch 2: K3 vs plain beyond one bf16 ulp"
+        row = dict(layer=layer, mode=mode, ci=ci, co=co, h=h, w=w, frames=n, batch=2,
+                   route=pl.kernel, sx=float(sxk), sx_per_stream=[float(v) for v in per_stream],
+                   x8_mismatches=x8_bad, acc_mismatches=n_bad, max_abs_err=float(err.max()),
+                   ulp_excess=excess, ms=graph_ms(lambda: ci8.conv3d_int8(x, conv, tp), 2, 1))
+        rows.append(row)
+        log("conv_int8 batch 2", json.dumps(row))
+        del x, conv, x8k, x8, acc, y, r, err
+        torch.cuda.empty_cache()
+    results["conv_int8_batch2"] = rows
+    return rows
+
+
 def check_linear_int8(device, results):
     """Phase 10: the W8A8 linear at the stage-2 shapes: the int32 product
     exact, and the times of the whole call, its quantise, ``_int_mm`` and
@@ -1774,7 +1921,8 @@ def run_fast_path(device, results, ref_frames):
     phase 5's image, prompt, seed and weights. Counts set to 0 just before and
     read just after: K1 once per block of the 108 forwards skip_odd runs,
     K2 never, K3 once per dispatch to the int8 conv, ``_int_mm`` once per
-    quantised linear of every forward."""
+    quantised linear of every forward. Returns the summary, the int8 convs'
+    output frames by class and the rollout's frames on the host."""
     import torch
     from deepv_tpu_torch.config import create_model_config
     from deepv_tpu_torch.models.mmdit import Int8Linear
@@ -1885,14 +2033,14 @@ def run_fast_path(device, results, ref_frames):
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
-    return summary, rollout_frames_by_class
+    return summary, rollout_frames_by_class, frames.cpu()
 
 
 def run_adaptive_boundary_path(device, results, ref_frames):
     """Phase 12: InferencePipeline with flow_cache="adaptive:0.5",
     reuse_decoder_cache and carry_latents, on phase 5's image, prompt, seed
     and weights; K1 once per block of every forward the pipeline records as
-    run."""
+    run. Returns the summary and chunk 1's frames on the host."""
     import torch
     from deepv_tpu_torch.actions import action_vocabulary
     from deepv_tpu_torch.config import MMDiTConfig, VAEConfig, create_model_config
@@ -1923,10 +2071,11 @@ def run_adaptive_boundary_path(device, results, ref_frames):
                    gap_vs_main_path_8bit_mean=mean8, gap_vs_main_path_8bit_p95=p95)
     log("adaptive + boundary path:", json.dumps(summary))
     results["adaptive_boundary_path"] = summary
-    del pipe
+    chunk1 = {k: out[k][:, :, :CHUNK1_FRAMES].cpu() for k in ("pred_img", "pred_disparity")}
+    del pipe, out
     gc.collect()
     torch.cuda.empty_cache()
-    return summary
+    return summary, chunk1
 
 
 def http_call(port: int, method: str, path: str, obj=None):
@@ -2826,12 +2975,96 @@ def check_conv_shapes(device, shapes):
     return rows
 
 
+class DecoderSpy:
+    """A context that sees which VAE work is the decoder's: it wraps
+    ``models/vae``'s decoder_front, decoder_tail and decoder_prime_tail
+    (every decoder call of the pipeline goes through them) and counts, while
+    they run, K2's launches (wgmma and cl paths, from the wrapper's
+    counters) and K3's conv and quantise launches; it wraps every causal
+    conv of the VAE (``vae.causal_conv3d``) and the dispatches to K2 and K3
+    and records their batch sizes, the decoder's and the encoder's apart."""
+
+    def __init__(self):
+        self.k2 = self.k3 = self.k3_quantise = 0
+        self.conv_batches = {"decoder": {}, "encoder": {}}
+        self.dispatch_batches = {"decoder": {}, "encoder": {}}
+        self._depth = 0
+
+    @staticmethod
+    def _counts():
+        from deepv_tpu_torch.ops import conv_igemm as cig
+        from deepv_tpu_torch.ops import conv_int8 as ci8
+        return (cig.launches + cig.cl_launches, ci8.launches + ci8.packed_launches,
+                ci8.quantize_launches)
+
+    def _where(self):
+        return "decoder" if self._depth else "encoder"
+
+    def _record(self, table, b):
+        where = table[self._where()]
+        where[b] = where.get(b, 0) + 1
+
+    def __enter__(self):
+        from deepv_tpu_torch.models import vae as vae_mod
+        from deepv_tpu_torch.ops import causal_conv
+
+        self._saved = [(vae_mod, name, getattr(vae_mod, name)) for name in (
+            "decoder_front", "decoder_tail", "decoder_prime_tail", "causal_conv3d")]
+        self._saved += [(causal_conv, name, getattr(causal_conv, name))
+                        for name in ("conv3d_igemm", "conv3d_int8")]
+        for mod, name, fn in self._saved:
+            setattr(mod, name, self._wrap(name, fn))
+        return self
+
+    def _wrap(self, name, fn):
+        if name == "causal_conv3d":
+            def conv(x, *args, **kwargs):
+                self._record(self.conv_batches, x.shape[0])
+                return fn(x, *args, **kwargs)
+            return conv
+        if name.startswith("conv3d_"):
+            def dispatch(x, *args, **kwargs):
+                self._record(self.dispatch_batches, (name[7:], x.shape[0]))
+                return fn(x, *args, **kwargs)
+            return dispatch
+
+        def decoder(*args, **kwargs):
+            c0 = self._counts()
+            self._depth += 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self._depth -= 1
+                if not self._depth:
+                    c1 = self._counts()
+                    self.k2 += c1[0] - c0[0]
+                    self.k3 += c1[1] - c0[1]
+                    self.k3_quantise += c1[2] - c0[2]
+        return decoder
+
+    def __exit__(self, *exc):
+        for mod, name, fn in reversed(self._saved):
+            setattr(mod, name, fn)
+        return False
+
+    def summary(self) -> dict:
+        key = lambda k: k if isinstance(k, int) else f"{k[0]} b={k[1]}"
+        return dict(decoder_k2_launches=self.k2, decoder_k3_launches=self.k3,
+                    decoder_k3_quantise_launches=self.k3_quantise,
+                    conv_batches={w: {key(k): n for k, n in t.items()}
+                                  for w, t in self.conv_batches.items()},
+                    dispatch_batches={w: {key(k): n for k, n in t.items()}
+                                      for w, t in self.dispatch_batches.items()})
+
+
 def run_tiled_path(device, results, ref_frames):
     """Phase 18 (M17a): phase 5's rollout through InferencePipeline with
     VAEConfig(conv_impl="igemm") and stream_decode=False, untiled and then
     with use_tiling=True; K2 at every shape the tiled run launched, and the
     tiled decode against a tiled cuDNN decode of the same latents. Returns
-    the tiled run's launches and K2's check rows."""
+    the tiled run's launches, K2's check rows and the untiled run (its
+    summary, with the decoder's and the encoder's K2 launches apart, and
+    its frames on the host)."""
     import torch
     from deepv_tpu_torch import pipeline as pl
     from deepv_tpu_torch.actions import action_vocabulary
@@ -2874,7 +3107,8 @@ def run_tiled_path(device, results, ref_frames):
 
         causal_conv.conv3d_igemm, pl.vae_decode = conv_spy, decode_spy
         try:
-            summary, out, conv_launches = drive_rollout(pipe, setup_s)
+            with DecoderSpy() as dec_spy:
+                summary, out, conv_launches = drive_rollout(pipe, setup_s)
         finally:
             causal_conv.conv3d_igemm, pl.vae_decode = orig_conv, orig_decode
         assert summary["forwards"] == FORWARDS, summary["forwards"]
@@ -2883,10 +3117,18 @@ def run_tiled_path(device, results, ref_frames):
         assert ("prime" in summary["phases_s"]) != tiling, summary["phases_s"]
         k2 = conv_launches["launches"] + conv_launches["cl_launches"]
         assert k2 == sum(shapes.values()), (k2, sum(shapes.values()))
+        spied = dec_spy.summary()
+        assert set(spied["conv_batches"]["decoder"]) == {1}, spied
         summary.update(conv_igemm_dispatches=k2, conv_shapes=len(shapes),
-                       decode_latent_frames=[z.shape[2] for z in decodes])
+                       decode_latent_frames=[z.shape[2] for z in decodes],
+                       decoder_conv_igemm_launches=spied["decoder_k2_launches"],
+                       encoder_conv_igemm_launches=k2 - spied["decoder_k2_launches"])
         runs[name] = summary
         frames[name] = out["pred_img"].cpu()
+        if not tiling:
+            # phase 24 holds its batched decode to this run
+            untiled_run = dict(summary=summary, pred_img=frames[name],
+                               pred_disparity=out["pred_disparity"].cpu())
         del out
         if not tiling:
             del pipe, decodes
@@ -2959,7 +3201,8 @@ def run_tiled_path(device, results, ref_frames):
     del pipe, decodes
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(attention=tiled["attention_launches"], **tiled["conv_igemm_launches"]), rows
+    return (dict(attention=tiled["attention_launches"], **tiled["conv_igemm_launches"]), rows,
+            untiled_run)
 
 
 def ply_points(path: str) -> int:
@@ -3237,15 +3480,18 @@ def diff_stats(got, ref) -> dict:
 def mesh_f32_part(mesh) -> dict:
     """Phase 20 (b), one rank: f32 at full width (TF32 off), each mesh call
     and, on rank 0, the single-device call on the same inputs: one denoise
-    forward, cp_dec_window init then cont (2 latent frames each), and
+    forward, cp_dec_window init then cont (2 latent frames each),
+    cp_vae_decode_chunked of two streams at batch 2 (2 latent frames, the
+    mesh route of decode_batched) against vae_decode of the same batch, and
     cp_vae_encode_chunked of a 17-frame 384x512 carry (window 8)."""
     import torch
     from deepv_tpu_torch.config import MMDiTConfig, VAEConfig
     from deepv_tpu_torch.io.weights import params_from_numpy, random_params
     from deepv_tpu_torch.models.mmdit import MMDiT, mmdit_forward
-    from deepv_tpu_torch.models.vae import VAE, _dec_window, chunk_encode
+    from deepv_tpu_torch.models.vae import VAE, _dec_window, chunk_encode, vae_decode
     from deepv_tpu_torch.ops import attention as att
-    from deepv_tpu_torch.parallel.cp import cp_dec_window, cp_vae_encode_chunked
+    from deepv_tpu_torch.parallel.cp import (cp_dec_window, cp_vae_decode_chunked,
+                                             cp_vae_encode_chunked)
     from deepv_tpu_torch.parallel.tp import shard_mmdit_params
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3284,6 +3530,15 @@ def mesh_f32_part(mesh) -> dict:
             out["dec_window_cont"] = diff_stats(y1, r1)
             del r1, ref_cache
         del y0, y1
+        # rgb and disparity latents as one batch-2 context-parallel decode,
+        # the mesh route of decode_batched's plain branch
+        zb = torch.randn((2, vcfg.encoder_out_channels, 2, HEIGHT // 8, WIDTH // 8),
+                         generator=g, device=dev)
+        yb = cp_vae_decode_chunked(vcfg, vae, zb, mesh, "tp", window_size=2)
+        if lead:
+            out["decode_chunked_b2"] = diff_stats(
+                yb, vae_decode(vcfg, vae, zb, temporal_chunk=True, window_size=2))
+        del zb, yb
         x = torch.randn((1, 3, 17, HEIGHT, WIDTH), generator=g, device=dev)
         m = cp_vae_encode_chunked(vcfg, vae, x, mesh, "tp", window_size=8)
         if lead:
@@ -3446,7 +3701,8 @@ def run_mesh_path(device, results):
 
     f32 = two[0]["f32"]
     log("mesh path (b): f32 mesh vs single device:", json.dumps(f32))
-    for key in ("forward", "dec_window_init", "dec_window_cont", "encode_chunked"):
+    for key in ("forward", "dec_window_init", "dec_window_cont", "decode_chunked_b2",
+                "encode_chunked"):
         e = f32[key]
         assert e["rel_l2"] <= MESH_F32_REL_L2 and e["max_abs"] <= MESH_F32_MAX_ABS, (key, e)
     nccl = spawn(mesh_nccl_rank, 1, backend="nccl")[0]
@@ -4282,6 +4538,273 @@ def run_cold_start(device, results, card: str, prewarm_launches: int):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phase 24: rgb and disparity decoded as one batch-2 VAE call (decode_batched)
+# ---------------------------------------------------------------------------
+
+#: phase 24 (e)'s trace of one batched decode window, under chiprun_out/
+BATCHED_TRACE_DIR = "batched_decode_trace"
+
+
+def cache_batches(tree):
+    """The sorted batch sizes of a decoder cache tree's tensors, or None."""
+    import torch
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return [tree.shape[0]]
+    values = tree.values() if isinstance(tree, dict) else tree
+    return sorted({b for v in values for b in (cache_batches(v) or [])})
+
+
+def frame_gap(got, want) -> dict:
+    """How far ``got`` is from ``want``: bit-equal, max |d|, relative L2 and
+    the 8-bit gap."""
+    import torch
+    got, want = got.to(want.device), want
+    mean8, p95 = eight_bit_gap(got, want)
+    return dict(bit_equal=bool(torch.equal(got, want)),
+                max_abs=float((got.float() - want.float()).abs().max()),
+                rel_l2=rel_l2(got, want), gap_8bit_mean=mean8, gap_8bit_p95=p95)
+
+
+def gate_bf16(name: str, gap: dict, rule: float) -> None:
+    """Bit-equal, or within phase 8's bf16 rule (``rule``: twice the relative
+    L2 between a bf16 and an f32 decode of the same latents): the two sides
+    are bf16 decodes of the same latents that round in other places."""
+    assert gap["bit_equal"] or gap["rel_l2"] <= rule, (
+        f"{name}: relative L2 {gap['rel_l2']} over phase 8's bf16 rule {rule}")
+
+
+def card_state():
+    """The card's SM clock, power draw and temperature, as nvidia-smi reads
+    them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return smi.stdout.strip() if smi.returncode == 0 else None
+
+
+def run_batched_rollout(pipe, setup_s: float):
+    """drive_rollout under a DecoderSpy, with each chunk's kept decoder
+    caches (their batch sizes) and chunk 1's end-of-chunk decode latents
+    recorded; checks that every decoder conv ran at batch 2 and every
+    encoder conv at batch 1 (the pipeline encodes rows one at a time)."""
+    from deepv_tpu_torch import pipeline as pl
+
+    kept, latents = [], []
+    end_chunk, decode = pipe._end_chunk, pl.vae_decode
+
+    def end_spy(ch, keep_caches=None):
+        res = end_chunk(ch, keep_caches)
+        kept.append(None if res[4] is None else [cache_batches(c) for c in res[4]])
+        return res
+
+    def decode_spy(cfg_, p, z, **kwargs):
+        if not latents:
+            latents.append(z)
+        return decode(cfg_, p, z, **kwargs)
+
+    pipe._end_chunk, pl.vae_decode = end_spy, decode_spy
+    card = card_state()
+    try:
+        with DecoderSpy() as spy:
+            summary, out, conv_launches = drive_rollout(pipe, setup_s)
+    finally:
+        del pipe._end_chunk
+        pl.vae_decode = decode
+    spied = spy.summary()
+    assert set(spied["conv_batches"]["decoder"]) == {2}, spied
+    assert set(spied["conv_batches"]["encoder"]) == {1}, spied
+    summary.update(spied, kept_caches=kept, card_before=card)
+    return summary, out, conv_launches, latents
+
+
+def run_batched_decode_path(device, results, untiled, adaptive_chunk1, fast_frames):
+    """Phase 24: InferencePipeline(stream_decode=False, decode_batched=True)
+    at full width in bf16 on phase 5's weights, image, prompt and seed, in
+    this order: (a) phase 18's untiled igemm rollout; (d) a tiled batched
+    decode of (a)'s chunk-1 latents against two batch-1 tiled decodes; (b)
+    phase 12's adaptive + reuse + carry rollout; (e) one batched decode
+    window inside utils/profiling.device_trace; (c) phase 11's --fast
+    rollout.
+    ``untiled``: phase 18's untiled run; ``adaptive_chunk1``: phase 12's
+    chunk-1 frames; ``fast_frames``: phase 11's frames. Returns the launches
+    of K2 in (a) and of K3 in (c)."""
+    import torch
+    from deepv_tpu_torch import pipeline as pl
+    from deepv_tpu_torch.actions import action_vocabulary
+    from deepv_tpu_torch.config import MMDiTConfig, VAEConfig, create_model_config
+    from deepv_tpu_torch.io.text_embeds import random_text_embeds
+    from deepv_tpu_torch.io.weights import random_params
+    from deepv_tpu_torch.models.vae import _dec_window, vae_decode
+    from deepv_tpu_torch.ops import conv_igemm as cig
+    from deepv_tpu_torch.run import load_pipeline
+    from deepv_tpu_torch.utils.profiling import TRACE_FILE, device_trace
+
+    cfg = create_model_config("none", use_motion_prompt=True)
+    mcfg = MMDiTConfig()
+    embeds = random_text_embeds(0, action_vocabulary(), joint_dim=mcfg.joint_attention_dim,
+                                pooled_dim=mcfg.pooled_projection_dim)
+    rule = 2 * results["decode_check"]["rel_l2_bf16_vs_f32_xla"]
+    serial = untiled["summary"]
+    report = dict(bf16_rule_rel_l2=rule)
+
+    def build(vcfg, **kwargs):
+        t0 = time.perf_counter()
+        pipe = pl.InferencePipeline(
+            cfg, mcfg, vcfg, random_params(mcfg, vcfg, dtype=torch.bfloat16, seed=0,
+                                           device=device),
+            embeds, dtype=torch.bfloat16, device=device, stream_decode=False,
+            decode_batched=True, **kwargs)
+        torch.cuda.synchronize()
+        return pipe, time.perf_counter() - t0
+
+    def k2_count():
+        return cig.launches + cig.cl_launches
+
+    # (a) the untiled igemm rollout: chunk 1 the plain decode, chunk 2 primed
+    vcfg = VAEConfig(conv_impl="igemm")
+    pipe, setup_s = build(vcfg)
+    a, out, conv_launches, latents = run_batched_rollout(pipe, setup_s)
+    assert a["forwards"] == FORWARDS, a["forwards"]
+    assert a["attention_launches"] == FORWARDS * mcfg.num_layers, a     # 4,320
+    k2 = conv_launches["launches"] + conv_launches["cl_launches"]
+    assert 2 * a["decoder_k2_launches"] == serial["decoder_conv_igemm_launches"], (
+        f"K2 in the batched decoder {a['decoder_k2_launches']}, phase 18 untiled's "
+        f"{serial['decoder_conv_igemm_launches']}")
+    assert k2 - a["decoder_k2_launches"] == serial["encoder_conv_igemm_launches"], (k2, serial)
+    assert a["phase_counts"]["prime"] == 1 and serial["phase_counts"]["prime"] == 2, (
+        a["phase_counts"], serial["phase_counts"])
+    assert a["kept_caches"] == [None, None], a["kept_caches"]
+    gaps = {}
+    for key in ("pred_img", "pred_disparity"):
+        for part, sl in (("chunk1", slice(0, CHUNK1_FRAMES)), ("chunk2", slice(CHUNK1_FRAMES, None))):
+            gaps[f"{key} {part}"] = frame_gap(out[key][:, :, sl], untiled[key][:, :, sl].to(device))
+    # chunk 2 is conditioned on chunk 1's pixels (the carry re-encode): it is
+    # held to the rule only where chunk 1 is bit-equal
+    for key in ("pred_img", "pred_disparity"):
+        gate_bf16(f"(a) {key} chunk 1", gaps[f"{key} chunk1"], rule)
+        if gaps[f"{key} chunk1"]["bit_equal"]:
+            gate_bf16(f"(a) {key} chunk 2", gaps[f"{key} chunk2"], rule)
+    a.update(gap_vs_phase18_untiled=gaps)
+    log("batched decode (a):", json.dumps(a))
+    log("batched decode (a): frames against phase 18 untiled: " + json.dumps(gaps))
+    del out
+
+    # (d) a tiled batched decode of chunk 1's latents against two batch-1 ones
+    z = latents[0]
+    assert z.shape[0] == 2, tuple(z.shape)
+    kw = dict(temporal_chunk=True, window_size=pipe.decode_window, use_tiling=True)
+    tiled = {}
+    with torch.inference_mode():
+        for name, calls in (("batched", [z]), ("two_batch_1", [z[:1], z[1:2]])):
+            c0 = k2_count()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = torch.cat([vae_decode(vcfg, pipe.vae, zz, **kw) for zz in calls])
+            torch.cuda.synchronize()
+            tiled[name] = dict(y=y, seconds=time.perf_counter() - t0, k2=k2_count() - c0)
+    d = frame_gap(tiled["batched"]["y"], tiled["two_batch_1"]["y"])
+    gate_bf16("(d) tiled decode", d, rule)
+    assert 2 * tiled["batched"]["k2"] == tiled["two_batch_1"]["k2"] > 0, tiled
+    assert tuple(tiled["batched"]["y"].shape) == (2, 3, CHUNK1_FRAMES, HEIGHT, WIDTH)
+    d.update({f"{k}_{f}": v[f] for k, v in tiled.items() for f in ("seconds", "k2")})
+    log("batched decode (d): tiled decode of chunk 1's latents, batch 2 against two batch-1 "
+        "calls: " + json.dumps(d))
+    del tiled
+
+    vae = pipe.vae
+    del pipe, latents
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) phase 12's modes: the reuse branch keeps one batch-2 cache
+    pipe, setup_s = build(VAEConfig(), flow_cache="adaptive:0.5", reuse_decoder_cache=True,
+                          carry_latents=True)
+    b, out, conv_launches, _ = run_batched_rollout(pipe, setup_s)
+    assert not any(conv_launches.values()), conv_launches
+    assert b["attention_launches"] == b["forwards"] * mcfg.num_layers, b
+    assert "prime" not in b["phases_s"], "cache reuse must not prime"
+    assert b["kept_caches"] == [[[2], None]] * 2, b["kept_caches"]
+    # chunk 1's latents are phase 12's (its denoise reads no decoded pixel);
+    # phase 12 decoded them streamed, one unit a window, at batch 1
+    b_gaps = {key: frame_gap(out[key][:, :, :CHUNK1_FRAMES], adaptive_chunk1[key].to(device))
+              for key in ("pred_img", "pred_disparity")}
+    for key, gap in b_gaps.items():
+        gate_bf16(f"(b) {key} chunk 1", gap, rule)
+    b.update(gap_vs_phase12_chunk1=b_gaps, recompute_log=[list(r) for r in pipe.recompute_log])
+    log("batched decode (b):", json.dumps(b))
+    log("batched decode (b): chunk 1 against phase 12's: " + json.dumps(b_gaps))
+    del pipe, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) one batched decode window inside device_trace, between (b) and
+    # (c): the card's state before each rollout is printed, so a rollout
+    # after the capture can be compared with one before it
+    logdir = os.path.join(HERE, "chiprun_out", BATCHED_TRACE_DIR)
+    c0 = k2_count()
+    with torch.inference_mode(), device_trace(logdir, device):
+        _dec_window(vcfg, vae.decoder, z[:, :, :1], None, "init")
+    launched = k2_count() - c0
+    path = os.path.join(logdir, TRACE_FILE)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k2_events = [e for e in kernels if "conv3d_igemm_wgmma" in e.get("name", "")]
+    assert k2_events, f"the trace at {path} names no conv3d_igemm_wgmma kernel"
+    e = dict(trace=os.path.relpath(path, HERE), trace_mb=os.path.getsize(path) / 1e6,
+             kernels=len(kernels), conv3d_igemm_wgmma_kernels=len(k2_events),
+             conv3d_igemm_wgmma_launches=launched,
+             conv3d_igemm_wgmma_device_ms=sum(ev.get("dur", 0) for ev in k2_events) / 1e3,
+             kernels_device_ms=sum(ev.get("dur", 0) for ev in kernels) / 1e3)
+    log("batched decode (e): device_trace of one batched init window: " + json.dumps(e))
+    del vae, z, events, kernels, k2_events
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) phase 11's --fast settings
+    t0 = time.perf_counter()
+    pipe = load_pipeline("none", cfg, random_weights=True, dtype=torch.bfloat16, device=device,
+                         seed=0, fast=True)
+    pipe.stream_decode, pipe.decode_batched = False, True
+    torch.cuda.synchronize()
+    c, out, conv_launches, _ = run_batched_rollout(pipe, time.perf_counter() - t0)
+    assert c["forwards"] == 108 and not any(conv_launches.values()), c
+    dec = c["dispatch_batches"]["decoder"]
+    enc = c["dispatch_batches"]["encoder"]
+    assert set(dec) == {"int8 b=2"} and set(enc) == {"int8 b=1"}, c["dispatch_batches"]
+    dispatches = dec["int8 b=2"] + enc["int8 b=1"]
+    assert c["conv_int8_launches"] == c["quantize_k3_launches"] == dispatches, c
+    assert c["decoder_k3_launches"] == c["decoder_k3_quantise_launches"] == dec["int8 b=2"], c
+    mean8, p95 = eight_bit_gap(out["pred_img"], fast_frames.to(device))
+    c.update(gap_vs_phase11_8bit_mean=mean8, gap_vs_phase11_8bit_p95=p95)
+    log("batched decode (c):", json.dumps(c))
+    log(f"batched decode (c): --fast, K3 {dispatches} launches (decoder {dec['int8 b=2']} at "
+        f"batch 2, encoder {enc['int8 b=1']} at batch 1), 8-bit gap to phase 11's frames mean "
+        f"{mean8:.4f}, p95 {p95:.4f} (printed, not gated: one activation scale for both streams)")
+    del pipe, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def row(name, r):
+        ph = r["phases_s"]
+        return (f"{name}: wall {r['wall_s']:.2f} s, denoise_unit {ph['denoise_unit']:.3f} s, "
+                f"vae_decode {ph.get('vae_decode', 0):.3f} s, "
+                f"stream_decode {ph.get('stream_decode', 0):.3f} s, prime "
+                f"{ph.get('prime', 0):.3f} s, peak {r['max_memory_allocated_gib']:.2f} GiB"
+                + (f"; card before: {r['card_before']}" if r.get("card_before") else ""))
+    for name, r in (("(a) batched igemm", a), ("phase 18 untiled igemm", serial),
+                    ("(b) batched adaptive + reuse", b),
+                    ("phase 12 streamed adaptive + reuse", results["adaptive_boundary_path"]),
+                    ("(c) batched --fast", c), ("phase 11 streamed --fast", results["fast_path"])):
+        log("batched decode, " + row(name, r))
+    report.update(igemm=a, tiled=d, trace=e, adaptive_reuse=b, fast=c)
+    results["batched_decode_path"] = report
+    return dict(k2=k2, k2_decoder=a["decoder_k2_launches"], k3_wgmma=c["conv_int8_wgmma_launches"],
+                k3_packed=c["conv_int8_packed_launches"], k3_quantise=c["quantize_k3_launches"])
+
+
 def main() -> int:
     import torch
 
@@ -4336,6 +4859,7 @@ def main() -> int:
 
     rows = timed("3", check_attention, device, results)
     conv_rows = timed("4", check_conv_igemm, device, results)
+    conv_b2_rows = timed("4 (batch 2)", check_conv_igemm_batch2, device, results)
     pipe, launches, ref_frames, ref_disparity, ref_poses = timed("5", run_main_path, device,
                                                                   results)
     timed("6", check_forward, pipe, device, results)
@@ -4348,9 +4872,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     k3_rows = timed("9", check_conv_int8, device, results)
+    k3_b2_rows = timed("9 (batch 2)", check_conv_int8_batch2, device, results)
     timed("10", check_linear_int8, device, results)
-    fast, k3_frames_by_class = timed("11", run_fast_path, device, results, ref_frames)
-    timed("12", run_adaptive_boundary_path, device, results, ref_frames)
+    fast, k3_frames_by_class, fast_frames = timed("11", run_fast_path, device, results,
+                                                  ref_frames)
+    _, adaptive_chunk1 = timed("12", run_adaptive_boundary_path, device, results, ref_frames)
     serving = timed("13", run_serving_path, device, results, ref_frames, ref_disparity,
                     launches)
     ref_frames, ref_disparity = ref_frames.cpu(), ref_disparity.cpu()
@@ -4367,7 +4893,8 @@ def main() -> int:
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
-    tiled_launches, tiled_rows = timed("18", run_tiled_path, device, results, ref_frames)
+    tiled_launches, tiled_rows, untiled = timed("18", run_tiled_path, device, results,
+                                                ref_frames)
     timed("19", run_ply_path, device, results, {
         "pred_img": ref_frames, "pred_disparity": ref_disparity, "trans3d": ref_poses[0],
         "trans2d": ref_poses[1]})
@@ -4383,6 +4910,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     timed("23", run_cold_start, device, results, card, serving["prewarm_launches"])
+    batched = timed("24", run_batched_decode_path, device, results, untiled, adaptive_chunk1,
+                    fast_frames)
+    del untiled, adaptive_chunk1, fast_frames
 
     assert launches == sum(r["launches_per_rollout"] for r in rows), (
         "K1's launches per layout do not add up to the rollout's")
@@ -4530,9 +5060,18 @@ def main() -> int:
             "shape": (f"{row['ci']}->{row['co']} @{row['h']}x{row['w']}, {row['frames']} output "
                       f"frames, {row['mode']} mode, bf16"
                       + (", x channels-last" if row is on_path else "")
-                      + "; max_abs_err also over phase 18's tile shapes"),
+                      + "; max_abs_err also over phase 18's tile shapes"
+                      + (" and phase 4's batch-2 decoder classes" if counter == "launches"
+                         else "")),
             "launches_tiled": tiled_launches[counter],
         })
+    # phase 24 (a): K2 in the batched igemm rollout (the decoder's at batch
+    # 2), and phase 4's batch-2 checks
+    kernels[-2].update(launches_batched_decode=batched["k2"],
+                       launches_batched_decode_decoder=batched["k2_decoder"],
+                       max_abs_err_batch2=max(r["max_abs_err"] for r in conv_b2_rows))
+    kernels[-2]["max_abs_err"] = max(kernels[-2]["max_abs_err"],
+                                     kernels[-2]["max_abs_err_batch2"])
     # K2's f32 kernel and its split kernel at 128->128 @384x512 in prime
     # mode, the class with the most time in the decoder; launches from phase
     # 8's f32 igemm decode
@@ -4639,6 +5178,8 @@ def main() -> int:
             "shape": (shape(row) + f"; the conv kernel alone (the whole call {row['ms']:.4f} ms "
                       "with the quantise step); no TPU kernel: deepv_tpu's XLA int8 conv; "
                       "plain_ms is the whole plain conv; library_ms is cuDNN's bf16 conv"),
+            # phase 24 (c): the batched --fast rollout (the decoder's at batch 2)
+            "launches_batched_decode": batched[f"k3_{route}"],
         })
     top = k3_per_frame[max(k3_by_class, key=lambda k: k3_by_class[k]["k3_s"])]
     kernels.append({
@@ -4656,7 +5197,13 @@ def main() -> int:
         "shape": (shape(top) + f"'s input; the kernel alone (with the amax that makes sx "
                   f"{top['quantise_ms']:.4f} ms; plain_ms includes it); no single PyTorch "
                   "call quantises into this layout"),
+        "launches_batched_decode": batched["k3_quantise"],
     })
+    # phase 9's batch-2 checks: every decoder class takes the wgmma kernel
+    k3_wgmma = next(k for k in kernels if k["name"] == "conv3d_int8_wgmma")
+    assert {r["route"] for r in k3_b2_rows} == {"wgmma"}, k3_b2_rows
+    k3_wgmma["max_abs_err_batch2"] = max(r["max_abs_err"] for r in k3_b2_rows)
+    k3_wgmma["max_abs_err"] = max(k3_wgmma["max_abs_err"], k3_wgmma["max_abs_err_batch2"])
     log("phase seconds:", json.dumps(phase_s))
     results["phase_s"] = phase_s
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

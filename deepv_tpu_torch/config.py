@@ -118,8 +118,8 @@ class VAEConfig:
     #: conv backend for eligible 3x3x3 stride-1 layers. The names are the
     #: JAX package's: "xla" is the library convolution (``F.conv3d`` here,
     #: the default); "igemm" is the hand-written implicit-GEMM kernel
-    #: (``ops/conv_igemm.py``); "int8" is not ported yet, and the pipeline
-    #: raises NotImplementedError for it. Runtime knob, not a checkpoint
+    #: (``ops/conv_igemm.py``); "int8" is the quantised conv
+    #: (``ops/conv_int8.py``). Runtime knob, not a checkpoint
     #: hyperparameter.
     conv_impl: str = "xla"
 

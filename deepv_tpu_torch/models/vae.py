@@ -154,11 +154,18 @@ def causal_group_norm(x: torch.Tensor, num_groups: int, p, cp_group=None) -> tor
     formula, the sum and the sum of squares in at-least-f32 summed over the
     group (one ``all_reduce``), then ``var = E[x^2] - mean^2``, eps 1e-6."""
     b, c, t, h, w = x.shape
-    if cp_group is None:
-        x2 = x.transpose(1, 2).reshape(b * t, c, h, w)
-        y = group_norm(x2, num_groups, p.weight, p.bias)
-        return y.reshape(b, t, c, h, w).transpose(1, 2)
     g, ct = num_groups, compute_dtype(x.dtype)
+    if cp_group is None:
+        # the statistics of each (sample, group, frame) reduce over a view
+        # of x whose strides do not depend on b, so a batch of streams
+        # normalises each stream as it would alone
+        xf = x.to(ct).reshape(b, g, c // g, t, h * w)
+        mean = xf.mean(dim=(2, 4), keepdim=True)
+        var = (xf - mean).square().mean(dim=(2, 4), keepdim=True)
+        xf = ((xf - mean) * torch.rsqrt(var + 1e-6)).reshape(b, c, t, h, w)
+        shape = (1, c, 1, 1, 1)
+        out = xf * p.weight.to(ct).reshape(shape) + p.bias.to(ct).reshape(shape)
+        return out.to(x.dtype)
     xf = x.to(ct).transpose(1, 2).reshape(b * t, g, c // g, h * w)
     sums = comm.all_reduce(torch.stack([xf.sum(dim=(2, 3)), xf.square().sum(dim=(2, 3))]),
                            cp_group)
@@ -197,7 +204,9 @@ def attn2d_apply(p: _Attn2d, x: torch.Tensor, groups: int, cp_group=None) -> tor
         y = attn2d_apply(p, comm.all_gather(x, 3, cp_group), groups)
         return y.narrow(3, dist.get_rank(cp_group) * h_local, h_local)
     b, c, t, h, w = x.shape
-    x2 = x.transpose(1, 2).reshape(b * t, c, h * w)
+    # frames laid out alike at any b (a view at b = 1 would not be), so a
+    # batch of streams attends each stream as it would alone
+    x2 = x.transpose(1, 2).contiguous().reshape(b * t, c, h * w)
     xn = group_norm(x2, groups, p.group_norm.weight, p.group_norm.bias).transpose(1, 2)
     q, k, v = linear(xn, p.to_q), linear(xn, p.to_k), linear(xn, p.to_v)
     ct = compute_dtype(x.dtype)

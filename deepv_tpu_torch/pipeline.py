@@ -19,13 +19,14 @@ The quality-gated fast modes are options of the same rollout: flow caching
 (``flow_cache="skip_odd"`` or ``"adaptive[:tau]"``), the W8A8 denoise
 linears (``denoise_int8``), the int8 VAE conv (``VAEConfig(conv_impl=
 "int8")``), and the chunk-boundary modes ``reuse_decoder_cache`` and
-``carry_latents``.
+``carry_latents``. With ``stream_decode=False`` the chunk is decoded at its
+end, rgb and disparity as two calls or, ``decode_batched``, as one batch-2
+call.
 
 Every Gaussian draw goes through one noise source (``TorchNoise`` by
 default, a seeded ``torch.Generator`` on the pipeline's device): the initial
 latents, the iid ``z`` behind each inter-stage block noise and the VAE
-posterior's eps. Options of deepv_tpu that are not ported yet raise
-NotImplementedError naming their ROADMAP item.
+posterior's eps.
 """
 
 from __future__ import annotations
@@ -394,10 +395,6 @@ class InferencePipeline:
         if reuse_decoder_cache and use_tiling:
             raise ValueError("reuse_decoder_cache carries untiled decoder caches; "
                              "it cannot be combined with use_tiling")
-        if decode_batched:
-            raise NotImplementedError(
-                "decode_batched: not ported (ROADMAP queue 1: only deepv_tpu's bench.py tiny "
-                "TPU preset sets it, bench.py:288)")
         #: multi-card inference: this rank's view of the mesh, or None
         self.mesh = mesh
         self.mesh_axis = mesh_axis
@@ -458,6 +455,11 @@ class InferencePipeline:
         self.text_embeds = text_embeds
         self.decode_window = decode_window
         self.encode_window = encode_window
+        #: decode rgb and disparity as one batch-2 VAE call at the end of a
+        #: chunk (``stream_decode=False``; the streamed windows stay two
+        #: calls). In the reuse mode the kept caches are then one batch-2
+        #: cache and None, as deepv_tpu keeps them
+        self.decode_batched = decode_batched
         #: decode each unit's latent as soon as it is denoised (exact: the
         #: causal VAE's chunked decode equals the full decode)
         self.stream_decode = stream_decode
@@ -806,15 +808,28 @@ class InferencePipeline:
                 full_window = n_ov == 0
                 prev_rgb, prev_disp = ch.dec_state or (None, None)
                 ch.dec_state = None
-                image, ch.rgb = self._decode_latents_reuse(lat_img, prev_rgb, n_ov)
-                prev_rgb = None
-                disparity, ch.disp = self._decode_latents_reuse(lat_disp, prev_disp, n_ov)
-                prev_disp = None
+                if self.decode_batched:
+                    # one batch-2 cache, kept as the rgb one
+                    both, ch.rgb = self._decode_latents_reuse(
+                        torch.cat([lat_img, lat_disp]), prev_rgb, n_ov)
+                    image, disparity = both[:1], both[1:2]
+                else:
+                    image, ch.rgb = self._decode_latents_reuse(lat_img, prev_rgb, n_ov)
+                    prev_rgb = None
+                    disparity, ch.disp = self._decode_latents_reuse(lat_disp, prev_disp, n_ov)
+                prev_rgb = prev_disp = None
             elif not ch.firstframe_mask and self._prime_eligible(input_image_latent):
                 n_ov = input_image_latent.shape[2]
                 full_window = False
-                image = self._decode_latents_primed(lat_img, n_ov)
-                disparity = self._decode_latents_primed(lat_disp, n_ov)
+                if self.decode_batched:
+                    both = self._decode_latents_primed(torch.cat([lat_img, lat_disp]), n_ov)
+                    image, disparity = both[:1], both[1:2]
+                else:
+                    image = self._decode_latents_primed(lat_img, n_ov)
+                    disparity = self._decode_latents_primed(lat_disp, n_ov)
+            elif self.decode_batched:
+                both = self._decode_latents(torch.cat([lat_img, lat_disp]))
+                image, disparity = both[:1], both[1:2]
             else:
                 image = self._decode_latents(lat_img)
                 disparity = self._decode_latents(lat_disp)

@@ -95,13 +95,14 @@ def test_pipeline_takes_a_deepv_tpu_call():
     """A deepv_tpu-style construction builds the port's pipeline on the CPU:
     dtype, use_tiling and decode_window by position in deepv_tpu's order,
     decode_batched and mesh_axis by keyword among deepv_tpu's others;
-    decode_batched=True is refused as not ported."""
+    decode_batched=True builds and is kept."""
     pipe = _tiny_pipeline(torch.float32, False, 3, decode_batched=False, stream_decode=False,
                           flow_cache="skip_odd", mesh=None, mesh_axis="tp", device="cpu")
     assert (pipe.dtype, pipe.decode_window, pipe.stream_decode, pipe.flow_cache,
             pipe.mesh_axis) == (torch.float32, 3, False, "skip_odd", "tp")
-    with pytest.raises(NotImplementedError, match="decode_batched"):
-        _tiny_pipeline(torch.float32, decode_batched=True, device="cpu")
+    assert not pipe.decode_batched
+    pipe = _tiny_pipeline(torch.float32, decode_batched=True, stream_decode=False, device="cpu")
+    assert pipe.decode_batched and not pipe.stream_decode
 
 
 def _one_chunk(pipe, batch, key_or_noise, image):

@@ -8,8 +8,10 @@ of 7 actions at 64x64 in float64 with tests/test_torch_port_pipeline.py's
 configuration, parameters, pins and recorded Gaussian draws, which every
 rank replays. One ``parallel/launch.spawn`` of 2 processes
 (``torch_port_mesh_worker.rollout_rank``, torch and the port only) runs that
-rollout and an adaptive-caching one (tau 0.5) on a 2-rank mesh: the MMDiT's
-4 heads split 2 and 2, every encode and decode split over the image height.
+rollout, an adaptive-caching one (tau 0.5) and that rollout again decoded at
+the end of the chunk as one batch-2 call (``decode_batched``) on a 2-rank
+mesh: the MMDiT's 4 heads split 2 and 2, every encode and decode split over
+the image height.
 
 Tolerances: deepv_tpu's mesh test's, pixels 1e-6 and ``trans3d`` 1e-5
 (the pose decode amplifies the float64 summation-order differences ~10x
@@ -87,6 +89,22 @@ def test_mesh_rollout_matches_single_device_deepv_tpu(rollouts, key, atol):
     np.testing.assert_allclose(got, ref[key], rtol=0, atol=atol)
 
 
+@pytest.mark.parametrize("key, atol", [("pred_img", PIXEL_ATOL),
+                                       ("pred_disparity", PIXEL_ATOL),
+                                       ("trans3d", TRANS3D_ATOL), ("trans2d", TRANS3D_ATOL)])
+def test_mesh_batched_decode_matches_single_device_deepv_tpu(rollouts, key, atol):
+    """``stream_decode=False, decode_batched=True`` on the mesh: rgb and
+    disparity go through one batch-2 ``cp_vae_decode_chunked`` call, and the
+    rollout equals deepv_tpu's at the exact rollout's tolerances."""
+    ref, _, ranks = rollouts
+    for r in ranks:
+        assert r["batched_decode_batches"] == [2]
+        assert all(n == 0 for n in r["batched_draws_left"].values())
+    got = ranks[0]["batched"][key].numpy()
+    assert got.shape == ref[key].shape and np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref[key], rtol=0, atol=atol)
+
+
 def test_mesh_rollout_layout(rollouts):
     ref, ref_index, ranks = rollouts
     out = ranks[0]["exact"]
@@ -95,7 +113,7 @@ def test_mesh_rollout_layout(rollouts):
     assert all(n == 0 for n in ranks[0]["draws_left"].values()), ranks[0]["draws_left"]
 
 
-@pytest.mark.parametrize("run_name", ["exact", "adaptive"])
+@pytest.mark.parametrize("run_name", ["exact", "adaptive", "batched"])
 def test_ranks_return_the_same_bits(rollouts, run_name):
     _, _, ranks = rollouts
     for r in ranks[1:]:

@@ -135,7 +135,9 @@ class ReplayNoise:
 def rollout_rank(mcfg_kwargs: dict, params, embeds, batch, draws):
     """A float64 tiny rollout on a 2-rank mesh with the recorded draws, then
     an adaptive-caching rollout (tau 0.5, the port's own noise) on the same
-    mesh. Returns both outputs and the adaptive run's recompute decisions."""
+    mesh, then the recorded draws' rollout decoded at the end of the chunk
+    as one batch-2 call (``decode_batched``). Returns the outputs, the
+    adaptive run's recompute decisions and the batched decode's batches."""
     torch.set_num_threads(1)
     mesh = cpu_mesh((2,), ("tp",))
     mcfg, vcfg = MMDiTConfig(**mcfg_kwargs), VAEConfig.tiny()
@@ -149,6 +151,24 @@ def rollout_rank(mcfg_kwargs: dict, params, embeds, batch, draws):
                              device="cpu", mesh=mesh, flow_cache="adaptive:0.5")
     out["adaptive"] = pipe.generate(batch, seed=9, noise=TorchNoise(9, "cpu"))
     out["adaptive_decisions"] = list(pipe.recompute_log)
+    # rgb and disparity decoded as one batch-2 context-parallel call
+    pipe = InferencePipeline(PipelineConfig(), mcfg, vcfg, params, embeds, dtype=torch.float64,
+                             device="cpu", mesh=mesh, stream_decode=False, decode_batched=True)
+    import deepv_tpu_torch.pipeline as pipeline_module
+    decode, batches = pipeline_module.cp_vae_decode_chunked, []
+
+    def decode_spy(cfg, p, z, *args, **kwargs):
+        batches.append(z.shape[0])
+        return decode(cfg, p, z, *args, **kwargs)
+
+    pipeline_module.cp_vae_decode_chunked = decode_spy
+    try:
+        noise = ReplayNoise(draws)
+        out["batched"] = pipe.generate(batch, seed=9, noise=noise)
+    finally:
+        pipeline_module.cp_vae_decode_chunked = decode
+    out["batched_decode_batches"] = batches
+    out["batched_draws_left"] = {k: len(q) for k, q in noise.queues.items()}
     out["forbidden_modules"] = forbidden_modules()
     return out
 
